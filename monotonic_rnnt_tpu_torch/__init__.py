@@ -1,27 +1,40 @@
 """PyTorch + CUDA port of the monotonic RNN-T training loss.
 
 Counterpart of the JAX package ``monotonic_rnnt_tpu``, which stays the
-reference. The padded loss runs forward, cost-only and backward through
-hand-written CUDA kernels (``csrc/``, built for sm_90a at first use) on
-CUDA tensors, and through the plain-torch oracle on CPU tensors.
+reference. The padded loss and the banded loss (packed [B, T, W, V]
+layout) run forward, cost-only and backward through hand-written CUDA
+kernels (``csrc/``, built for sm_90a at first use) on CUDA tensors, and
+through the plain-torch oracles on CPU tensors.
 """
 
-from .ops.bands import Bands, bands_from_alignment, default_bands
+from .ops.banded import monotonic_rnnt_loss_banded
+from .ops.bands import (BandLayout, Bands, band_layout_is_exact,
+                        bands_from_alignment, compute_band_layout,
+                        default_bands, pack_band, required_band_width,
+                        suggested_band_width, unpack_band)
 from .ops.loss import monotonic_rnnt_alignment_score, monotonic_rnnt_loss
 from .ops.reference import rnnt_loss_reference
 from .utils.config import config_override, get_config, update_config
 from .utils.status import RnntError, Status
 
 __all__ = [
+    "BandLayout",
     "Bands",
     "RnntError",
     "Status",
+    "band_layout_is_exact",
     "bands_from_alignment",
+    "compute_band_layout",
     "config_override",
     "default_bands",
     "get_config",
     "monotonic_rnnt_alignment_score",
     "monotonic_rnnt_loss",
+    "monotonic_rnnt_loss_banded",
+    "pack_band",
+    "required_band_width",
     "rnnt_loss_reference",
+    "suggested_band_width",
+    "unpack_band",
     "update_config",
 ]

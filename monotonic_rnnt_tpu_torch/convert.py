@@ -1,8 +1,9 @@
 """Moves the state the JAX package and the port share into torch tensors.
 
 The loss holds no learned weights, so what crosses between the two
-packages is the loss's inputs and its bands, as numpy arrays: logits,
-labels, lengths, and ``Bands(min_s, max_s)``. Integer arrays become int32
+packages is the loss's inputs, its bands and its packed band layout, as
+numpy arrays: logits, labels, lengths, ``Bands(min_s, max_s)`` and
+``BandLayout(offset, d, d_next, width)``. Integer arrays become int32
 tensors, as the JAX package keeps them. The functions create tensors, so
 they default to ``device="cuda"`` and raise when no GPU is present; pass
 ``device="cpu"`` to run on the CPU.
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .ops.bands import Bands
+from .ops.bands import BandLayout, Bands
 
 
 def _device(device) -> torch.device:
@@ -59,3 +60,11 @@ def bands_from_numpy(min_s, max_s, device="cuda") -> Bands:
     """The JAX package's Bands(min_s, max_s), as [B, T] int32 tensors."""
     dev = _device(device)
     return Bands(_int_tensor(min_s, dev), _int_tensor(max_s, dev))
+
+
+def band_layout_from_numpy(offset, d, d_next, width: int,
+                           device="cuda") -> BandLayout:
+    """The JAX package's BandLayout, its arrays as [B, T] int32 tensors."""
+    dev = _device(device)
+    return BandLayout(_int_tensor(offset, dev), _int_tensor(d, dev),
+                      _int_tensor(d_next, dev), int(width))

@@ -22,14 +22,8 @@
 //      scale * exp(aprev + beta - ll) in the op order of kernels.py:688-691,
 //      so the cost cotangent is folded in. They cost 3.9 MB at the benchmark
 //      shape (0.3% of the big tensor) and let (d) stay elementwise.
-//  (d) mrnnt_grad_kernel: one warp per (b,t,s) row over V:
-//      dz = p * (occ - [v==blank] cb - [v==label] cl), p = exp(x + denom),
-//      and 0 by a select (never p*0) where that coefficient is 0, so +-inf
-//      padding cannot give NaN (kernels.py:1317-1319). A row whose three
-//      coefficients are all 0 (padding, unreachable cells) has a zero
-//      gradient whatever its logits hold: it is written without being read.
-//      bf16 output rounds to nearest even, as astype.
-// Row offsets are 64-bit; loads are scalar, so any V works.
+//  (d) mrnnt_grad_kernel, the kernel of grad_pass (csrc/grad_pass.cu),
+//      which the wrapper launches after (c) with [B,S1] labels.
 
 #include "common.cuh"
 
@@ -82,69 +76,6 @@ __global__ void mrnnt_beta_kernel(
   }
 }
 
-template <typename T>
-__global__ void mrnnt_grad_kernel(const T* __restrict__ logits,
-                                  const float* __restrict__ denom,
-                                  const float* __restrict__ occ,
-                                  const float* __restrict__ cb,
-                                  const float* __restrict__ cl,
-                                  const int* __restrict__ labels_ext,
-                                  long long rows, long long t_s1, int s1,
-                                  int v, int blank, T* __restrict__ grads) {
-  const int lane = threadIdx.x % kWarp;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) +
-      threadIdx.x / kWarp;
-  if (row >= rows) return;
-  const long long off = row * static_cast<long long>(v);
-  T* g = grads + off;
-  const float o = occ[row], c_b = cb[row], c_l = cl[row];
-  if (o == 0.f && c_b == 0.f && c_l == 0.f) {
-    const T zero = from_f32<T>(0.f);
-    for (int vi = lane; vi < v; vi += kWarp) g[vi] = zero;
-    return;
-  }
-  const T* x = logits + off;
-  const float d = denom[row];
-  const int lab = labels_ext[(row / t_s1) * s1 + static_cast<int>(row % s1)];
-  for (int v0 = lane; v0 < v; v0 += kWarp * kUnroll) {
-    float xs[kUnroll];
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int vi = v0 + k * kWarp;
-      xs[k] = vi < v ? to_f32(x[vi]) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int vi = v0 + k * kWarp;
-      if (vi < v) {
-        const float p = expf(xs[k] + d);
-        const float coef =
-            o - (vi == blank ? c_b : 0.f) - (vi == lab ? c_l : 0.f);
-        g[vi] = from_f32<T>(coef == 0.f ? 0.f : p * coef);
-      }
-    }
-  }
-}
-
-constexpr int kGradThreads = 256;  // 8 rows per block
-
-template <typename T>
-int launch_grad(const void* logits, const float* denom, const float* occ,
-                const float* cb, const float* cl, const int* labels_ext,
-                int batch, int t_max, int s1, int v, int blank, void* grads,
-                cudaStream_t stream) {
-  const long long rows = static_cast<long long>(batch) * t_max * s1;
-  const long long rows_per_block = kGradThreads / kWarp;
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  mrnnt_grad_kernel<T><<<static_cast<unsigned>(blocks), kGradThreads, 0,
-                         stream>>>(
-      static_cast<const T*>(logits), denom, occ, cb, cl, labels_ext, rows,
-      static_cast<long long>(t_max) * s1, s1, v, blank, static_cast<T*>(grads));
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace mrnnt
 
 extern "C" int mrnnt_beta(const float* lpb_bmask, const float* lpl_bmask,
@@ -166,17 +97,4 @@ extern "C" int mrnnt_beta(const float* lpb_bmask, const float* lpl_bmask,
       lpb_bmask, lpl_bmask, aprev, input_lengths, ll_bounded, grad_scale,
       beta_virtual, t_max, s1, betas, occ, cb, cl);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int mrnnt_grad(const void* logits, int is_bf16, const float* denom,
-                          const float* occ, const float* cb, const float* cl,
-                          const int* labels_ext, int batch, int t_max, int s1,
-                          int v, int blank, void* grads, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return mrnnt::launch_grad<__nv_bfloat16>(logits, denom, occ, cb, cl,
-                                             labels_ext, batch, t_max, s1, v,
-                                             blank, grads, st);
-  return mrnnt::launch_grad<float>(logits, denom, occ, cb, cl, labels_ext,
-                                   batch, t_max, s1, v, blank, grads, st);
 }

@@ -14,8 +14,8 @@
 // Design. On the TPU one sequential grid both streamed V and advanced the
 // DP. Hopper blocks run unordered, so the wrapper launches two kernels:
 //  (a) mrnnt_stats_kernel: one warp per (b,t,s) row, an online max/sum-exp
-//      over V in f32 (kUnroll loads in flight per lane, combined across the
-//      warp by shuffles). Lane 0 loads x[blank] and x[label[s]] directly.
+//      over V in f32 (common.cuh warp_row_lse, shared with the banded stats
+//      kernel). Lane 0 loads x[blank] and x[label[s]] directly.
 //      This is the only pass over the big tensor.
 //  (b) mrnnt_alpha_kernel: one block per sample, a thread per s (strided
 //      when S1 exceeds the block), t walked serially with the alpha row
@@ -45,37 +45,8 @@ __global__ void mrnnt_stats_kernel(const T* __restrict__ logits,
   if (row >= rows) return;
   const T* x = logits + row * static_cast<long long>(v);
 
-  // Online log-sum-exp: m is the running max, s the sum of exp(x - m).
-  // A chunk that is all -inf (or the masked tail) contributes nothing.
-  float m = MRNNT_NEG_INF, s = 0.f;
-  for (int v0 = lane; v0 < v; v0 += kWarp * kUnroll) {
-    float xs[kUnroll];
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int vi = v0 + k * kWarp;
-      xs[k] = vi < v ? to_f32(x[vi]) : MRNNT_NEG_INF;
-    }
-    float cm = xs[0];
-#pragma unroll
-    for (int k = 1; k < kUnroll; ++k) cm = fmaxf(cm, xs[k]);
-    const float mn = fmaxf(m, cm);
-    if (mn == MRNNT_NEG_INF) continue;
-    float acc = s * expf(m - mn);
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) acc += expf(xs[k] - mn);
-    s = acc;
-    m = mn;
-  }
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off /= 2) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-    const float mn = fmaxf(m, m2);
-    if (mn != MRNNT_NEG_INF) {
-      s = s * expf(m - mn) + s2 * expf(m2 - mn);
-      m = mn;
-    }
-  }
+  float m, s;
+  warp_row_lse(x, v, lane, m, s);
   if (lane != 0) return;
 
   // An all -inf row gives denom = +inf, as logsumexp's -inf.
@@ -126,18 +97,14 @@ __global__ void mrnnt_alpha_kernel(const float* __restrict__ lp_blank,
   }
 }
 
-constexpr int kStatsThreads = 256;  // 8 rows per block
-
 template <typename T>
 int launch_stats(const void* logits, const int* labels_ext, int batch,
                  int t_max, int s1, int v, int blank, float* denom,
                  float* lp_blank, float* lp_label, cudaStream_t stream) {
   const long long rows = static_cast<long long>(batch) * t_max * s1;
-  const long long rows_per_block = kStatsThreads / kWarp;
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  mrnnt_stats_kernel<T><<<static_cast<unsigned>(blocks), kStatsThreads, 0,
-                          stream>>>(
+  unsigned blocks;
+  if (const int err = row_blocks(rows, &blocks)) return err;
+  mrnnt_stats_kernel<T><<<blocks, kRowThreads, 0, stream>>>(
       static_cast<const T*>(logits), labels_ext, rows,
       static_cast<long long>(t_max) * s1, s1, v, blank, denom, lp_blank,
       lp_label);

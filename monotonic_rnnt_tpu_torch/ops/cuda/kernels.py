@@ -1,17 +1,22 @@
-"""The DP-fused loss's CUDA kernels, their wrappers and their plain versions.
+"""The CUDA kernels' common launch machinery, and the padded loss's kernels.
 
-Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776``:
+Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776, 1304-1360``:
 
 * ``stats_alpha_fused`` (TPU kernel at kernels.py:586) launches
   ``mrnnt_stats_kernel`` then ``mrnnt_alpha_kernel`` (csrc/stats_alpha.cu);
 * ``beta_grad_fused`` (TPU kernel at kernels.py:712) launches
-  ``mrnnt_beta_kernel`` then ``mrnnt_grad_kernel`` (csrc/beta_grad.cu).
+  ``mrnnt_beta_kernel`` (csrc/beta_grad.cu) then ``mrnnt_grad_kernel``;
+* ``grad_pass`` (TPU kernel at kernels.py:1322) launches
+  ``mrnnt_grad_kernel`` (csrc/grad_pass.cu) alone, for the banded (and
+  later the split) route.
 
-Each wrapper takes its plain PyTorch version (same arguments, same outputs)
-for tensors on the CPU, and for CUDA tensors launches its kernels or
-raises. Each adds one to ``LAUNCHES[<name>]`` when it has launched. The
-TPU tiling helpers (pick_tv_tiles, fused_dp_tiles, the VMEM caps) have no
-counterpart: the CUDA kernels pick their own launch shapes.
+The banded kernels' wrappers are in ops/cuda/banded_kernels.py and count
+their launches here. Each wrapper takes its plain PyTorch version (same
+arguments, same outputs) for tensors on the CPU, and for CUDA tensors
+launches its kernels or raises. Each adds one to ``LAUNCHES[<name>]`` when
+it has launched. The TPU tiling helpers (pick_tv_tiles, fused_dp_tiles, the
+VMEM caps) have no counterpart: the CUDA kernels pick their own launch
+shapes.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ from ..helpers import (NEG_INF, log_sum_exp, select_label_logits, shift_left_s,
                        shift_right_s)
 from . import _build
 
-LAUNCHES = {"stats_alpha_fused": 0, "beta_grad_fused": 0}
+LAUNCHES = {"stats_alpha_fused": 0, "beta_grad_fused": 0, "grad_pass": 0,
+            "softmax_stats_banded": 0, "fwdbwd_scan_banded": 0,
+            "alpha_scan_banded": 0}
 
 
 def reset_launch_counts() -> None:
@@ -39,7 +46,12 @@ _ENTRIES = {
     "mrnnt_stats": ("stats_alpha", [_P, _I, _P] + [_I] * 5 + [_P] * 4),
     "mrnnt_alpha": ("stats_alpha", [_P] * 4 + [_I] * 3 + [_P] * 2),
     "mrnnt_beta": ("beta_grad", [_P] * 7 + [_I] * 3 + [_P] * 5),
-    "mrnnt_grad": ("beta_grad", [_P, _I] + [_P] * 5 + [_I] * 5 + [_P] * 2),
+    "mrnnt_grad": ("grad_pass", [_P, _I] + [_P] * 5 + [_I] * 6 + [_P, _I,
+                                                                 _P]),
+    "mrnnt_stats_banded": ("banded", [_P, _I] + [_P] * 5 + [_I] * 5
+                           + [_P] * 6),
+    "mrnnt_alpha_banded": ("banded", [_P] * 3 + [_I] * 3 + [_P] * 2),
+    "mrnnt_fwdbwd_banded": ("banded", [_P] * 8 + [_I] * 3 + [_P] * 3),
 }
 
 
@@ -57,8 +69,8 @@ def _call(entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
 
 
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
@@ -74,15 +86,22 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_logits(logits: torch.Tensor, blank_id: int):
-    if logits.device.type != "cuda":
+def _check_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
         raise ValueError("the CUDA kernels take CUDA tensors (CPU tensors take"
-                         f" the plain version), got {logits.device}")
-    if logits.dtype not in (torch.float32, torch.bfloat16):
+                         f" the plain version), got {t.device}")
+
+
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _check_logits(logits: torch.Tensor, blank_id: int):
+    _check_cuda(logits)
+    if logits.dtype not in _FLOATS:
         raise ValueError(f"logits must be float32 or bfloat16, got {logits.dtype}")
     if logits.dim() != 4 or not logits.is_contiguous():
-        raise ValueError("logits must be a contiguous [B, T, S1, V] tensor, "
-                         f"got shape {tuple(logits.shape)}")
+        raise ValueError("logits must be a contiguous [B, T, S1 or W, V] "
+                         f"tensor, got shape {tuple(logits.shape)}")
     v = logits.shape[3]
     if not 0 <= blank_id < v:
         raise ValueError(f"blank_id must be in [0, {v}), got {blank_id}")
@@ -121,12 +140,16 @@ def launch_beta(lpb_bmask, lpl_bmask, aprev_masked, input_lengths, ll_bounded,
 
 
 def launch_grad(logits, denom, occ, cb, cl, labels_ext, blank_id, grads):
-    """(d) mrnnt_grad_kernel: the gradient from the coefficients."""
+    """(d) mrnnt_grad_kernel: the gradient from the coefficients.
+
+    labels_ext is [B, S1] or [B, T, S1]; grads f32 or bf16.
+    """
     batch, t_max, s1, v = logits.shape
     _call("mrnnt_grad", logits.device, _ptr(logits),
           int(logits.dtype == torch.bfloat16), _ptr(denom), _ptr(occ), _ptr(cb),
-          _ptr(cl), _ptr(labels_ext), batch, t_max, s1, v, blank_id,
-          _ptr(grads))
+          _ptr(cl), _ptr(labels_ext), int(labels_ext.dim() == 3), batch,
+          t_max, s1, v, blank_id, _ptr(grads),
+          int(grads.dtype == torch.bfloat16))
 
 
 # --- stats + alpha -------------------------------------------------------------
@@ -203,16 +226,43 @@ def beta_coefficients_plain(lpb_bmask, lpl_bmask, aprev_masked, input_lengths,
     return betas, occ, cb, cl
 
 
-def grad_plain(logits, denom, occ, cb, cl, labels_ext, blank_id: int):
-    """Plain version of (d): dz in the logits' dtype, 0 where coef == 0."""
+def grad_pass_plain(logits, denom, occ, cb, cl, labels_ext, blank_id: int,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain-torch grad_pass: the same arguments and outputs."""
     v = logits.shape[3]
+    lab = labels_ext[:, None, :] if labels_ext.dim() == 2 else labels_ext
     p = torch.exp(logits.float() + denom[..., None])
     v_idx = torch.arange(v, dtype=torch.int32, device=logits.device)
     coef = (occ[..., None]
             - torch.where(v_idx == blank_id, cb[..., None], 0.0)
-            - torch.where(v_idx == labels_ext[:, None, :, None],
-                          cl[..., None], 0.0))
-    return torch.where(coef == 0.0, 0.0, p * coef).to(logits.dtype)
+            - torch.where(v_idx == lab[..., None], cl[..., None], 0.0))
+    return torch.where(coef == 0.0, 0.0, p * coef).to(out_dtype)
+
+
+def grad_pass(logits, denom, occ, cb, cl, labels_ext, blank_id: int,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """dL/dz from per-cell coefficients: one read of logits, one write of grads.
+
+    logits [B, T, S1, V] f32 or bf16 (S1 = W on the band layout); denom,
+    occ, cb, cl [B, T, S1] f32; labels_ext [B, S1] or [B, T, S1] int32 (-1
+    sentinel). Returns grads [B, T, S1, V] in out_dtype (f32 or bf16):
+    p * (occ - [v == blank] cb - [v == label] cl), 0 where that is 0.
+    """
+    if logits.device.type == "cpu":
+        return grad_pass_plain(logits, denom, occ, cb, cl, labels_ext,
+                               blank_id, out_dtype)
+    batch, t_max, s1, _ = _check_logits(logits, blank_id)
+    dev = logits.device
+    if out_dtype not in _FLOATS:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    for name, t in (("denom", denom), ("occ", occ), ("cb", cb), ("cl", cl)):
+        _check(t, name, torch.float32, (batch, t_max, s1), dev)
+    _check(labels_ext, "labels_ext", torch.int32,
+           (batch, s1) if labels_ext.dim() == 2 else (batch, t_max, s1), dev)
+    grads = torch.empty(logits.shape, dtype=out_dtype, device=dev)
+    launch_grad(logits, denom, occ, cb, cl, labels_ext, blank_id, grads)
+    LAUNCHES["grad_pass"] += 1
+    return grads
 
 
 def _ones_scale(grad_scale, batch, device):
@@ -231,7 +281,8 @@ def beta_grad_fused_plain(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
     betas, occ, cb, cl = beta_coefficients_plain(
         lpb_bmask, lpl_bmask, aprev_masked, input_lengths, ll_bounded,
         beta_virtual, scale)
-    return grad_plain(logits, denom, occ, cb, cl, labels_ext, blank_id), betas
+    return grad_pass_plain(logits, denom, occ, cb, cl, labels_ext, blank_id,
+                           logits.dtype), betas
 
 
 def beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,

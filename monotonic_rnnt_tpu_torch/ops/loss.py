@@ -138,6 +138,10 @@ def monotonic_rnnt_loss(
         else:
             bands = default_bands(input_lengths, label_lengths, t_max)
     resolved = _resolve_backend(backend, logits)
+    if not torch.is_grad_enabled():
+        # Under no_grad, ctx.needs_input_grad still follows requires_grad;
+        # a detached input keeps the call on the cost-only route.
+        logits = logits.detach()
     return _LossCore.apply(logits, labels, input_lengths, label_lengths,
                            bands.min_s.to(dev), bands.max_s.to(dev),
                            int(blank_id), resolved)

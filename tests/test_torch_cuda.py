@@ -1,5 +1,5 @@
 """The port's CUDA kernels on a GPU: each against its plain version, and the
-loss through them against the plain-torch oracle.
+padded and banded losses through them against the plain-torch oracles.
 
 Every test here is marked ``cuda`` and skips where no GPU is present. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -14,6 +14,9 @@ import torch
 import golden
 import monotonic_rnnt_tpu_torch as mt
 from monotonic_rnnt_tpu_torch import convert
+from monotonic_rnnt_tpu_torch.ops import banded as tbanded
+from monotonic_rnnt_tpu_torch.ops import bands as tbands
+from monotonic_rnnt_tpu_torch.ops.cuda import banded_kernels as BK
 from monotonic_rnnt_tpu_torch.ops.cuda import fused
 from monotonic_rnnt_tpu_torch.ops.cuda import kernels as K
 
@@ -49,6 +52,11 @@ def _inputs(device, seed, batch, t, s, v, blank, dtype):
 def _close(got, ref, atol, rtol):
     got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
     np.testing.assert_allclose(got, ref, atol=atol, rtol=rtol)
+
+
+def _launched():
+    """The wrappers that launched since the last reset, with their counts."""
+    return {name: n for name, n in K.LAUNCHES.items() if n}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -95,9 +103,9 @@ def test_loss_through_kernels_matches_oracle(device, dtype):
         costs = mt.monotonic_rnnt_loss(x, lb, il, sl, backend=backend)
         (costs * w).sum().backward()
         torch.cuda.synchronize()
-        out[backend] = (costs.detach(), x.grad, dict(K.LAUNCHES))
+        out[backend] = (costs.detach(), x.grad, _launched())
     assert out["cuda"][2] == {"stats_alpha_fused": 1, "beta_grad_fused": 1}
-    assert out["reference"][2] == {"stats_alpha_fused": 0, "beta_grad_fused": 0}
+    assert out["reference"][2] == {}
     assert out["cuda"][1].dtype == dtype
     _close(out["cuda"][0], out["reference"][0], 1e-4, 1e-5)
     _close(out["cuda"][1], out["reference"][1], 1e-6,
@@ -106,7 +114,7 @@ def test_loss_through_kernels_matches_oracle(device, dtype):
     K.reset_launch_counts()
     with torch.no_grad():
         costs = mt.monotonic_rnnt_loss(lg, lb, il, sl)
-    assert K.LAUNCHES == {"stats_alpha_fused": 1, "beta_grad_fused": 0}
+    assert _launched() == {"stats_alpha_fused": 1}
     assert torch.equal(costs, out["cuda"][0])
 
 
@@ -147,3 +155,161 @@ def test_wrappers_check_their_operands(device):
         K.beta_grad_fused(lg.half(), *bg_args[1:])
     with pytest.raises(ValueError, match="must be on"):
         K.beta_grad_fused(lg, bg_args[1].cpu(), *bg_args[2:])
+
+
+# --- the banded path -------------------------------------------------------------
+
+# (seed, B, T, S, V, shift, blank); shift None = the unrestricted band at
+# W = S+1, here above 32 slots and, in the last case, above 1024 threads.
+BANDED = [(0, 3, 24, 8, 21, 2, 0), (2, 5, 17, 5, 130, 3, 2),
+          (4, 2, 60, 40, 50, None, 1), (5, 1, 1100, 1030, 4, None, 0)]
+
+
+def _banded(device, seed, batch, t, s, v, shift, blank, dtype=torch.float32):
+    """A banded case built with the port's own functions, on `device`."""
+    logits, labels, ilen, slen = golden.repeat_label_case(seed, batch, t, s,
+                                                          v, blank_id=blank)
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
+                                                    device=device, dtype=dtype)
+    if shift is None:
+        bands = tbands.default_bands(il, sl, t)
+    else:
+        rng = np.random.RandomState(seed)
+        align = np.full((batch, t), blank, np.int32)
+        for b in range(batch):
+            pos = np.sort(rng.choice(int(ilen[b]), size=int(slen[b]),
+                                     replace=False))
+            align[b, pos] = labels[b, :int(slen[b])]
+        bands = tbands.bands_from_alignment(
+            torch.from_numpy(align).to(device), il, sl, shift, blank)
+    w = tbands.suggested_band_width(il, sl, bands, t, s + 1)
+    layout = tbands.compute_band_layout(il, sl, bands, t, s + 1, w)
+    return tbands.pack_band(lg, layout), lb, il, sl, bands, layout
+
+
+def _stats_args(device, case, dtype):
+    lgb, lb, il, sl, bands, layout = _banded(device, *case, dtype=dtype)
+    s1 = lb.shape[1] + 1
+    lab = tbanded.band_labels(lb, sl, layout, s1).contiguous()
+    rel = tuple(r.contiguous() for r in tbands.band_relative_bounds(
+        il, sl, bands, layout, lgb.shape[1], s1))
+    return lgb.contiguous(), lab, rel, case[-1]
+
+
+@pytest.mark.parametrize("with_beta", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BANDED[:3])
+def test_softmax_stats_banded_kernel_matches_plain(device, case, dtype,
+                                                   with_beta):
+    args = _stats_args(device, case, dtype)
+    before = K.LAUNCHES["softmax_stats_banded"]
+    got = BK.softmax_stats_banded(*args, with_beta=with_beta)
+    want = BK.softmax_stats_banded_plain(*args, with_beta=with_beta)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["softmax_stats_banded"] == before + 1
+    assert len(got) == len(want)
+    for g, w in zip(got, want):   # another V summation order than logsumexp
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        _close(g, w, 1e-5, 1e-6)
+
+
+def _scan_args(device, seed, batch, t_max, w):
+    """Random streams, 0/1 shifts that switch along t, a short sample."""
+    rng = np.random.RandomState(seed)
+    f = lambda a: torch.from_numpy(a).to(device)
+    streams = [f((rng.randn(batch, t_max, w) - 1).astype(np.float32))
+               for _ in range(4)]
+    d, dn = (f(rng.randint(0, 2, (batch, t_max)).astype(np.int32))
+             for _ in range(2))
+    ilen = f(np.array([t_max] + [max(1, t_max - 5)] * (batch - 1), np.int32))
+    bvirt = f(np.where(rng.rand(batch, t_max, w) < 0.2, 0.0,
+                       -np.inf).astype(np.float32))
+    return (streams[0], streams[1], d, streams[2], streams[3], dn, ilen, bvirt)
+
+
+SCANS = [(2, 300, 16), (3, 40, 1), (2, 33, 40), (1, 70, 1100)]
+
+
+@pytest.mark.parametrize("shape", SCANS, ids=lambda s: "x".join(map(str, s)))
+def test_banded_scan_kernels_match_plain(device, shape):
+    args = _scan_args(device, sum(shape), *shape)
+    alphas, betas = BK.fwdbwd_scan_banded(*args)
+    a_only = BK.alpha_scan_banded(*args[:3])
+    want_a, want_b = BK.fwdbwd_scan_banded_plain(*args)
+    torch.cuda.synchronize()
+    # Another exp/log1p rounding, carried through T log-space steps.
+    for got, want in ((alphas, want_a), (a_only, want_a), (betas, want_b)):
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+        _close(got, want, 1e-4, 1e-5)
+    assert torch.equal(alphas, a_only)
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("labels_3d", [True, False], ids=["BTW", "BS1"])
+def test_grad_pass_kernel_matches_plain(device, labels_3d, dtype, out):
+    if labels_3d:
+        lgb, lb, il, sl, bands, layout = _banded(device, *BANDED[1],
+                                                 dtype=dtype)
+        x, lab = lgb, tbanded.band_labels(lb, sl, layout, lb.shape[1] + 1)
+    else:
+        (x, lab, *_), _ = _inputs(device, *SHAPES[0], dtype)
+    rng = np.random.RandomState(3)
+    coef = lambda: torch.from_numpy(np.where(
+        rng.rand(*x.shape[:3]) < 0.3, 0.0,
+        rng.randn(*x.shape[:3])).astype(np.float32)).to(device)
+    args = (x, -torch.logsumexp(x.float(), -1), coef(), coef(), coef(),
+            lab.contiguous(), 2)
+    got = K.grad_pass(*args, out_dtype=out)
+    want = K.grad_pass_plain(*args, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out
+    _close(got, want, 1e-6, 8e-3 if out == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BANDED[:3])
+def test_banded_loss_through_kernels_matches_oracle(device, case, dtype):
+    lgb, lb, il, sl, bands, _ = _banded(device, *case, dtype=dtype)
+    w = torch.linspace(-0.5, 2.0, lgb.shape[0], device=device)
+    out = {}
+    for backend in ("cuda", "reference"):
+        K.reset_launch_counts()
+        x = lgb.clone().requires_grad_(True)
+        costs = mt.monotonic_rnnt_loss_banded(x, lb, il, sl, bands=bands,
+                                              blank_id=case[-1],
+                                              backend=backend)
+        (costs * w).sum().backward()
+        torch.cuda.synchronize()
+        out[backend] = (costs.detach(), x.grad, _launched())
+    assert out["cuda"][2] == {"softmax_stats_banded": 1,
+                              "fwdbwd_scan_banded": 1, "grad_pass": 1}
+    assert out["reference"][2] == {}
+    assert out["cuda"][1].dtype == dtype
+    _close(out["cuda"][0], out["reference"][0], 1e-4, 1e-5)
+    _close(out["cuda"][1], out["reference"][1], 1e-6,
+           1.6e-2 if dtype == torch.bfloat16 else 1e-4)
+
+    K.reset_launch_counts()
+    with torch.no_grad():
+        costs = mt.monotonic_rnnt_loss_banded(lgb, lb, il, sl, bands=bands,
+                                              blank_id=case[-1])
+    assert _launched() == {"softmax_stats_banded": 1, "alpha_scan_banded": 1}
+    assert torch.equal(costs, out["cuda"][0])
+
+
+def test_banded_golden_alignment_losses_on_gpu(device):
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(*golden.readme_batch(),
+                                                    device=device)
+    for align, losses in ((golden.ALIGN_A, golden.ALIGN_A_LOSSES),
+                          (golden.ALIGN_B, golden.ALIGN_B_LOSSES)):
+        for shift, expected in losses.items():
+            bands = mt.bands_from_alignment(
+                torch.from_numpy(align[None]).to(device), il, sl, shift, 0)
+            w = mt.suggested_band_width(il, sl, bands, 4, 3)
+            layout = mt.compute_band_layout(il, sl, bands, 4, 3, w)
+            costs = mt.monotonic_rnnt_loss_banded(
+                mt.pack_band(lg, layout), lb, il, sl, bands=bands,
+                backend="cuda")
+            np.testing.assert_allclose(costs.cpu().numpy(), [expected],
+                                       atol=1e-4)
