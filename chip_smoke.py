@@ -24,6 +24,32 @@ and the banded loss at the benchmark lattice (+-8 band, variable T_b and
 S_b) against the padded restricted result; and times each kernel beside its
 byte bound, its plain version and a PyTorch yardstick.
 
+The split phase holds the split pipeline's four kernels (softmax_stats,
+fwdbwd_scan, alpha_scan, beta_scan) against their plain versions at
+S1 = 1, 51 and 1101 and at the benchmark lattice in float32 and bfloat16,
+drives ``monotonic_rnnt_loss`` under ``pipeline='split'`` (a weighted
+training step, then a cost-only call, launch counts read after each part)
+against the deferred route and the oracle, holds each kernel call that path
+made against its plain version on the path's own operands, checks the
+goldens through it, and, on the banded case's full [2, 1600, 201, 1024]
+lattice, holds the scans at T=1600 and the split route against the
+deferred one.
+
+The fused-joint phase runs ``rnnt_loss_fused_joint`` at
+benchmarks/memory_bench.py's case (B=4, T'=1024, S=63, V=8192, H=512,
+chunk_t=64) against the materialised route (the joint's 8 GiB logits, then
+``monotonic_rnnt_loss``) and a float64 truth, with the peak memory of each;
+then ``rnnt_loss_fused_joint_banded`` at benchmarks/fused_banded_bench.py's
+case (B=2, T=1600, S=200, V=1024, H=512, shift 20) against the
+materialised banded route and the full-lattice fused-joint loss with the
+same bands. On each fused-joint path one more training step keeps the
+operands of its kernel calls for the last T-chunk and an interior one (and
+of its one alpha scan over all of T), and each of those calls is held
+against its plain version: softmax_stats on the chunk's logits (2-D labels
+on the full lattice, per-t [B, Tc, W] labels on the band), the chunk's beta
+scan fed the next chunk's carry as its virtual row, and grad_pass. Then it
+times both training steps and their scans.
+
 Any failed check raises, and the script exits non-zero. The last three lines
 of its output are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -53,7 +79,18 @@ Tolerances, each with its reason:
   * banded vs padded on the same band: costs as above, unpacked grads f32
     1e-4, bf16 8e-3 relative. Both routes share the stats code and the DP
     operation order, so they differ at most by the exp of the occupancy
-    coefficients (in-kernel expf against torch.exp), a few ulps.
+    coefficients (in-kernel expf against torch.exp), a few ulps;
+  * split kernels vs plain versions, and the split route vs the deferred
+    route and the oracle: as the padded kernels and main path above (the
+    same stats and DP arithmetic); every kernel call a path made, against
+    its plain version on the same operands, as kernel vs plain above;
+  * fused-joint losses: costs |d| <= 1e-4 + 1e-5|ref| against every other
+    route; gradients of d_enc, d_pred and each joint parameter by their
+    relative L2 error, <= 2e-3 between two f32 routes and <= 5e-3 against
+    the float64 truth. At T' >= 1024 the f32 alphas reach ~1e4, whose ulp
+    (~1e-3) enters the exponent of every occupancy coefficient, and a
+    chunk's joint product rounds otherwise than the whole lattice's: every
+    f32 route, the plain oracle included, is ~2-3e-3 from the truth.
 """
 
 from __future__ import annotations
@@ -134,6 +171,85 @@ def bound_ms(n_bytes: float, n_flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Capture:
+    """Shims over a path module's kernel wrappers that keep the arguments of
+    chosen calls: keep[name] holds the indices (0-based, per wrapper) of the
+    calls to keep. The shims call the wrappers, so launches count as usual;
+    compare_captured then holds each kernel against its plain version on
+    exactly the operands the path built."""
+
+    def __init__(self, module, keep):
+        self.module, self.keep = module, keep
+        self.calls = {name: [] for name in keep}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.module, name) for name in self.keep}
+        for name, fn in self.saved.items():
+            self._shim(name, fn)
+        return self
+
+    def _shim(self, name, fn):
+        seen = [0]
+
+        def shim(*args, **kwargs):
+            if seen[0] in self.keep[name]:
+                self.calls[name].append((seen[0], args, kwargs))
+            seen[0] += 1
+            return fn(*args, **kwargs)
+
+        setattr(self.module, name, shim)
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def plain_pairs(mt):
+    """Each wrapper a path calls: (wrapper, plain version, atol, rtol)."""
+    SK, K, BK = mt.SK, mt.K, mt.BK
+    scan = (1e-4, 1e-5)
+    return {"softmax_stats": (SK.softmax_stats, SK.softmax_stats_plain,
+                              1e-5, 1e-6),
+            "alpha_scan": (SK.alpha_scan, SK.alpha_scan_plain, *scan),
+            "beta_scan": (SK.beta_scan, SK.beta_scan_plain, *scan),
+            "fwdbwd_scan": (SK.fwdbwd_scan, SK.fwdbwd_scan_plain, *scan),
+            "alpha_scan_banded": (BK.alpha_scan_banded,
+                                  BK.alpha_scan_banded_plain, *scan),
+            "fwdbwd_scan_banded": (BK.fwdbwd_scan_banded,
+                                   BK.fwdbwd_scan_banded_plain, *scan),
+            "grad_pass": (K.grad_pass, K.grad_pass_plain, 1e-6, 1e-4)}
+
+
+def compare_captured(mt, cap, what):
+    """Every captured call's kernel against its plain version on the same
+    arguments; returns each wrapper's max |d| over its captured calls."""
+    pairs, errs = plain_pairs(mt), {}
+    with torch.no_grad():
+        for name, calls in cap.calls.items():
+            kern, plain, atol, rtol = pairs[name]
+            check(len(calls) == len(cap.keep[name]),
+                  f"{what}: {name} made {len(calls)} of the calls "
+                  f"{sorted(cap.keep[name])}")
+            for idx, args, kwargs in calls:
+                if kwargs.get("out_dtype") == torch.bfloat16:
+                    rtol = 8e-3
+                got, ref = kern(*args, **kwargs), plain(*args, **kwargs)
+                got, ref = ((got, ref) if isinstance(got, tuple)
+                            else ((got,), (ref,)))
+                shape = "x".join(map(str, args[0].shape))
+                errs[name] = max([errs.get(name, 0.0)] + [
+                    assert_close(g, r, atol, rtol, f"{what} {name} call "
+                                 f"{idx} [{shape}] output {i}")
+                    for i, (g, r) in enumerate(zip(got, ref))])
+    torch.cuda.synchronize()
+    log(f"{what}: the path's own kernel calls vs plain, max|d| "
+        + ", ".join(f"{n} {e:.3g} ({len(cap.calls[n])} calls at "
+                    + "/".join("x".join(map(str, a[0].shape))
+                               for _, a, _ in cap.calls[n][:1]) + ")"
+                    for n, e in errs.items()))
+    return errs
 
 
 # --- inputs ---------------------------------------------------------------------
@@ -273,7 +389,7 @@ def phase_cost_only(mt, main_inputs, costs_f32):
     log(f"cost-only: launches {launched(K)}; costs equal to fwd+bwd")
 
 
-def phase_goldens(mt, golden):
+def phase_goldens(mt, golden, route="deferred"):
     conv = mt.convert
 
     def run(lg, lb, il, sl, **kw):
@@ -300,8 +416,8 @@ def phase_goldens(mt, golden):
             check(abs(costs[0] - expected) < 1e-4,
                   f"restricted loss shift={shift}: {costs} vs {expected}")
             check(np.isfinite(grads).all(), "restricted grads finite")
-    log("goldens: README -log 0.363 + gradient table, multibatch 0.39/0.363, "
-        "restricted 0.2958/0.072/0.192/0.0672 ok")
+    log(f"goldens ({route} route): README -log 0.363 + gradient table, "
+        "multibatch 0.39/0.363, restricted 0.2958/0.072/0.192/0.0672 ok")
 
 
 def random_alignment(rng, ilen, slen, labels, t_max, blank=0):
@@ -878,7 +994,661 @@ def run_banded(mt, golden, main_inputs, weights, restricted):
     phase_banded_goldens(mt, golden)
     phase_banded_train(mt, case)
     phase_banded_restricted(mt, main_inputs, weights, *restricted)
+    phase_split_long(mt, case, band_w)
     return phase_banded_timing(mt, case, band_w, errs, launches)
+
+
+# --- the split pipeline ---------------------------------------------------------
+
+def split_operands(mt, logits, labels, ilen, slen, blank=0, bands=None):
+    """Every split kernel's operands, from the plain stats on the card."""
+    F, SK = mt.fused, mt.SK
+    ilen, slen, bands, lab = F._prepare(logits, labels, ilen, slen, bands)
+    _, t_max, s1, _ = logits.shape
+    denom, lpb, lpl_raw = SK.softmax_stats_plain(logits, lab, blank)
+    s_idx = torch.arange(s1, dtype=torch.int32, device=logits.device)
+    lpl = torch.where(s_idx[None, None, :] < slen[:, None, None], lpl_raw,
+                      float("-inf"))
+    masks = mt.bands.lattice_masks(ilen, slen, bands, t_max, s1)
+    additive = mt.helpers.mask_to_additive
+    bvirt = additive(s_idx[None, :] == slen[:, None])
+    return {"stats": (logits, lab, blank),
+            "scan": (lpb, lpl, additive(masks.alpha), additive(masks.beta),
+                     ilen, bvirt)}
+
+
+def compare_split_kernels(mt, ops, what):
+    """The four split wrappers against their plain versions, same inputs.
+
+    softmax_stats also runs on [B, T, S1] labels (the fused-joint banded
+    loss's form); beta_scan must equal fwdbwd_scan's beta half and
+    alpha_scan its alpha half. Returns each kernel's max |d|."""
+    SK = mt.SK
+    logits, lab, blank = ops["stats"]
+    lab3 = lab[:, None, :].expand(-1, logits.shape[1], -1).contiguous()
+    lab3[:, ::3, 0] = -1                       # ids that vary with t
+    errs = {"softmax_stats": 0.0}
+    for labels in (lab, lab3):
+        got = SK.softmax_stats(logits, labels, blank)
+        ref = SK.softmax_stats_plain(logits, labels, blank)
+        errs["softmax_stats"] = max(
+            [errs["softmax_stats"]]
+            + [assert_close(g, r, 1e-5, 1e-6, f"{what} softmax_stats {n} "
+                            f"labels {labels.dim()}-D")
+               for n, g, r in zip(("denom", "lp_blank", "lp_label"), got,
+                                  ref)])
+    scan = ops["scan"]
+    lpb, lpl, am, bm, ilen, bvirt = scan
+    alphas, betas = SK.fwdbwd_scan(*scan)
+    ref_a, ref_b = SK.fwdbwd_scan_plain(*scan)
+    errs["fwdbwd_scan"] = max(
+        assert_close(g, r, 1e-4, 1e-5, f"{what} fwdbwd_scan {n}")
+        for n, g, r in (("alphas", alphas, ref_a), ("betas", betas, ref_b)))
+    a_only = SK.alpha_scan(lpb, lpl, am)
+    b_only = SK.beta_scan(lpb, lpl, bm, ilen, bvirt)
+    errs["alpha_scan"] = assert_close(a_only, ref_a, 1e-4, 1e-5,
+                                      f"{what} alpha_scan")
+    errs["beta_scan"] = assert_close(b_only, ref_b, 1e-4, 1e-5,
+                                     f"{what} beta_scan")
+    check(torch.equal(a_only, alphas), f"{what}: alpha_scan differs from "
+          "fwdbwd_scan's alpha half")
+    check(torch.equal(b_only, betas), f"{what}: beta_scan differs from "
+          "fwdbwd_scan's beta half")
+    torch.cuda.synchronize()
+    log(f"split kernel-vs-plain {what}: max|d| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + "; beta_scan == fwdbwd_scan betas, alpha_scan == its alphas")
+    return errs
+
+
+def phase_split_main(mt, main_inputs, weights, dtype):
+    """The split main path: a weighted training step, then a cost-only call,
+    under pipeline='split'; counts reset once before, read after each part.
+    Costs and gradients against the deferred route and the oracle."""
+    K = mt.K
+    logits, labels, ilen, slen = main_inputs
+    args = (labels, ilen, slen)
+    cap = Capture(mt.fused, {"softmax_stats": {0, 1}, "fwdbwd_scan": {0},
+                             "alpha_scan": {0}, "grad_pass": {0}})
+    K.reset_launch_counts()
+    with mt.config_override(pipeline="split"), cap:
+        x = leaf(logits, dtype)
+        costs = mt.monotonic_rnnt_loss(x, *args)
+        (costs * weights).sum().backward()
+        torch.cuda.synchronize()
+        after_step = launched(K)
+        with torch.no_grad():
+            costs_only = mt.monotonic_rnnt_loss(x, *args)
+        torch.cuda.synchronize()
+    launches = launched(K)
+    path_errs = compare_captured(mt, cap, f"split main path {dtype}")
+    del cap
+    costs, grads = costs.detach(), x.grad
+    check(after_step == {"softmax_stats": 1, "fwdbwd_scan": 1,
+                         "grad_pass": 1},
+          f"split training step {dtype} launches {after_step}")
+    check(launches == {"softmax_stats": 2, "fwdbwd_scan": 1, "grad_pass": 1,
+                       "alpha_scan": 1},
+          f"split cost-only {dtype} launches {launches}")
+    check(torch.equal(costs_only, costs), "split cost-only costs differ")
+    check(grads.dtype == dtype, f"split grad dtype {grads.dtype}")
+    check(tuple(costs.shape) == (B,) and bool(torch.isfinite(costs).all()),
+          "split costs must be [B] and finite")
+    bf16 = dtype == torch.bfloat16
+    errs = []
+    for backend, g_rtol in (("cuda", 1.6e-2 if bf16 else 1e-4),
+                            ("reference", 1.6e-2 if bf16 else 1e-3)):
+        xr = leaf(logits, dtype)
+        ref = mt.monotonic_rnnt_loss(xr, *args, backend=backend)
+        (ref * weights).sum().backward()
+        errs += [assert_close(costs, ref, 1e-4, 1e-5,
+                              f"split {dtype} costs vs {backend}"),
+                 assert_close(grads, xr.grad, 1e-6, g_rtol,
+                              f"split {dtype} grads vs {backend}")]
+    log(f"split main path {dtype}: launches step {after_step}, +cost-only "
+        f"{launches}; max|d| vs the deferred route costs {errs[0]:.3g}, grads "
+        f"{errs[1]:.3g}; vs the oracle costs {errs[2]:.3g}, grads "
+        f"{errs[3]:.3g}")
+    return launches, path_errs
+
+
+def phase_split_long(mt, case, weights):
+    """The split route on the banded case's full [2, 1600, 201, 1024]
+    lattice with its band: the scans at T=1600 and S1=201, kernels against
+    plain versions, then split against deferred costs and gradients."""
+    K, SK = mt.K, mt.SK
+    args = (case["labels"], case["ilen"], case["slen"])
+    shape = "[%d,%d,%d,%d]" % tuple(case["logits"].shape)
+    ops = split_operands(mt, case["logits"], *args, bands=case["bands"])
+    compare_split_kernels(mt, ops, f"long-T {shape}")
+    scan = ops["scan"]
+    scan_ms = {"fwdbwd_scan": cuda_ms(lambda: SK.fwdbwd_scan(*scan)),
+               "alpha_scan": cuda_ms(lambda: SK.alpha_scan(*scan[:3]))}
+    del ops, scan
+    out = {}
+    for pipeline in ("auto", "split"):
+        K.reset_launch_counts()
+        with mt.config_override(pipeline=pipeline):
+            x = leaf(case["logits"], torch.float32)
+            costs = mt.monotonic_rnnt_loss(x, *args, bands=case["bands"])
+            (costs * weights).sum().backward()
+        torch.cuda.synchronize()
+        out[pipeline] = (costs.detach(), x.grad, launched(K))
+        del x
+    check(out["split"][2] == {"softmax_stats": 1, "fwdbwd_scan": 1,
+                              "grad_pass": 1},
+          f"long-T split launches {out['split'][2]}")
+    e_c = assert_close(out["split"][0], out["auto"][0], 1e-4, 1e-5,
+                       "long-T split vs deferred costs")
+    e_g = assert_close(out["split"][1], out["auto"][1], 1e-6, 1e-4,
+                       "long-T split vs deferred grads")
+    log(f"long-T split vs deferred on {shape}, +-{BAND_SHIFT} band: "
+        f"costs max|d| {e_c:.3g}, grads max|d| {e_g:.3g}; costs "
+        f"{out['split'][0].tolist()}; scans at T={shape.split(',')[1]} (ms, "
+        f"f32): {json.dumps(scan_ms)}")
+    del out
+    torch.cuda.empty_cache()
+
+
+def phase_split_timing(mt, main_inputs, weights):
+    """Each split kernel against its bound, plain version and yardstick, and
+    the split loss end to end, at the benchmark lattice."""
+    SK = mt.SK
+    logits, labels, ilen, slen = main_inputs
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lg = logits.to(dtype)
+        ops = split_operands(mt, lg, labels, ilen, slen)
+        scan = ops["scan"]
+        lpb, lpl, am, bm, il, bvirt = scan
+        n_b, n_t, n_s1, n_v = lg.shape
+        cells = n_b * n_t * n_s1
+        small = cells * 4                    # one [B, T, S1] f32
+        big = lg.numel() * lg.element_size()
+        vec = n_b * n_s1 * 4 + n_b * 4       # beta_virtual and input_lengths
+        timed = {
+            "softmax_stats": (
+                lambda: SK.softmax_stats(*ops["stats"]),
+                lambda: SK.softmax_stats_plain(*ops["stats"]),
+                lambda: torch.logsumexp(lg, dim=-1),
+                bound_ms(big + n_b * n_s1 * 4 + 3 * small, 4 * lg.numel())),
+            "fwdbwd_scan": (
+                lambda: SK.fwdbwd_scan(*scan),
+                lambda: SK.fwdbwd_scan_plain(*scan), None,
+                bound_ms(6 * small + vec, 2 * 8 * cells)),
+            "alpha_scan": (
+                lambda: SK.alpha_scan(lpb, lpl, am),
+                lambda: SK.alpha_scan_plain(lpb, lpl, am), None,
+                bound_ms(4 * small, 8 * cells)),
+            "beta_scan": (
+                lambda: SK.beta_scan(lpb, lpl, bm, il, bvirt),
+                lambda: SK.beta_scan_plain(lpb, lpl, bm, il, bvirt), None,
+                bound_ms(4 * small + vec, 8 * cells)),
+        }
+        out = {}
+        for name, (kern, plain, lib, bound) in timed.items():
+            scan_plain = lib is None       # a Python loop over T: timed once
+            out[name] = {
+                "ms": cuda_ms(kern),
+                "plain_ms": cuda_ms(plain, reps=1 if scan_plain else
+                                    TIMING_REPS, warmup=0 if scan_plain
+                                    else 3),
+                "library_ms": cuda_ms(lib) if lib else None,
+                "bound": bound}
+        lg_leaf = leaf(lg, dtype)
+
+        def fwd_bwd():
+            costs = mt.monotonic_rnnt_loss(lg_leaf, labels, ilen, slen)
+            (costs * weights).sum().backward()
+            lg_leaf.grad = None
+
+        def cost_only():
+            with torch.no_grad():
+                mt.monotonic_rnnt_loss(lg, labels, ilen, slen)
+
+        with mt.config_override(pipeline="split"):
+            e2e = {"split_fwd_bwd_ms": cuda_ms(fwd_bwd),
+                   "split_cost_only_ms": cuda_ms(cost_only)}
+        rows[dtype] = (out, e2e)
+        log(f"split timing {dtype}: " + "; ".join(
+            f"{n} {r['ms']:.4f} ms (bound {r['bound'][0]:.4f}, plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']})"
+            for n, r in out.items()) + "; " + json.dumps(e2e))
+        del ops, scan, lg_leaf
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_split(mt, golden, main_inputs, weights):
+    """Every split phase at the benchmark lattice; returns the kernels' errors
+    (grad_pass's from the split path's own call), the split path's launches
+    and the timing rows."""
+    errs, launches = {}, {}
+    # Small shapes first: S1 = 1, and S1 = 1101 (strided threads, T=1200).
+    for (b, t, s, v, blank) in ((3, 40, 0, 30, 2), (1, 1200, 1100, 16, 3)):
+        lg, lab, il, sl = make_inputs(mt, b, t, s, v, blank=blank, seed=2,
+                                      t_range=(max(s, 1), t),
+                                      s_range=(0, s))
+        compare_split_kernels(mt, split_operands(mt, lg, lab, il, sl, blank),
+                              f"({b},{t},{s},{v}) blank={blank}")
+    for dtype in (torch.float32, torch.bfloat16):
+        lg, lab, il, sl = main_inputs
+        errs[dtype] = compare_split_kernels(
+            mt, split_operands(mt, lg.to(dtype), lab, il, sl),
+            f"benchmark {dtype}")
+        launched_d, path_errs = phase_split_main(mt, main_inputs, weights,
+                                                 dtype)
+        errs[dtype] = {n: max(errs[dtype].get(n, 0.0), e)
+                       for n, e in {**errs[dtype], **path_errs}.items()}
+        if dtype == torch.float32:
+            launches = launched_d
+    with mt.config_override(pipeline="split"):
+        phase_goldens(mt, golden, "split")
+    return errs, launches, phase_split_timing(mt, main_inputs, weights)
+
+
+def split_kernel_entries(errs, launches, rows):
+    """The four split kernels' JSON entries (f32, bf16 nested), with the
+    split path's launches and errors; by_path adds the other paths'."""
+    spec = (("softmax_stats", 244), ("fwdbwd_scan", 1053),
+            ("alpha_scan", 921), ("beta_scan", 947))
+    kernels = []
+    for name, line in spec:
+        f32, b16 = rows[torch.float32][0][name], rows[torch.bfloat16][0][name]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "monotonic_rnnt_tpu_torch/csrc/split.cu",
+            "replaces": f"monotonic_rnnt_tpu/ops/pallas/kernels.py:{line}",
+            "launches": launches.get(name, 0),
+            "max_abs_err": errs[torch.float32][name],
+            "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
+            "library_ms": f32["library_ms"],
+            "status": "ported", "dtype": "float32",
+            "shape": "B=%d,T=%d,S1=%d,V=%d" % (B, T, S + 1, V),
+            "bf16": {"max_abs_err": errs[torch.bfloat16][name],
+                     "ms": b16["ms"], "plain_ms": b16["plain_ms"],
+                     "bound_ms": b16["bound"][0],
+                     "library_ms": b16["library_ms"]},
+        }
+        if f32["library_ms"] is None:
+            entry["library_note"] = "no single PyTorch call computes a scan"
+        if name == "beta_scan":
+            entry["path_note"] = ("the fused-joint backward's per-chunk beta "
+                                  "recurrence; the split route runs "
+                                  "fwdbwd_scan, whose beta half it equals")
+        kernels.append(entry)
+    return kernels
+
+
+def by_path(entries, base, launches, errs):
+    """Each entry's launches and max |d| per path: `base` (the entry's own
+    numbers) and every path in launches / errs that runs or checked it.
+    launches becomes their sum, max_abs_err their max."""
+    for e in entries:
+        name = e["name"]
+        lp, ep = {base: e["launches"]}, {base: e["max_abs_err"]}
+        lp.update({p: n[name] for p, n in launches.items()
+                   if p != base and n.get(name)})
+        ep.update({p: d[name] for p, d in errs.items()
+                   if p != base and name in d})
+        e.update(launches=sum(lp.values()), launches_by_path=lp,
+                 max_abs_err=max(ep.values()), max_abs_err_by_path=ep)
+
+
+# --- the fused-joint losses -----------------------------------------------------
+
+# benchmarks/memory_bench.py's case (B, T', S, V, H; De = Dp = H) and chunk.
+FUSED_CASE = (4, 1024, 63, 8192, 512)
+FUSED_CHUNK = 64
+# benchmarks/fused_banded_bench.py's case (B, T, S, V, H; De = Dp = H).
+FUSED_BANDED_CASE = (2, 1600, 200, 1024, 512)
+
+
+def joint_full(params, enc_c, pred):
+    """The additive tanh joint of benchmarks/memory_bench.py:70-73."""
+    h = torch.tanh((enc_c @ params["we"])[:, :, None, :]
+                   + (pred @ params["wp"])[:, None, :, :])
+    return h @ params["wv"] + params["bv"]
+
+
+def joint_banded(params, enc_c, pred_band):
+    """The same joint on band-gathered predictor rows
+    (benchmarks/fused_banded_bench.py:36-42)."""
+    h = torch.tanh((enc_c @ params["we"])[:, :, None, :]
+                   + pred_band @ params["wp"])
+    return h @ params["wv"] + params["bv"]
+
+
+def fused_case(mt, b, t, s, v, h, seed=SEED):
+    """memory_bench.py:55-68's inputs, drawn as it draws them."""
+    rng = np.random.RandomState(seed)
+    enc = rng.randn(b, t, h).astype(np.float32) * .1
+    pred = rng.randn(b, s + 1, h).astype(np.float32) * .1
+    labels = rng.randint(1, v, (b, s)).astype(np.int32)
+    params = {"we": rng.randn(h, h).astype(np.float32) * 0.05,
+              "wp": rng.randn(h, h).astype(np.float32) * 0.05,
+              "wv": rng.randn(h, v).astype(np.float32) * 0.05,
+              "bv": np.zeros((v,), np.float32)}
+    as_int = lambda a: torch.as_tensor(a, dtype=torch.int32, device=DEVICE)
+    return {"enc": torch.from_numpy(enc).to(DEVICE),
+            "pred": torch.from_numpy(pred).to(DEVICE),
+            "labels": as_int(labels), "ilen": as_int(np.full(b, t)),
+            "slen": as_int(np.full(b, s)),
+            "params": mt.convert.joint_params_from_numpy(params,
+                                                         device=DEVICE)}
+
+
+def fused_banded_case(mt, b, t, s, v, h, shift, seed=SEED):
+    """fused_banded_bench.py:63-85's inputs and bands, drawn as it draws them."""
+    bd = mt.bands
+    rng = np.random.RandomState(seed)
+    enc = rng.randn(b, t, h).astype(np.float32) * 0.3
+    pred = rng.randn(b, s + 1, h).astype(np.float32) * 0.3
+    labels = rng.randint(1, v, (b, s)).astype(np.int32)
+    align = np.zeros((b, t), np.int32)
+    for i in range(b):
+        pos = np.sort(rng.choice(t, size=s, replace=False))
+        align[i, pos] = labels[i]
+    scale = h ** -0.5
+    params = {"we": rng.randn(h, h).astype(np.float32) * scale,
+              "wp": rng.randn(h, h).astype(np.float32) * scale,
+              "wv": rng.randn(h, v).astype(np.float32) * scale,
+              "bv": np.zeros(v, np.float32)}
+    as_int = lambda a: torch.as_tensor(a, dtype=torch.int32, device=DEVICE)
+    ilen, slen = as_int(np.full(b, t)), as_int(np.full(b, s))
+    bands = bd.bands_from_alignment(as_int(align), ilen, slen, shift, 0)
+    w = bd.suggested_band_width(ilen, slen, bands, t, s + 1)
+    return {"enc": torch.from_numpy(enc).to(DEVICE),
+            "pred": torch.from_numpy(pred).to(DEVICE),
+            "labels": as_int(labels), "ilen": ilen, "slen": slen,
+            "bands": bands, "w": w,
+            "exact": bool(bd.band_layout_is_exact(ilen, slen, bands, t, s + 1,
+                                                  w).all()),
+            "params": mt.convert.joint_params_from_numpy(params,
+                                                         device=DEVICE)}
+
+
+def joint_step(mt, loss_fn, case, weights):
+    """A weighted training step from fresh leaves: (costs, [d_enc, d_pred,
+    d_params...], launches after the forward, launches after the step)."""
+    K = mt.K
+    e = case["enc"].clone().requires_grad_(True)
+    p = case["pred"].clone().requires_grad_(True)
+    pr = {k: v.clone().requires_grad_(True) for k, v in case["params"].items()}
+    K.reset_launch_counts()
+    costs = loss_fn(e, p, pr)
+    torch.cuda.synchronize()
+    fwd = launched(K)
+    (costs * weights).sum().backward()
+    torch.cuda.synchronize()
+    return (costs.detach(), [e.grad, p.grad] + [pr[k].grad for k in pr],
+            fwd, launched(K))
+
+
+JOINT_GRADS = ("d_enc", "d_pred", "d_we", "d_wp", "d_wv", "d_bv")
+
+
+def rel_l2(got, ref) -> float:
+    got, ref = got.detach().double(), ref.detach().double()
+    return float((got - ref).norm() / ref.norm())
+
+
+def compare_joint_grads(got, ref, what, rel: float = 2e-3):
+    """Gradients of two routes through the joint, leaf by leaf: finite, and
+    ||got - ref|| / ||ref|| <= rel (why not entry by entry: the module
+    docstring's fused-joint tolerance)."""
+    errs = {}
+    for n, g, r in zip(JOINT_GRADS, got, ref):
+        check(bool(torch.isfinite(g).all()), f"{what} {n} finite")
+        errs[n] = rel_l2(g, r)
+        check(errs[n] <= rel, f"{what} {n}: relative L2 error {errs[n]:.3g} "
+              f"> {rel}")
+    return errs
+
+
+def f64_truth(case, weights):
+    """Costs and joint gradients of the full-lattice case in float64: the
+    joint, log_softmax and the alpha recurrence under plain autograd, one
+    sample at a time (4.3 GB of f64 logits each). Every T_b = T and S_b = S,
+    so the final state is alpha(T-1, S) and no lattice mask is needed;
+    -1e30 stands for log 0 so that no gradient meets -inf - -inf."""
+    check(bool((case["ilen"] == case["enc"].shape[1]).all())
+          and bool((case["slen"] == case["labels"].shape[1]).all()),
+          "the float64 truth takes full-length samples only")
+    dev = case["enc"].device
+    f64 = lambda x: x.double().requires_grad_(True)
+    params = {k: f64(x) for k, x in case["params"].items()}
+    enc, pred = f64(case["enc"]), f64(case["pred"])
+    n_b, t_max = enc.shape[:2]
+    s = case["labels"].shape[1]
+    costs = []
+    for b in range(n_b):
+        lp = torch.log_softmax(joint_full(params, enc[b:b + 1],
+                                          pred[b:b + 1]), -1)[0]
+        lp_blank = lp[:, :, 0]
+        lp_label = lp[:, torch.arange(s, device=dev),
+                      case["labels"][b].long()]           # [T, S]
+        zero = torch.full((1,), -1e30, dtype=torch.float64, device=dev)
+        row = torch.cat([zero + 1e30, zero.expand(s)])
+        for t in range(t_max):
+            row = torch.logaddexp(row + lp_blank[t],
+                                  torch.cat([zero, row[:s] + lp_label[t]]))
+        (-row[s] * weights[b].double()).backward()
+        costs.append(-float(row[s].detach()))
+        del lp, lp_blank, lp_label
+    grads = [enc.grad, pred.grad] + [params[k].grad for k in params]
+    return torch.tensor(costs, dtype=torch.float64, device=dev), grads
+
+
+def fused_path_kernels(mt, module, beta_name, n_chunks, step, what):
+    """One more training step of a fused-joint path, its kernel calls kept
+    for the last chunk and an interior one (the backward walks the chunks in
+    reverse), and the alpha scan over all of T: each held against its plain
+    version on those operands, and the scans timed on them. Returns (max
+    |d| per wrapper, the scans' ms)."""
+    mid = n_chunks // 2
+    alpha_name = ("alpha_scan_banded" if beta_name == "fwdbwd_scan_banded"
+                  else "alpha_scan")
+    cap = Capture(module, {"softmax_stats": {n_chunks, n_chunks + mid},
+                           beta_name: {0, mid}, "grad_pass": {0, mid},
+                           alpha_name: {0}})
+    with cap:
+        step()
+    errs = compare_captured(mt, cap, what)
+    pairs = plain_pairs(mt)
+    _, a_args, _ = cap.calls[alpha_name][0]
+    _, b_args, _ = cap.calls[beta_name][1]
+    key = what.replace("-", "_").replace(" ", "_")
+    scan_ms = {f"{key}_{alpha_name}_ms": cuda_ms(
+                   lambda: pairs[alpha_name][0](*a_args)),
+               f"{key}_{beta_name}_chunk_ms": cuda_ms(
+                   lambda: pairs[beta_name][0](*b_args))}
+    del cap, a_args, b_args
+    torch.cuda.empty_cache()
+    return errs, scan_ms
+
+
+def phase_fused_joint(mt, weights):
+    """rnnt_loss_fused_joint at memory_bench.py's case against the
+    materialised route (the joint's [B, T', S+1, V] logits, then
+    monotonic_rnnt_loss), with launch counts and peak memory."""
+    b, t, s, v, h = FUSED_CASE
+    case = fused_case(mt, b, t, s, v, h)
+    args = (case["labels"], case["ilen"], case["slen"])
+    n_chunks = -(-t // FUSED_CHUNK)
+    logits_bytes = b * t * (s + 1) * v * 4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fused = lambda e, p, pr: mt.rnnt_loss_fused_joint(
+        e, p, *args, joint_full, pr, chunk_t=FUSED_CHUNK)
+    costs, grads, fwd, step = joint_step(mt, fused, case, weights)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(fwd == {"softmax_stats": n_chunks, "alpha_scan": 1},
+          f"fused-joint forward launches {fwd}")
+    check(step == {"softmax_stats": 2 * n_chunks, "alpha_scan": 1,
+                   "beta_scan": n_chunks, "grad_pass": n_chunks},
+          f"fused-joint step launches {step}")
+    check(tuple(costs.shape) == (b,) and bool(torch.isfinite(costs).all()),
+          "fused-joint costs finite, [B]")
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "fused-joint grads finite")
+    check(peak < logits_bytes / 4, f"fused-joint peak {peak} bytes is not "
+          f"well under the {logits_bytes}-byte logits tensor")
+    torch.cuda.reset_peak_memory_stats()
+    base_m = torch.cuda.memory_allocated()
+    mono = lambda e, p, pr: mt.monotonic_rnnt_loss(joint_full(pr, e, p),
+                                                   *args)
+    ref_costs, ref_grads, _, ref_step = joint_step(mt, mono, case, weights)
+    peak_m = torch.cuda.max_memory_allocated() - base_m
+    check(ref_step == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+          f"materialised route launches {ref_step}")
+    e_c = assert_close(costs, ref_costs, 1e-4, 1e-5,
+                       "fused-joint vs materialised costs")
+    errs = compare_joint_grads(grads, ref_grads, "fused-joint vs materialised")
+    truth_costs, truth = f64_truth(case, weights)
+    e_t = assert_close(costs, truth_costs, 1e-4, 1e-5,
+                       "fused-joint costs vs the float64 truth")
+    to_truth = {"fused": compare_joint_grads(
+        grads, truth, "fused-joint vs the float64 truth", rel=5e-3),
+        "materialised": {n: rel_l2(g, r)
+                         for n, g, r in zip(JOINT_GRADS, ref_grads, truth)}}
+    del truth
+    path_errs, scan_ms = fused_path_kernels(
+        mt, mt.chunked, "beta_scan", n_chunks,
+        lambda: joint_step(mt, fused, case, weights), "fused-joint")
+    log(f"fused-joint B={b},T'={t},S={s},V={v},H={h}, chunk_t={FUSED_CHUNK}: "
+        f"launches fwd {fwd}, step {step}; peak memory of the step "
+        f"{peak / 2**30:.3f} GiB above its inputs (materialised route "
+        f"{peak_m / 2**30:.3f} GiB; logits tensor {logits_bytes / 2**30:.3f} "
+        f"GiB); vs materialised costs max|d| {e_c:.3g}, grads relative L2 "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+        + f"; vs the float64 truth costs max|d| {e_t:.3g}, grads relative L2 "
+        + "; ".join(f"{route} " + ", ".join(f"{k} {e:.3g}"
+                                            for k, e in r.items())
+                    for route, r in to_truth.items())
+        + f"; mean cost {float(costs.mean()):.4f}")
+    del grads, ref_grads
+    torch.cuda.empty_cache()
+    return case, step, path_errs, {"fused_peak_bytes": peak,
+                                   "materialised_peak_bytes": peak_m,
+                                   "logits_bytes": logits_bytes, **scan_ms}
+
+
+def phase_fused_joint_banded(mt):
+    """rnnt_loss_fused_joint_banded at fused_banded_bench.py's case against
+    the materialised banded route and the full-lattice fused-joint loss with
+    the same bands."""
+    b, t, s, v, h = FUSED_BANDED_CASE
+    case = fused_banded_case(mt, b, t, s, v, h, BAND_SHIFT)
+    args = (case["labels"], case["ilen"], case["slen"])
+    w = case["w"]
+    layout = mt.bands.compute_band_layout(case["ilen"], case["slen"],
+                                          case["bands"], t, s + 1, w)
+    idx = layout.offset.long()[:, :, None] + torch.arange(w, device=DEVICE)
+    b_idx = torch.arange(b, device=DEVICE)[:, None, None]
+    weights = torch.tensor([-0.5, 2.0], device=DEVICE)
+    n_chunks = -(-t // FUSED_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    banded = lambda e, p, pr: mt.rnnt_loss_fused_joint_banded(
+        e, p, *args, joint_banded, pr, bands=case["bands"], band_width=w,
+        chunk_t=FUSED_CHUNK)
+    costs, grads, fwd, step = joint_step(mt, banded, case, weights)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(fwd == {"softmax_stats": n_chunks, "alpha_scan_banded": 1},
+          f"banded fused-joint forward launches {fwd}")
+    check(step == {"softmax_stats": 2 * n_chunks, "alpha_scan_banded": 1,
+                   "fwdbwd_scan_banded": n_chunks, "grad_pass": n_chunks},
+          f"banded fused-joint step launches {step}")
+    check(bool(torch.isfinite(costs).all()), "banded fused-joint costs finite")
+    mono = lambda e, p, pr: mt.monotonic_rnnt_loss_banded(
+        joint_banded(pr, e, p[b_idx, idx]), *args, bands=case["bands"])
+    ref_costs, ref_grads, _, ref_step = joint_step(mt, mono, case, weights)
+    check(ref_step == {"softmax_stats_banded": 1, "fwdbwd_scan_banded": 1,
+                       "grad_pass": 1},
+          f"materialised banded route launches {ref_step}")
+    e_c = assert_close(costs, ref_costs, 1e-4, 1e-5,
+                       "banded fused-joint vs materialised costs")
+    errs = compare_joint_grads(grads, ref_grads,
+                               "banded fused-joint vs materialised")
+    full = lambda e, p, pr: mt.rnnt_loss_fused_joint(
+        e, p, *args, joint_full, pr, chunk_t=FUSED_CHUNK, bands=case["bands"])
+    full_costs, full_grads, _, _ = joint_step(mt, full, case, weights)
+    e_fc = assert_close(costs, full_costs, 1e-4, 1e-5,
+                        "banded vs full-lattice fused-joint costs")
+    e_fg = compare_joint_grads(grads, full_grads,
+                               "banded vs full-lattice fused-joint")
+    del grads, ref_grads, full_grads
+    path_errs, scan_ms = fused_path_kernels(
+        mt, mt.chunked_banded, "fwdbwd_scan_banded", n_chunks,
+        lambda: joint_step(mt, banded, case, weights), "banded fused-joint")
+    log(f"banded fused-joint B={b},T={t},S={s},V={v},H={h}, shift "
+        f"{BAND_SHIFT}: W={w} (layout exact: {case['exact']}), chunk_t="
+        f"{FUSED_CHUNK}; launches fwd {fwd}, step {step}; peak memory "
+        f"{peak / 2**30:.3f} GiB above its inputs; vs materialised banded "
+        f"costs max|d| {e_c:.3g}, grads relative L2 "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+        + f"; vs full-lattice fused-joint costs max|d| {e_fc:.3g}, grads "
+        "relative L2 " + ", ".join(f"{k} {e:.3g}" for k, e in e_fg.items())
+        + f"; costs {costs.tolist()}")
+    torch.cuda.empty_cache()
+    return case, step, path_errs, {"banded_fused_peak_bytes": peak,
+                                   "band_width": w, **scan_ms}
+
+
+def run_fused_joint(mt):
+    """Both fused-joint phases and their timing; returns the launch counts
+    of each path's training step, each path's kernel errors and the
+    end-to-end numbers."""
+    weights = torch.linspace(-0.5, 2.0, FUSED_CASE[0], device=DEVICE)
+    case, step, errs, mem = phase_fused_joint(mt, weights)
+    args = (case["labels"], case["ilen"], case["slen"])
+
+    def fused_step():
+        e = case["enc"].clone().requires_grad_(True)
+        pr = {k: v.clone().requires_grad_(True)
+              for k, v in case["params"].items()}
+        costs = mt.rnnt_loss_fused_joint(e, case["pred"], *args, joint_full,
+                                         pr, chunk_t=FUSED_CHUNK)
+        (costs * weights).sum().backward()
+
+    with torch.no_grad():
+        chunk = joint_full(case["params"], case["enc"][:, :FUSED_CHUNK],
+                           case["pred"])
+    lab = mt.helpers.extend_labels(case["labels"], case["slen"],
+                                   FUSED_CASE[2] + 1)
+    e2e = {"fused_chunk_softmax_stats_ms": cuda_ms(
+               lambda: mt.SK.softmax_stats(chunk, lab, 0)),
+           "fused_chunk_bound_ms": bound_ms(
+               chunk.numel() * 4 + lab.numel() * 4 + 3 * chunk[..., 0].numel()
+               * 4, 4 * chunk.numel())[0],
+           "fused_joint_step_ms": cuda_ms(fused_step, reps=3, warmup=1),
+           **mem}
+    del case, chunk
+    torch.cuda.empty_cache()
+    bcase, bstep, berrs, bnums = phase_fused_joint_banded(mt)
+    bargs = (bcase["labels"], bcase["ilen"], bcase["slen"])
+    bweights = torch.tensor([-0.5, 2.0], device=DEVICE)
+
+    def banded_step():
+        e = bcase["enc"].clone().requires_grad_(True)
+        pr = {k: v.clone().requires_grad_(True)
+              for k, v in bcase["params"].items()}
+        costs = mt.rnnt_loss_fused_joint_banded(
+            e, bcase["pred"], *bargs, joint_banded, pr, bands=bcase["bands"],
+            band_width=bcase["w"], chunk_t=FUSED_CHUNK)
+        (costs * bweights).sum().backward()
+
+    e2e.update({
+        "banded_fused_joint_step_ms": cuda_ms(banded_step, reps=3, warmup=1),
+        **bnums})
+    log("fused-joint timing: " + json.dumps(e2e))
+    return ({"fused_joint": step, "fused_joint_banded": bstep},
+            {"fused_joint": errs, "fused_joint_banded": berrs}, e2e)
 
 
 class _Port:
@@ -887,9 +1657,11 @@ class _Port:
     def __init__(self):
         import monotonic_rnnt_tpu_torch as pkg
         from monotonic_rnnt_tpu_torch import convert
-        from monotonic_rnnt_tpu_torch.ops import banded, bands
+        from monotonic_rnnt_tpu_torch.ops import (banded, bands, chunked,
+                                                  chunked_banded, helpers)
         from monotonic_rnnt_tpu_torch.ops.cuda import (_build, banded_kernels,
-                                                       fused, kernels)
+                                                       fused, kernels,
+                                                       split_kernels)
 
         pkg_dir = Path(pkg.__file__).resolve().parent
         if pkg_dir.parent != ROOT:
@@ -897,9 +1669,14 @@ class _Port:
                                f"this checkout ({ROOT})")
         self.monotonic_rnnt_loss = pkg.monotonic_rnnt_loss
         self.monotonic_rnnt_loss_banded = pkg.monotonic_rnnt_loss_banded
+        self.rnnt_loss_fused_joint = pkg.rnnt_loss_fused_joint
+        self.rnnt_loss_fused_joint_banded = pkg.rnnt_loss_fused_joint_banded
+        self.config_override = pkg.config_override
         self.convert, self.build, self.fused, self.K = (convert, _build, fused,
                                                         kernels)
         self.bands, self.banded, self.BK = bands, banded, banded_kernels
+        self.SK, self.helpers = split_kernels, helpers
+        self.chunked, self.chunked_banded = chunked, chunked_banded
 
 
 def gpu_line() -> str:
@@ -939,12 +1716,30 @@ def main() -> int:
     restricted = phase_restricted(mt, main_inputs, weights)
     phase_train(mt, main_inputs)
     kernels, e2e = phase_timing(mt, main_inputs, weights, errs, main_launches)
+    by_path(kernels, "padded", {}, {})
     log(f"end-to-end loss at B={B},T={T},S={S},V={V}: {json.dumps(e2e)}")
+    split_errs, split_launches, split_rows = run_split(mt, golden, main_inputs,
+                                                      weights)
+    log(f"end-to-end split loss at B={B},T={T},S={S},V={V}: " + json.dumps(
+        {str(d).removeprefix("torch."): split_rows[d][1]
+         for d in split_rows}))
     band_kernels, band_e2e = run_banded(mt, golden, main_inputs, weights,
                                         restricted)
-    kernels += band_kernels
     log(f"end-to-end banded loss at B,T,S,V={BANDED_CASE}, shift "
         f"{BAND_SHIFT}: {json.dumps(band_e2e)}")
+    del main_inputs, restricted
+    torch.cuda.empty_cache()
+    fused_launches, fused_errs, fused_e2e = run_fused_joint(mt)
+    log(f"end-to-end fused-joint losses at B,T',S,V,H={FUSED_CASE} and "
+        f"B,T,S,V,H={FUSED_BANDED_CASE}: {json.dumps(fused_e2e)}")
+    split_f32 = split_errs[torch.float32]
+    by_path(band_kernels, "banded", {"split": split_launches,
+                                     **fused_launches},
+            {"split": {"grad_pass": split_f32["grad_pass"]}, **fused_errs})
+    split_kernels = split_kernel_entries(split_errs, split_launches,
+                                         split_rows)
+    by_path(split_kernels, "split", fused_launches, fused_errs)
+    kernels += band_kernels + split_kernels
     log(f"total {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

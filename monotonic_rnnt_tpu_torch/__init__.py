@@ -1,13 +1,17 @@
 """PyTorch + CUDA port of the monotonic RNN-T training loss.
 
 Counterpart of the JAX package ``monotonic_rnnt_tpu``, which stays the
-reference. The padded loss and the banded loss (packed [B, T, W, V]
-layout) run forward, cost-only and backward through hand-written CUDA
-kernels (``csrc/``, built for sm_90a at first use) on CUDA tensors, and
-through the plain-torch oracles on CPU tensors.
+reference. The padded loss (on the DP-fused or the split pipeline), the
+banded loss (packed [B, T, W, V] layout) and the two fused-joint losses,
+which compute the loss from encoder and predictor outputs in T-chunks, run
+forward, cost-only and backward through hand-written CUDA kernels
+(``csrc/``, built for sm_90a at first use) on CUDA tensors, and through the
+kernels' plain versions or the plain-torch oracles on CPU tensors.
 """
 
 from .ops.banded import monotonic_rnnt_loss_banded
+from .ops.chunked import rnnt_loss_fused_joint
+from .ops.chunked_banded import rnnt_loss_fused_joint_banded
 from .ops.bands import (BandLayout, Bands, band_layout_is_exact,
                         bands_from_alignment, compute_band_layout,
                         default_bands, pack_band, required_band_width,
@@ -33,6 +37,8 @@ __all__ = [
     "monotonic_rnnt_loss_banded",
     "pack_band",
     "required_band_width",
+    "rnnt_loss_fused_joint",
+    "rnnt_loss_fused_joint_banded",
     "rnnt_loss_reference",
     "suggested_band_width",
     "unpack_band",

@@ -1,9 +1,9 @@
 """Moves the state the JAX package and the port share into torch tensors.
 
-The loss holds no learned weights, so what crosses between the two
-packages is the loss's inputs, its bands and its packed band layout, as
-numpy arrays: logits, labels, lengths, ``Bands(min_s, max_s)`` and
-``BandLayout(offset, d, d_next, width)``. Integer arrays become int32
+What crosses between the two packages is the loss's inputs, its bands and
+its packed band layout, and the parameters of the fused-joint losses'
+joint, as numpy arrays: logits, labels, lengths, ``Bands(min_s, max_s)``,
+``BandLayout(offset, d, d_next, width)`` and a dict of joint weights. Integer arrays become int32
 tensors, as the JAX package keeps them. The functions create tensors, so
 they default to ``device="cuda"`` and raise when no GPU is present; pass
 ``device="cpu"`` to run on the CPU.
@@ -11,7 +11,7 @@ they default to ``device="cuda"`` and raise when no GPU is present; pass
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +54,18 @@ def loss_inputs_from_numpy(logits, labels, input_lengths, label_lengths, *,
         lg = lg.to(dtype)
     return (lg.to(dev), _int_tensor(labels, dev), _int_tensor(input_lengths, dev),
             _int_tensor(label_lengths, dev))
+
+
+def joint_params_from_numpy(params, device="cuda") -> Dict[str, torch.Tensor]:
+    """A joint's numpy parameters as a dict of tensors on `device`.
+
+    The additive tanh joint of the fused-joint losses' tests and benchmarks
+    takes {we [De, H], wp [Dp, H], wv [H, V], bv [V]}; any dict of float
+    arrays converts, each keeping its dtype. The tensors are copies.
+    """
+    dev = _device(device)
+    return {name: _float_tensor(np.array(arr)).to(dev)
+            for name, arr in params.items()}
 
 
 def bands_from_numpy(min_s, max_s, device="cuda") -> Bands:

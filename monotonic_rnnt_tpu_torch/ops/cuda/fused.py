@@ -1,8 +1,8 @@
-"""DP-fused monotonic RNN-T loss pipeline on the CUDA kernels.
+"""The padded monotonic RNN-T loss's two pipelines on the CUDA kernels.
 
-Counterpart of ``monotonic_rnnt_tpu/ops/pallas/fused.py:140-285``: two
-passes over the [B, T, S1, V] logits, the minimum HBM traffic of the
-algorithm:
+Counterpart of ``monotonic_rnnt_tpu/ops/pallas/fused.py``. The DP-fused
+pipeline (fused.py:140-285) makes two passes over the [B, T, S1, V] logits,
+the minimum HBM traffic of the algorithm:
 
   * forward, ``stats_alpha_fused``: one read gives the stats, the alphas
     and the costs;
@@ -11,8 +11,11 @@ algorithm:
     cotangent folded in (the deferred-gradient route).
 
 The JAX package admits this route only when its tiles fit the TPU's VMEM
-(fused.py:210-216); the port takes it at every shape. Everything between
-the kernels is O(B*T*S1) torch glue.
+(fused.py:210-216); the port takes it at every shape unless the config's
+``pipeline`` is 'split'. The split pipeline (fused.py:79-137) runs
+``softmax_stats``, then ``fwdbwd_scan`` (or ``alpha_scan`` for costs only),
+then ``grad_pass``, and makes the gradient in the forward. Everything
+between the kernels is O(B*T*S1) torch glue.
 """
 
 from __future__ import annotations
@@ -21,10 +24,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..bands import Bands, _window_bounds, default_bands
+from ...utils.config import get_config
+from ..bands import Bands, _window_bounds, default_bands, lattice_masks
 from ..helpers import NEG_INF, extend_labels, mask_to_additive
-from ..reference import _gather_ll
-from .kernels import beta_grad_fused, stats_alpha_fused
+from ..reference import _gather_ll, occupancy_coefficients
+from .kernels import beta_grad_fused, grad_pass, stats_alpha_fused
+from .split_kernels import alpha_scan, fwdbwd_scan, softmax_stats
+
+def deferred_grad_supported() -> bool:
+    """True unless the config forces the split pipeline (fused.py:210-216).
+
+    The deferred route holds at every shape here, so only pipeline='split'
+    turns it off; a training step then takes the eager route.
+    """
+    return get_config().pipeline != "split"
 
 
 def _prepare(logits, labels, input_lengths, label_lengths, bands):
@@ -107,10 +120,14 @@ def rnnt_loss_cuda(
 
     Same contract as ops.reference.rnnt_loss_reference, except that the
     gradient comes in the logits' dtype. The forward makes the gradient
-    here (grad_scale 1); a training step goes through the deferred route.
+    here (grad_scale 1), on the pipeline the config names; a training step
+    goes through the deferred route unless that is 'split'.
     """
     ilen, slen, bands, labels_ext = _prepare(logits, labels, input_lengths,
                                              label_lengths, bands)
+    if not deferred_grad_supported():
+        return _split(logits, labels_ext, ilen, slen, bands, blank_id,
+                      with_grads)
     denom, lp_blank, lp_label, alphas, ll_fwd, bwin = _dp_fused_alpha_half(
         logits, labels_ext, ilen, slen, bands, blank_id)
     costs = -ll_fwd
@@ -120,6 +137,35 @@ def rnnt_loss_cuda(
                                 denom, lp_blank, lp_label, alphas, ll_fwd,
                                 bwin)
     return costs, grads
+
+
+def _split(logits, labels_ext, ilen, slen, bands, blank_id, with_grads):
+    """The split pipeline (fused.py:79-137): stats, scans, gradient pass.
+
+    The CUDA scans take any B and T, so the JAX package's padding of the
+    small arrays to full DP tiles has no counterpart.
+    """
+    _, t_max, s1, _ = logits.shape
+    masks = lattice_masks(ilen, slen, bands, t_max, s1)
+    denom, lp_blank, lpl_raw = softmax_stats(logits, labels_ext, blank_id)
+    s_idx = torch.arange(s1, dtype=torch.int32, device=logits.device)
+    lp_label = torch.where(s_idx[None, None, :] < slen[:, None, None],
+                           lpl_raw, NEG_INF)
+    amask = mask_to_additive(masks.alpha)
+    if with_grads:
+        # One launch advances both serial chains side by side.
+        alphas, betas = fwdbwd_scan(
+            lp_blank, lp_label, amask, mask_to_additive(masks.beta), ilen,
+            mask_to_additive(s_idx[None, :] == slen[:, None]))
+    else:
+        alphas = alpha_scan(lp_blank, lp_label, amask)
+    ll_fwd = _gather_ll(alphas, ilen, slen)
+    if not with_grads:
+        return -ll_fwd, None
+    occ, cb, cl = occupancy_coefficients(alphas, betas, ll_fwd, ilen, slen)
+    # The gradient in the logits' dtype (fused.py:131-135); the DP ran in f32.
+    return -ll_fwd, grad_pass(logits, denom, occ, cb, cl, labels_ext,
+                              blank_id, out_dtype=logits.dtype)
 
 
 def rnnt_loss_cuda_deferred_fwd(logits, labels, input_lengths, label_lengths,

@@ -7,11 +7,11 @@ Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776, 1304-1360``:
 * ``beta_grad_fused`` (TPU kernel at kernels.py:712) launches
   ``mrnnt_beta_kernel`` (csrc/beta_grad.cu) then ``mrnnt_grad_kernel``;
 * ``grad_pass`` (TPU kernel at kernels.py:1322) launches
-  ``mrnnt_grad_kernel`` (csrc/grad_pass.cu) alone, for the banded (and
-  later the split) route.
+  ``mrnnt_grad_kernel`` (csrc/grad_pass.cu) alone, for the banded and the
+  split routes and the fused-joint losses' chunks.
 
-The banded kernels' wrappers are in ops/cuda/banded_kernels.py and count
-their launches here. Each wrapper takes its plain PyTorch version (same
+The banded kernels' wrappers (ops/cuda/banded_kernels.py) and the split
+pipeline's (ops/cuda/split_kernels.py) count their launches here. Each wrapper takes its plain PyTorch version (same
 arguments, same outputs) for tensors on the CPU, and for CUDA tensors
 launches its kernels or raises. Each adds one to ``LAUNCHES[<name>]`` when
 it has launched. The TPU tiling helpers (pick_tv_tiles, fused_dp_tiles, the
@@ -32,7 +32,8 @@ from . import _build
 
 LAUNCHES = {"stats_alpha_fused": 0, "beta_grad_fused": 0, "grad_pass": 0,
             "softmax_stats_banded": 0, "fwdbwd_scan_banded": 0,
-            "alpha_scan_banded": 0}
+            "alpha_scan_banded": 0, "softmax_stats": 0, "fwdbwd_scan": 0,
+            "alpha_scan": 0, "beta_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -52,6 +53,10 @@ _ENTRIES = {
                            + [_P] * 6),
     "mrnnt_alpha_banded": ("banded", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "mrnnt_fwdbwd_banded": ("banded", [_P] * 8 + [_I] * 3 + [_P] * 3),
+    "mrnnt_softmax_stats": ("split", [_P, _I, _P] + [_I] * 6 + [_P] * 4),
+    "mrnnt_alpha_scan": ("split", [_P] * 3 + [_I] * 3 + [_P] * 2),
+    "mrnnt_beta_scan": ("split", [_P] * 5 + [_I] * 3 + [_P] * 2),
+    "mrnnt_fwdbwd_scan": ("split", [_P] * 6 + [_I] * 3 + [_P] * 3),
 }
 
 

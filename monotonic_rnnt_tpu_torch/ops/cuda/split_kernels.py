@@ -1,0 +1,198 @@
+"""The split pipeline's CUDA kernels, their wrappers and their plain versions.
+
+Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:187-289, 846-1101``
+on the padded [B, T, S1(, V)] lattice:
+
+* ``softmax_stats`` (TPU kernel at kernels.py:244) launches
+  ``mrnnt_softmax_stats_kernel``;
+* ``fwdbwd_scan`` (kernels.py:1053) launches ``mrnnt_fwdbwd_scan_kernel``,
+  the alpha and beta chains side by side;
+* ``alpha_scan`` (kernels.py:921) launches ``mrnnt_alpha_scan_kernel``;
+* ``beta_scan`` (kernels.py:947) launches ``mrnnt_beta_scan_kernel``;
+
+all from csrc/split.cu. Each keeps its Pallas function's operands and
+outputs, except that input_lengths is [B] (the TPU's [B, 1, 1] block shape),
+that ``tiles`` and ``interpret`` are gone, and that the scans take any B and
+T: the TPU padding to full DP tiles has no counterpart. The scans apply
+their additive masks as the port does everywhere: exactly -inf where the
+mask is -inf (a select), the mask added elsewhere. Each wrapper takes its
+plain PyTorch version for CPU tensors, launches its kernel or raises for
+CUDA tensors, and adds one to ``kernels.LAUNCHES[<name>]`` when it has
+launched.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..helpers import (NEG_INF, log_sum_exp, mask_to_additive,
+                       select_label_logits, shift_left_s, shift_right_s)
+from .kernels import LAUNCHES, _call, _check, _check_cuda, _check_logits, _ptr
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+# --- softmax_stats ---------------------------------------------------------------
+
+def softmax_stats_plain(logits, labels_ext, blank_id: int):
+    """Plain-torch softmax_stats: the same arguments and outputs."""
+    x = logits.float()
+    lab = labels_ext[:, None, :] if labels_ext.dim() == 2 else labels_ext
+    denom = -torch.logsumexp(x, dim=-1)
+    return (denom, x[..., blank_id] + denom,
+            select_label_logits(x, lab) + denom)
+
+
+def softmax_stats(logits, labels_ext, blank_id: int):
+    """Log-softmax statistics and the raw label log-prob, one read of the logits.
+
+    logits [B, T, S1, V] f32 or bf16; labels_ext [B, S1] int32, or [B, T, S1]
+    when the id of a slot varies with t (the packed band layout). Returns
+    (denom, lp_blank, lp_label_raw), each [B, T, S1] f32. An id outside
+    [0, V), such as the -1 sentinel, selects nothing: lp_label_raw is then
+    denom, and the caller masks the slot.
+    """
+    if logits.device.type == "cpu":
+        return softmax_stats_plain(logits, labels_ext, blank_id)
+    batch, t_max, s1, v = _check_logits(logits, blank_id)
+    dev = logits.device
+    per_t = labels_ext.dim() == 3
+    _check(labels_ext, "labels_ext", torch.int32,
+           (batch, t_max, s1) if per_t else (batch, s1), dev)
+    out = tuple(torch.empty((batch, t_max, s1), dtype=torch.float32,
+                            device=dev) for _ in range(3))
+    _call("mrnnt_softmax_stats", dev, _ptr(logits),
+          int(logits.dtype == torch.bfloat16), _ptr(labels_ext), int(per_t),
+          batch, t_max, s1, v, blank_id, *(_ptr(t) for t in out))
+    LAUNCHES["softmax_stats"] += 1
+    return out
+
+
+# --- the scans -------------------------------------------------------------------
+
+def _masked(x, mask_add):
+    """-inf where the additive mask is -inf, x + mask elsewhere."""
+    return torch.where(mask_add == NEG_INF, NEG_INF, x + mask_add)
+
+
+def alpha_scan_plain(lp_blank, lp_label, alpha_maskadd):
+    """Plain-torch alpha_scan: the same arguments and outputs."""
+    batch, t_max, s1 = lp_blank.shape
+    s_idx = torch.arange(s1, device=lp_blank.device)
+    prev = mask_to_additive(s_idx == 0).expand(batch, s1)
+    alphas = torch.empty_like(lp_blank)
+    for t in range(t_max):
+        new = log_sum_exp(prev + lp_blank[:, t],
+                          shift_right_s(prev + lp_label[:, t]))
+        prev = _masked(new, alpha_maskadd[:, t])
+        alphas[:, t] = prev
+    return alphas
+
+
+def beta_scan_plain(lp_blank, lp_label, beta_maskadd, input_lengths,
+                    beta_virtual):
+    """Plain-torch beta_scan: the same arguments and outputs."""
+    batch, t_max, s1 = lp_blank.shape
+    betas = torch.empty_like(lp_blank)
+    carry = torch.full((batch, s1), NEG_INF, dtype=torch.float32,
+                       device=lp_blank.device)
+    for t in range(t_max - 1, -1, -1):
+        nxt = torch.where((t + 1 >= input_lengths)[:, None], beta_virtual,
+                          carry)
+        new = log_sum_exp(nxt + lp_blank[:, t],
+                          shift_left_s(nxt) + lp_label[:, t])
+        carry = _masked(new, beta_maskadd[:, t])
+        betas[:, t] = carry
+    return betas
+
+
+def fwdbwd_scan_plain(lp_blank, lp_label, alpha_maskadd, beta_maskadd,
+                      input_lengths, beta_virtual) -> Pair:
+    """Plain-torch fwdbwd_scan: the same arguments and outputs."""
+    return (alpha_scan_plain(lp_blank, lp_label, alpha_maskadd),
+            beta_scan_plain(lp_blank, lp_label, beta_maskadd, input_lengths,
+                            beta_virtual))
+
+
+def _check_streams(named, dev):
+    _check_cuda(named[0][1])
+    batch, t_max, s1 = named[0][1].shape
+    for name, t in named:
+        _check(t, name, torch.float32, (batch, t_max, s1), dev)
+    return batch, t_max, s1
+
+
+def _check_beta_extras(input_lengths, beta_virtual, batch, s1, dev):
+    _check(input_lengths, "input_lengths", torch.int32, (batch,), dev)
+    _check(beta_virtual, "beta_virtual", torch.float32, (batch, s1), dev)
+
+
+def alpha_scan(lp_blank, lp_label, alpha_maskadd):
+    """Cost-only forward DP; returns alphas [B, T, S1] f32.
+
+    lp_blank, lp_label, alpha_maskadd: [B, T, S1] f32 (lp_label -inf on
+    invalid label slots, the mask 0 / -inf). Walks t serially:
+      alpha(t, s) = LSE(alpha(t-1, s) + lp_blank[t, s],
+                        alpha(t-1, s-1) + lp_label[t, s-1]) + mask[t, s],
+    exactly -inf where the mask is; alpha(-1, s) = [s == 0].
+    """
+    if lp_blank.device.type == "cpu":
+        return alpha_scan_plain(lp_blank, lp_label, alpha_maskadd)
+    dev = lp_blank.device
+    batch, t_max, s1 = _check_streams(
+        (("lp_blank", lp_blank), ("lp_label", lp_label),
+         ("alpha_maskadd", alpha_maskadd)), dev)
+    alphas = torch.empty_like(lp_blank)
+    _call("mrnnt_alpha_scan", dev, _ptr(lp_blank), _ptr(lp_label),
+          _ptr(alpha_maskadd), batch, t_max, s1, _ptr(alphas))
+    LAUNCHES["alpha_scan"] += 1
+    return alphas
+
+
+def beta_scan(lp_blank, lp_label, beta_maskadd, input_lengths, beta_virtual):
+    """Backward DP; returns betas [B, T, S1] f32 (code convention beta(t, s)).
+
+    input_lengths [B] int32; beta_virtual [B, S1] f32, [s == S_b] in log
+    space. Walks t from T-1 down to 0:
+      nxt = t+1 >= T_b ? beta_virtual : beta(t+1)   (-inf past T_max),
+      beta(t, s) = LSE(nxt[s] + lp_blank[t, s],
+                       nxt[s+1] + lp_label[t, s]) + mask[t, s],
+    exactly -inf where the mask is.
+    """
+    if lp_blank.device.type == "cpu":
+        return beta_scan_plain(lp_blank, lp_label, beta_maskadd,
+                               input_lengths, beta_virtual)
+    dev = lp_blank.device
+    batch, t_max, s1 = _check_streams(
+        (("lp_blank", lp_blank), ("lp_label", lp_label),
+         ("beta_maskadd", beta_maskadd)), dev)
+    _check_beta_extras(input_lengths, beta_virtual, batch, s1, dev)
+    betas = torch.empty_like(lp_blank)
+    _call("mrnnt_beta_scan", dev, _ptr(lp_blank), _ptr(lp_label),
+          _ptr(beta_maskadd), _ptr(input_lengths), _ptr(beta_virtual), batch,
+          t_max, s1, _ptr(betas))
+    LAUNCHES["beta_scan"] += 1
+    return betas
+
+
+def fwdbwd_scan(lp_blank, lp_label, alpha_maskadd, beta_maskadd,
+                input_lengths, beta_virtual) -> Pair:
+    """alpha_scan's and beta_scan's outputs in one launch: (alphas, betas)."""
+    if lp_blank.device.type == "cpu":
+        return fwdbwd_scan_plain(lp_blank, lp_label, alpha_maskadd,
+                                 beta_maskadd, input_lengths, beta_virtual)
+    dev = lp_blank.device
+    batch, t_max, s1 = _check_streams(
+        (("lp_blank", lp_blank), ("lp_label", lp_label),
+         ("alpha_maskadd", alpha_maskadd), ("beta_maskadd", beta_maskadd)),
+        dev)
+    _check_beta_extras(input_lengths, beta_virtual, batch, s1, dev)
+    alphas = torch.empty_like(lp_blank)
+    betas = torch.empty_like(lp_blank)
+    _call("mrnnt_fwdbwd_scan", dev, _ptr(lp_blank), _ptr(lp_label),
+          _ptr(alpha_maskadd), _ptr(beta_maskadd), _ptr(input_lengths),
+          _ptr(beta_virtual), batch, t_max, s1, _ptr(alphas), _ptr(betas))
+    LAUNCHES["fwdbwd_scan"] += 1
+    return alphas, betas

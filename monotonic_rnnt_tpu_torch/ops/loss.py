@@ -7,6 +7,10 @@ PyTorch counterpart of ``monotonic_rnnt_tpu/ops/loss.py``:
     the backward runs the beta+grad kernel with the incoming cotangent
     folded in (the deferred-gradient route). A cost-only call never
     launches the beta+grad kernel;
+  * on the ``cuda`` backend under ``pipeline='split'`` the forward makes
+    the gradient through the split kernels and the backward scales it by
+    the cotangent (the eager route, loss.py:102-124); a cost-only call runs
+    softmax_stats and the alpha scan only;
   * on the ``reference`` backend the forward makes the gradient with the
     plain-torch oracle and the backward scales it by the cotangent;
   * the alignment-restricted variant is the same lattice with band masks
@@ -23,7 +27,8 @@ from torch.autograd.function import once_differentiable
 from ..utils.config import get_config
 from ..utils.status import validate_loss_inputs
 from .bands import Bands, bands_from_alignment, default_bands
-from .cuda.fused import (rnnt_loss_cuda_deferred_bwd,
+from .cuda.fused import (deferred_grad_supported, rnnt_loss_cuda,
+                         rnnt_loss_cuda_deferred_bwd,
                          rnnt_loss_cuda_deferred_fwd)
 from .reference import rnnt_loss_reference
 
@@ -50,10 +55,11 @@ class _LossCore(torch.autograd.Function):
                 band_max, blank_id, backend):
         bands = Bands(band_min, band_max)
         need_grad = ctx.needs_input_grad[0]
-        ctx.backend = backend
+        ctx.deferred = backend == "cuda" and deferred_grad_supported()
         ctx.blank_id = blank_id
         if backend == "cuda":
             logits = logits.contiguous()  # the kernels take contiguous rows
+        if ctx.deferred:
             costs, res = rnnt_loss_cuda_deferred_fwd(
                 logits, labels, input_lengths, label_lengths,
                 blank_id=blank_id, bands=bands)
@@ -61,9 +67,10 @@ class _LossCore(torch.autograd.Function):
                 ctx.save_for_backward(logits, labels, input_lengths,
                                       label_lengths, band_min, band_max, *res)
             return costs
-        costs, grads = rnnt_loss_reference(
-            logits, labels, input_lengths, label_lengths, blank_id=blank_id,
-            bands=bands, with_grads=need_grad)
+        loss_fn = rnnt_loss_cuda if backend == "cuda" else rnnt_loss_reference
+        costs, grads = loss_fn(logits, labels, input_lengths, label_lengths,
+                               blank_id=blank_id, bands=bands,
+                               with_grads=need_grad)
         if need_grad:
             ctx.logits_dtype = logits.dtype
             ctx.save_for_backward(grads)
@@ -72,7 +79,7 @@ class _LossCore(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, cost_cotangent):
-        if ctx.backend == "cuda":
+        if ctx.deferred:
             (logits, labels, input_lengths, label_lengths, band_min, band_max,
              *res) = ctx.saved_tensors
             dlogits = rnnt_loss_cuda_deferred_bwd(

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a GPU: each against its plain version, and the
-padded and banded losses through them against the plain-torch oracles.
+padded (DP-fused and split) and banded losses and the fused-joint losses
+through them against the plain-torch oracles.
 
 Every test here is marked ``cuda`` and skips where no GPU is present. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -19,6 +20,7 @@ from monotonic_rnnt_tpu_torch.ops import bands as tbands
 from monotonic_rnnt_tpu_torch.ops.cuda import banded_kernels as BK
 from monotonic_rnnt_tpu_torch.ops.cuda import fused
 from monotonic_rnnt_tpu_torch.ops.cuda import kernels as K
+from monotonic_rnnt_tpu_torch.ops.cuda import split_kernels as SK
 
 pytestmark = pytest.mark.cuda
 
@@ -313,3 +315,173 @@ def test_banded_golden_alignment_losses_on_gpu(device):
                 backend="cuda")
             np.testing.assert_allclose(costs.cpu().numpy(), [expected],
                                        atol=1e-4)
+
+
+# --- the split pipeline ----------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("labels_3d", [False, True], ids=["BS1", "BTS1"])
+def test_softmax_stats_kernel_matches_plain(device, labels_3d, dtype):
+    (lg, lab, *_), _ = _inputs(device, *SHAPES[1], dtype)
+    lab = lab.clone()
+    lab[:, 1] = 10 * lg.shape[3]               # an id past V selects nothing
+    if labels_3d:
+        lab = lab[:, None, :].expand(-1, lg.shape[1], -1).contiguous()
+        lab[:, ::2, 2] = -1                    # ids that vary with t
+    before = K.LAUNCHES["softmax_stats"]
+    got = SK.softmax_stats(lg, lab, 0)
+    want = SK.softmax_stats_plain(lg, lab, 0)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["softmax_stats"] == before + 1
+    for g, w in zip(got, want):   # another V summation order than logsumexp
+        _close(g, w, 1e-5, 1e-6)
+
+
+def _split_scan_args(device, seed, batch, t_max, s1):
+    """Random streams and 0/-inf masks, a short sample, random virtual rows."""
+    rng = np.random.RandomState(seed)
+    f = lambda a: torch.from_numpy(a).to(device)
+    lpb, lpl = (f((rng.randn(batch, t_max, s1) - 1).astype(np.float32))
+                for _ in range(2))
+    am, bm = (f(np.where(rng.rand(batch, t_max, s1) < 0.8, 0.0,
+                         -np.inf).astype(np.float32)) for _ in range(2))
+    ilen = f(np.array([t_max] + [max(1, t_max - 5)] * (batch - 1), np.int32))
+    bvirt = f(np.where(rng.rand(batch, s1) < 0.3, 0.0,
+                       -np.inf).astype(np.float32))
+    return lpb, lpl, am, bm, ilen, bvirt
+
+
+# (B, T, S1): S1 = 1, 51, 201 and above 1024 threads; T up to 1600.
+SPLIT_SCANS = [(3, 40, 1), (2, 200, 51), (2, 1600, 201), (1, 70, 1100)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SCANS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_split_scan_kernels_match_plain(device, shape):
+    args = _split_scan_args(device, sum(shape), *shape)
+    lpb, lpl, am, bm, ilen, bvirt = args
+    alphas, betas = SK.fwdbwd_scan(*args)
+    a_only = SK.alpha_scan(lpb, lpl, am)
+    b_only = SK.beta_scan(lpb, lpl, bm, ilen, bvirt)
+    want_a, want_b = SK.fwdbwd_scan_plain(*args)
+    torch.cuda.synchronize()
+    # Another exp/log1p rounding, carried through T log-space steps.
+    for got, want in ((alphas, want_a), (betas, want_b)):
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+        _close(got, want, 1e-4, 1e-5)
+    assert torch.equal(a_only, alphas) and torch.equal(b_only, betas)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_loss_through_kernels_matches_oracle(device, dtype):
+    logits, labels, ilen, slen = golden.repeat_label_case(7, 4, 30, 8, 300)
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
+                                                    device=device, dtype=dtype)
+    w = torch.tensor([1.0, -0.5, 2.0, 0.25], device=device)
+    out = {}
+    for backend in ("cuda", "reference"):
+        K.reset_launch_counts()
+        x = lg.clone().requires_grad_(True)
+        with mt.config_override(pipeline="split"):
+            costs = mt.monotonic_rnnt_loss(x, lb, il, sl, backend=backend)
+            (costs * w).sum().backward()
+        torch.cuda.synchronize()
+        out[backend] = (costs.detach(), x.grad, _launched())
+    assert out["cuda"][2] == {"softmax_stats": 1, "fwdbwd_scan": 1,
+                              "grad_pass": 1}
+    assert out["cuda"][1].dtype == dtype
+    _close(out["cuda"][0], out["reference"][0], 1e-4, 1e-5)
+    _close(out["cuda"][1], out["reference"][1], 1e-6,
+           1.6e-2 if dtype == torch.bfloat16 else 1e-4)
+    K.reset_launch_counts()
+    with torch.no_grad(), mt.config_override(pipeline="split"):
+        costs = mt.monotonic_rnnt_loss(lg, lb, il, sl)
+    assert _launched() == {"softmax_stats": 1, "alpha_scan": 1}
+    assert torch.equal(costs, out["cuda"][0])
+
+
+# --- the fused-joint losses --------------------------------------------------------
+
+def _joint(params, enc_c, pred):
+    e = enc_c @ params["we"]
+    return torch.tanh(e[:, :, None, :] + (pred @ params["wp"])[:, None]) \
+        @ params["wv"] + params["bv"]
+
+
+def _joint_banded(params, enc_c, pred_band):
+    e = enc_c @ params["we"]
+    return torch.tanh(e[:, :, None, :] + pred_band @ params["wp"]) \
+        @ params["wv"] + params["bv"]
+
+
+def _fused_case(device, seed=0, batch=3, t=37, s=9, v=70, h=16):
+    rng = np.random.RandomState(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    enc, pred = f(rng.randn(batch, t, h)), f(rng.randn(batch, s + 1, h))
+    labels = torch.from_numpy(rng.randint(1, v, (batch, s)).astype(
+        np.int32)).to(device)
+    ilen = torch.tensor([t, t - 4, s + 3], dtype=torch.int32, device=device)
+    slen = torch.tensor([s, s - 2, 3], dtype=torch.int32, device=device)
+    params = convert.joint_params_from_numpy(
+        {k: a.astype(np.float32) for k, a in (
+            ("we", rng.randn(h, h) * 0.3), ("wp", rng.randn(h, h) * 0.3),
+            ("wv", rng.randn(h, v) * 0.3), ("bv", rng.randn(v) * 0.1))},
+        device=device)
+    return enc, pred, labels, ilen, slen, params
+
+
+def _grads(fn, enc, pred, params, w):
+    leaves = [enc.clone().requires_grad_(True),
+              pred.clone().requires_grad_(True)]
+    pr = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    costs = fn(leaves[0], leaves[1], pr)
+    (costs * w).sum().backward()
+    return costs.detach(), [x.grad for x in leaves] + [pr[k].grad for k in pr]
+
+
+def test_fused_joint_through_kernels_matches_materialised(device):
+    enc, pred, labels, ilen, slen, params = _fused_case(device)
+    w = torch.tensor([1.0, -0.5, 2.0], device=device)
+    K.reset_launch_counts()
+    got = _grads(lambda e, p, pr: mt.rnnt_loss_fused_joint(
+        e, p, labels, ilen, slen, _joint, pr, chunk_t=8), enc, pred, params, w)
+    torch.cuda.synchronize()
+    assert _launched() == {"softmax_stats": 10, "grad_pass": 5,
+                           "beta_scan": 5, "alpha_scan": 1}
+    want = _grads(lambda e, p, pr: mt.monotonic_rnnt_loss(
+        _joint(pr, e, p), labels, ilen, slen, backend="reference"), enc, pred,
+        params, w)
+    _close(got[0], want[0], 1e-4, 1e-5)
+    for g, r in zip(got[1], want[1]):
+        _close(g, r, 1e-5, 1e-4)
+
+
+def test_fused_joint_banded_through_kernels_matches_materialised(device):
+    enc, pred, labels, ilen, slen, params = _fused_case(device, seed=1)
+    t, s1 = enc.shape[1], pred.shape[1]
+    rng = np.random.RandomState(1)
+    align = np.zeros((3, t), np.int32)
+    for b in range(3):
+        pos = np.sort(rng.choice(int(ilen[b]), size=int(slen[b]),
+                                 replace=False))
+        align[b, pos] = labels[b, :int(slen[b])].cpu().numpy()
+    bands = mt.bands_from_alignment(torch.from_numpy(align).to(device), ilen,
+                                    slen, 3, 0)
+    width = mt.suggested_band_width(ilen, slen, bands, t, s1)
+    layout = mt.compute_band_layout(ilen, slen, bands, t, s1, width)
+    idx = layout.offset.long()[:, :, None] + torch.arange(width, device=device)
+    w = torch.tensor([0.5, 1.0, -2.0], device=device)
+    K.reset_launch_counts()
+    got = _grads(lambda e, p, pr: mt.rnnt_loss_fused_joint_banded(
+        e, p, labels, ilen, slen, _joint_banded, pr, bands=bands,
+        band_width=width, chunk_t=16), enc, pred, params, w)
+    torch.cuda.synchronize()
+    assert _launched() == {"softmax_stats": 6, "grad_pass": 3,
+                           "alpha_scan_banded": 1, "fwdbwd_scan_banded": 3}
+    want = _grads(lambda e, p, pr: mt.monotonic_rnnt_loss_banded(
+        _joint_banded(pr, e, p[torch.arange(3, device=device)[:, None, None],
+                               idx]), labels, ilen, slen, bands=bands,
+        backend="reference"), enc, pred, params, w)
+    _close(got[0], want[0], 1e-4, 1e-5)
+    for g, r in zip(got[1], want[1]):
+        _close(g, r, 1e-5, 1e-4)

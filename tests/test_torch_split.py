@@ -1,0 +1,345 @@
+"""The port's split pipeline against the JAX package's.
+
+The four kernels' plain versions (softmax_stats, alpha_scan, beta_scan,
+fwdbwd_scan) against the Pallas kernels in interpret mode, and the split
+route (``pipeline='split'``) against ``rnnt_loss_pallas`` under the same
+pipeline and against the oracle, on CPU tensors, where the port's wrappers
+take their plain versions. Tolerances: costs and statistics 1e-5 relative,
+gradients 1e-4 relative and 1e-5 absolute (f32).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import golden
+import monotonic_rnnt_tpu as mr
+import monotonic_rnnt_tpu_torch as mt
+from monotonic_rnnt_tpu.ops.bands import default_bands, lattice_masks
+from monotonic_rnnt_tpu.ops.helpers import NEG_INF, mask_to_additive
+from monotonic_rnnt_tpu.ops.pallas import kernels as PK
+from monotonic_rnnt_tpu.ops.pallas.fused import rnnt_loss_pallas
+from monotonic_rnnt_tpu.ops.reference import (compute_stats,
+                                              rnnt_loss_reference)
+from monotonic_rnnt_tpu.utils.config import config_override as jax_config
+from monotonic_rnnt_tpu_torch import convert
+from monotonic_rnnt_tpu_torch.ops import loss as tloss
+from monotonic_rnnt_tpu_torch.ops.cuda import fused
+from monotonic_rnnt_tpu_torch.ops.cuda import split_kernels as SK
+from monotonic_rnnt_tpu_torch.utils import config
+
+WEIGHTS = np.array([1.0, -0.5, 2.0], np.float32)   # one negative cotangent
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))     # a writable copy
+
+
+# --- softmax_stats -----------------------------------------------------------------
+
+def _stats_case(labels_3d, seed=0):
+    rng = np.random.RandomState(seed)
+    b, t, s1, v = 2, 5, 4, 130                 # V not a multiple of 128
+    x = (rng.randn(b, t, s1, v) * 2).astype(np.float32)
+    shape = (b, t, s1) if labels_3d else (b, s1)
+    lab = rng.randint(0, v, size=shape).astype(np.int32)
+    # The -1 sentinel, another negative id and an id far past V select
+    # nothing in both packages.
+    lab[..., 1] = -1
+    lab[0, ..., 2] = -7
+    lab[1, ..., 3] = 10 * v
+    return x, lab
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("labels_3d", [False, True], ids=["BS1", "BTS1"])
+def test_softmax_stats_plain_matches_pallas(labels_3d, dtype):
+    x, lab = _stats_case(labels_3d)
+    want = PK.softmax_stats(jnp.asarray(x).astype(dtype), jnp.asarray(lab), 3,
+                            interpret=True)
+    x_t = _t(x).to(getattr(torch, dtype))    # rounds as astype does
+    got = SK.softmax_stats(x_t, _t(lab), 3)   # a CPU tensor: the plain version
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+    # An id outside [0, V) selects nothing: the raw label log-prob is denom.
+    np.testing.assert_array_equal(got[2][..., 1].numpy(), got[0][..., 1].numpy())
+
+
+def test_softmax_stats_ids_just_past_v_select_nothing():
+    # The Pallas kernel pads V to its lane tile with -inf, so an id in
+    # [V, padded V) selects -inf there; the port keeps the documented
+    # contract (0 + denom) for every id outside [0, V). Callers mask such
+    # slots either way.
+    x, lab = _stats_case(False, seed=1)
+    lab[:, 2] = x.shape[3]
+    lab[:, 3] = x.shape[3] + 5
+    denom, _, lpl = SK.softmax_stats_plain(_t(x), _t(lab), 0)
+    np.testing.assert_array_equal(lpl[..., 2:].numpy(), denom[..., 2:].numpy())
+    _, _, lpl_pallas = PK.softmax_stats(jnp.asarray(x), jnp.asarray(lab), 0,
+                                        interpret=True)
+    assert np.all(np.asarray(lpl_pallas)[..., 2:] == -np.inf)
+    np.testing.assert_allclose(lpl[..., :2].numpy(),
+                               np.asarray(lpl_pallas)[..., :2], rtol=1e-5)
+
+
+# --- the scans ---------------------------------------------------------------------
+
+# (seed, B, T, S, V, input_lengths, label_lengths, align_shift): odd lengths,
+# an S_b = 0 sample, S1 = 1, and an alignment band.
+SCAN_CASES = [
+    (11, 3, 21, 6, 40, [21, 13, 8], [6, 4, 0], None),
+    (12, 2, 9, 0, 7, [9, 4], [0, 0], None),
+    (13, 3, 17, 5, 11, [17, 11, 6], [5, 2, 3], 1),
+]
+
+
+def _scan_operands(seed, b, t, s, v, ilen, slen, shift):
+    """The JAX stats, masks and virtual rows of a random lattice, as numpy."""
+    rng = np.random.RandomState(seed)
+    logits = jnp.asarray((rng.randn(b, t, s + 1, v) * 2).astype(np.float32))
+    labels = jnp.asarray(rng.randint(1, v, size=(b, s)).astype(np.int32))
+    ilen, slen = jnp.asarray(np.array(ilen, np.int32)), jnp.asarray(
+        np.array(slen, np.int32))
+    if shift is None:
+        bands = default_bands(ilen, slen, t)
+    else:
+        align = np.zeros((b, t), np.int32)
+        for i in range(b):
+            pos = np.sort(rng.choice(int(ilen[i]), size=int(slen[i]),
+                                     replace=False))
+            align[i, pos] = np.asarray(labels)[i, :int(slen[i])]
+        bands = mr.bands_from_alignment(jnp.asarray(align), ilen, slen, shift,
+                                        0)
+    stats = compute_stats(logits, labels, slen, 0)
+    masks = lattice_masks(ilen, slen, bands, t, s + 1)
+    bvirt = mask_to_additive(jnp.arange(s + 1)[None, :] == slen[:, None])
+    return tuple(np.asarray(a) for a in (
+        stats.lp_blank, stats.lp_label, mask_to_additive(masks.alpha),
+        mask_to_additive(masks.beta), ilen, bvirt))
+
+
+def _jax_scans(lpb, lpl, am, bm, ilen, bvirt):
+    """alpha_scan, beta_scan and fwdbwd_scan in interpret mode, padded to
+    full DP tiles as ops/pallas/fused.py pads them (tests/test_pallas.py)."""
+    b, t, s1 = lpb.shape
+    bt, b_pad, tt, t_pad = PK.dp_tiles(b, t, 2 * s1)
+    pad = lambda x, f: jnp.pad(jnp.asarray(x), ((0, b_pad - b),
+                                                (0, t_pad - t), (0, 0)),
+                               constant_values=f)
+    args = (pad(lpb, 0.0), pad(lpl, 0.0))
+    am_p, bm_p = pad(am, NEG_INF), pad(bm, NEG_INF)
+    il_p = jnp.pad(jnp.asarray(ilen), (0, b_pad - b),
+                   constant_values=1)[:, None, None]
+    bv_p = jnp.pad(jnp.asarray(bvirt), ((0, b_pad - b), (0, 0)),
+                   constant_values=NEG_INF)
+    cut = lambda x: np.asarray(x)[:b, :t]
+    alphas = PK.alpha_scan(*args, am_p, interpret=True, tiles=(bt, tt))
+    betas = PK.beta_scan(*args, bm_p, il_p, bv_p, interpret=True,
+                         tiles=(bt, tt))
+    fb = PK.fwdbwd_scan(*args, am_p, bm_p, il_p, bv_p, interpret=True,
+                        tiles=(bt, tt))
+    return cut(alphas), cut(betas), tuple(cut(x) for x in fb)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: f"seed{c[0]}")
+def test_scans_plain_match_pallas(case):
+    ops = _scan_operands(*case)
+    want_a, want_b, want_fb = _jax_scans(*ops)
+    lpb, lpl, am, bm, ilen, bvirt = (_t(a) for a in ops)
+    # CPU tensors: the wrappers take their plain versions.
+    alphas = SK.alpha_scan(lpb, lpl, am)
+    betas = SK.beta_scan(lpb, lpl, bm, ilen, bvirt)
+    fb = SK.fwdbwd_scan(lpb, lpl, am, bm, ilen, bvirt)
+    for got, want in ((alphas, want_a), (betas, want_b), (fb[0], want_fb[0]),
+                      (fb[1], want_fb[1])):
+        assert np.array_equal(np.isfinite(got.numpy()), np.isfinite(want))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(fb[0], alphas) and torch.equal(fb[1], betas)
+
+
+def test_scan_masks_select_where_the_pallas_kernels_add():
+    # A NaN statistic in a masked cell (from +-inf padding logits) stays
+    # out of the port's recurrences; the additive form would carry it on.
+    lpb, lpl, am, bm, ilen, bvirt = (_t(a) for a in
+                                     _scan_operands(*SCAN_CASES[0]))
+    want_a = SK.alpha_scan_plain(lpb, lpl, am)
+    want_b = SK.beta_scan_plain(lpb, lpl, bm, ilen, bvirt)
+    lpb_nan = torch.where((am == NEG_INF) & (bm == NEG_INF), float("nan"), lpb)
+    assert torch.isnan(lpb_nan).any()
+    alphas, betas = SK.fwdbwd_scan(lpb_nan, lpl, am, bm, ilen, bvirt)
+    assert torch.equal(alphas, want_a) and torch.equal(betas, want_b)
+
+
+# --- the split route ---------------------------------------------------------------
+
+def _loss_case(seed=29, blank=0):
+    return golden.repeat_label_case(seed, 3, 16, 7, 33, blank_id=blank)
+
+
+def _alignment(labels, ilen, slen, t, seed=3):
+    rng = np.random.RandomState(seed)
+    align = np.zeros((len(ilen), t), np.int32)
+    for b in range(len(ilen)):
+        frames = np.sort(rng.choice(ilen[b], size=slen[b], replace=False))
+        align[b, frames] = labels[b, :slen[b]]
+    return align
+
+
+@pytest.mark.parametrize("banded", [False, True], ids=["full", "band"])
+@pytest.mark.parametrize("blank", [0, 32])
+def test_split_route_matches_jax_split_pipeline_and_oracle(blank, banded):
+    lg, lb, il, sl = _loss_case(blank=blank)
+    args = tuple(jnp.asarray(a) for a in (lg, lb, il, sl))
+    j_bands = t_bands = None
+    if banded:
+        align = _alignment(lb, il, sl, lg.shape[1])
+        j_bands = mr.bands_from_alignment(jnp.asarray(align), args[2],
+                                          args[3], 2, blank)
+        t_bands = convert.bands_from_numpy(*(np.asarray(a) for a in j_bands),
+                                           device="cpu")
+    with jax_config(pipeline="split"):
+        c_pal, g_pal = jax.jit(rnnt_loss_pallas, static_argnames=(
+            "blank_id", "with_grads", "interpret"))(
+            *args, blank_id=blank, bands=j_bands, interpret=True)
+    c_ref, g_ref = rnnt_loss_reference(*args, blank_id=blank, bands=j_bands)
+    t_in = convert.loss_inputs_from_numpy(lg, lb, il, sl, device="cpu")
+    with mt.config_override(pipeline="split"):
+        c, g = fused.rnnt_loss_cuda(*t_in, blank_id=blank, bands=t_bands)
+        c_only, none = fused.rnnt_loss_cuda(*t_in, blank_id=blank,
+                                            bands=t_bands, with_grads=False)
+    assert none is None and torch.equal(c_only, c)
+    for want_c, want_g in ((c_pal, g_pal), (c_ref, g_ref)):
+        np.testing.assert_allclose(c.numpy(), np.asarray(want_c), rtol=1e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(want_g), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def _counting(monkeypatch):
+    """Counts the calls of every kernel wrapper ops/cuda/fused.py makes."""
+    calls = {}
+    for name in ("softmax_stats", "fwdbwd_scan", "alpha_scan", "grad_pass",
+                 "stats_alpha_fused", "beta_grad_fused"):
+        fn = getattr(fused, name)
+
+        def shim(*a, _fn=fn, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(fused, name, shim)
+    return calls
+
+
+def _jax_weighted(lg, lb, il, sl, dtype):
+    from monotonic_rnnt_tpu.utils.debug import interpret_mode
+
+    def total(x):
+        return jnp.sum(jnp.asarray(WEIGHTS) * mr.monotonic_rnnt_loss(
+            x, jnp.asarray(lb), jnp.asarray(il), jnp.asarray(sl),
+            backend="pallas"))
+
+    with jax_config(pipeline="split"), interpret_mode():
+        return jax.jit(jax.value_and_grad(total))(
+            jnp.asarray(lg).astype(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eager_route_training_step_matches_jax(monkeypatch, dtype):
+    lg, lb, il, sl = _loss_case(seed=31)
+    v_j, g_j = _jax_weighted(lg, lb, il, sl, dtype)
+    lg_t, lb_t, il_t, sl_t = convert.loss_inputs_from_numpy(
+        lg, lb, il, sl, device="cpu", dtype=getattr(torch, dtype))
+    bands = mt.default_bands(il_t, sl_t, lg.shape[1])
+    calls = _counting(monkeypatch)
+    x = lg_t.clone().requires_grad_(True)
+    with mt.config_override(pipeline="split"):
+        costs = tloss._LossCore.apply(x, lb_t, il_t, sl_t, bands.min_s,
+                                      bands.max_s, 0, "cuda")
+        (costs * _t(WEIGHTS)).sum().backward()
+        assert calls == {"softmax_stats": 1, "fwdbwd_scan": 1, "grad_pass": 1}
+        calls.clear()
+        with torch.no_grad():
+            c_only = mt.monotonic_rnnt_loss(x, lb_t, il_t, sl_t,
+                                            backend="reference")
+            c_cuda = tloss._LossCore.apply(x.detach(), lb_t, il_t, sl_t,
+                                           bands.min_s, bands.max_s, 0,
+                                           "cuda")
+        assert calls == {"softmax_stats": 1, "alpha_scan": 1}
+    assert x.grad.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(c_cuda.numpy(), c_only.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(float((costs.detach() * _t(WEIGHTS)).sum()),
+                               float(v_j), rtol=1e-5)
+    bf16 = dtype == "bfloat16"
+    # bf16: both round an f32 gradient scaled by the same cotangent.
+    np.testing.assert_allclose(x.grad.float().numpy(),
+                               np.asarray(g_j.astype(jnp.float32)),
+                               rtol=8e-3 if bf16 else 1e-4, atol=1e-5)
+
+
+def test_fused_pipeline_takes_the_deferred_route(monkeypatch):
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(*_loss_case(), device="cpu")
+    bands = mt.default_bands(il, sl, lg.shape[1])
+    calls = _counting(monkeypatch)
+    for pipeline in ("auto", "fused"):
+        calls.clear()
+        x = lg.clone().requires_grad_(True)
+        with mt.config_override(pipeline=pipeline):
+            tloss._LossCore.apply(x, lb, il, sl, bands.min_s, bands.max_s, 0,
+                                  "cuda").sum().backward()
+        assert calls == {"stats_alpha_fused": 1, "beta_grad_fused": 1}
+    with pytest.raises(ValueError, match="pipeline must be one of"):
+        with mt.config_override(pipeline="eager"):
+            pass
+    assert mt.get_config().pipeline == "auto"
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda", "reference"])
+def test_bad_pipeline_raises_where_it_is_set_on_every_backend(backend):
+    # A misspelt pipeline never reaches a loss call, whatever its backend.
+    with pytest.raises(ValueError, match="pipeline must be one of"):
+        mt.update_config(backend=backend, pipeline="splt")
+    assert mt.get_config().backend == "auto"
+    with pytest.raises(ValueError, match="pipeline must be one of"):
+        config.Config(backend=backend, pipeline="splt")
+
+
+def test_split_route_readme_golden():
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(*golden.readme_batch(),
+                                                    device="cpu")
+    with mt.config_override(pipeline="split"):
+        costs, grads = fused.rnnt_loss_cuda(lg, lb, il, sl)
+    np.testing.assert_allclose(costs.numpy(), [golden.README_LOSS], atol=1e-4)
+    np.testing.assert_allclose(grads[0].numpy(), golden.README_GRADS,
+                               atol=1e-2)
+
+
+def test_split_route_inf_padding_and_infeasible_sample():
+    lg, lb, il, sl = _loss_case(seed=4)
+    lg_t, lb_t, il_t, sl_t = convert.loss_inputs_from_numpy(lg, lb, il, sl,
+                                                            device="cpu")
+    padded = lg_t.clone()
+    for b in range(3):
+        padded[b, int(il[b]):, :, ::2] = float("inf")
+        padded[b, int(il[b]):, :, 1::2] = float("-inf")
+        padded[b, :, int(sl[b]) + 1:, 3] = float("inf")
+    # Sample 2 must emit its labels inside an exact path it cannot hold.
+    align = np.zeros((3, lg.shape[1]), np.int32)
+    align[0, :int(sl[0])] = lb[0, :int(sl[0])]
+    align[1, :int(sl[1])] = lb[1, :int(sl[1])]
+    bands = mt.bands_from_alignment(_t(align), il_t, sl_t, 0, 0)
+    with mt.config_override(pipeline="split"):
+        c_fin, _ = fused.rnnt_loss_cuda(lg_t, lb_t, il_t, sl_t)
+        c_inf, g_inf = fused.rnnt_loss_cuda(padded, lb_t, il_t, sl_t)
+        c_bad, g_bad = fused.rnnt_loss_cuda(lg_t, lb_t, il_t, sl_t,
+                                            bands=bands)
+    assert torch.equal(c_fin, c_inf)
+    t_idx = torch.arange(lg.shape[1])[None, :, None]
+    s_idx = torch.arange(lg.shape[2])[None, None, :]
+    pad = (t_idx >= il_t[:, None, None]) | (s_idx > sl_t[:, None, None])
+    assert (g_inf[pad] == 0).all() and torch.isfinite(g_inf).all()
+    assert sl[2] > 0 and torch.isfinite(c_bad[:2]).all()
+    assert c_bad[2].item() == np.inf
+    assert (g_bad[2] == 0).all() and torch.isfinite(g_bad).all()
