@@ -50,6 +50,28 @@ on the full lattice, per-t [B, Tc, W] labels on the band), the chunk's beta
 scan fed the next chunk's carry as its virtual row, and grad_pass. Then it
 times both training steps and their scans.
 
+The sharded phase (``run_sharded``) saves what its ranks read to a
+temporary directory (the parent's single-process costs, the banded case's
+packed band tensor, each fused case with the single-process training
+step's costs and gradients of the mean), then starts 4 ranks of this script
+(``--sharded-rank``) on the one card as a gloo group (NCCL takes one rank
+per card). Each rank: holds ``softmax_stats_partial`` against its plain
+version on its shard of the padded lattice and at V_local = 1, 250, 500 and
+4096 with all -inf rows; drives ``make_dp_tp_loss`` at the benchmark
+lattice on meshes (2,2) and (1,4) in f32 and bf16 (a training step of the
+mean, a cost-only call, a weighted step through ``rnnt_loss_vocab_sharded``;
+launch counts read after each), with the blank on shard 2, and the
+data-parallel losses on (4,1); ``make_dp_tp_banded_loss`` at the banded
+case on (2,2); ``make_dp_tp_fused_loss`` at memory_bench's case and
+``make_dp_tp_fused_banded_loss`` at the banded case on (2,2), with the peak
+memory of each rank. Each result is held against the single-process port
+route on the rank's batch slice (the loss is batch-separable) or against the
+parent's saved single-process numbers, and the kernel calls of the padded
+and fused TP paths are kept and held against their plain versions. The
+parent fails as soon as a rank fails or the ranks pass SHARDED_TIMEOUT_S,
+sums the fused gradients' squared errors over the shards, and times
+``softmax_stats_partial`` at a rank's padded shard [16, 200, 51, 500].
+
 Any failed check raises, and the script exits non-zero. The last three lines
 of its output are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -90,15 +112,27 @@ Tolerances, each with its reason:
     the float64 truth. At T' >= 1024 the f32 alphas reach ~1e4, whose ulp
     (~1e-3) enters the exponent of every occupancy coefficient, and a
     chunk's joint product rounds otherwise than the whole lattice's: every
-    f32 route, the plain oracle included, is ~2-3e-3 from the truth.
+    f32 route, the plain oracle included, is ~2-3e-3 from the truth;
+  * softmax_stats_partial vs its plain version: m bit for bit (a max), se
+    |d| <= 1e-5 + 1e-6|ref| (another summation order);
+  * sharded losses vs the single-process routes: the loss (the mean over
+    the global batch) and costs |d| <= 1e-4 + 1e-5|ref|; padded gradients
+    as "loss vs oracle" above (the combined denominator rounds in another
+    order, and T=200 log-space sums carry that into every occupancy
+    exponent); the banded TP gradients at T=1600 and the fused-joint TP
+    gradients by relative L2 <= 2e-3, the bound between two f32 routes
+    above (bf16 banded entry by entry, 1.6e-2); data-parallel costs
+    relative 1e-6 (the same kernels on the same rows).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -120,8 +154,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 
+LOG_PREFIX = ""   # a rank of the sharded phase prefixes its lines
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(LOG_PREFIX + msg, flush=True)
 
 
 class CheckFailed(AssertionError):
@@ -219,7 +256,10 @@ def plain_pairs(mt):
                                   BK.alpha_scan_banded_plain, *scan),
             "fwdbwd_scan_banded": (BK.fwdbwd_scan_banded,
                                    BK.fwdbwd_scan_banded_plain, *scan),
-            "grad_pass": (K.grad_pass, K.grad_pass_plain, 1e-6, 1e-4)}
+            "grad_pass": (K.grad_pass, K.grad_pass_plain, 1e-6, 1e-4),
+            "softmax_stats_partial": (SK.softmax_stats_partial,
+                                      SK.softmax_stats_partial_plain, 1e-5,
+                                      1e-6)}
 
 
 def compare_captured(mt, cap, what):
@@ -973,7 +1013,8 @@ def phase_banded_timing(mt, case, weights, errs, launches):
 
 
 def run_banded(mt, golden, main_inputs, weights, restricted):
-    """Every banded phase; returns the kernels' JSON entries and the e2e times."""
+    """Every banded phase; returns the kernels' JSON entries, the e2e times
+    and the case's packed band tensor with its costs (for run_sharded)."""
     b, t, s, v = BANDED_CASE
     t0 = time.perf_counter()
     case = banded_case(mt, b, t, s, v, BAND_SHIFT)
@@ -981,11 +1022,12 @@ def run_banded(mt, golden, main_inputs, weights, restricted):
         f"W={case['w']} (required {case['w_req']}) of S+1={s + 1}; built in "
         f"{time.perf_counter() - t0:.1f} s")
     band_w = torch.tensor([-0.5, 2.0], device=DEVICE)   # one negative
-    errs, launches = {}, {}
+    errs, launches, costs_by_dtype = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         errs[dtype] = compare_banded_kernels(
             mt, banded_operands(mt, case, band_w, dtype), f"banded {dtype}")
         launched_d, costs, grads = phase_banded_main(mt, case, band_w, dtype)
+        costs_by_dtype[str(dtype)] = costs
         if dtype == torch.float32:
             launches = launched_d
         phase_banded_vs_padded(mt, case, band_w, dtype, costs, grads)
@@ -995,7 +1037,14 @@ def run_banded(mt, golden, main_inputs, weights, restricted):
     phase_banded_train(mt, case)
     phase_banded_restricted(mt, main_inputs, weights, *restricted)
     phase_split_long(mt, case, band_w)
-    return phase_banded_timing(mt, case, band_w, errs, launches)
+    kernels, e2e = phase_banded_timing(mt, case, band_w, errs, launches)
+    # What the sharded phase's ranks read: the packed band tensor, not the
+    # 2.6 GB lattice it was packed from.
+    keep = {"logits_band": case["logits_band"], "labels": case["labels"],
+            "ilen": case["ilen"], "slen": case["slen"],
+            "band_min": case["bands"].min_s, "band_max": case["bands"].max_s,
+            "costs": costs_by_dtype}
+    return kernels, e2e, keep
 
 
 # --- the split pipeline ---------------------------------------------------------
@@ -1651,14 +1700,566 @@ def run_fused_joint(mt):
             {"fused_joint": errs, "fused_joint_banded": berrs}, e2e)
 
 
+# --- the sharded losses ---------------------------------------------------------
+
+SHARDED_WORLD = 4
+SHARDED_TIMEOUT_S = 420        # the parent's wait on its ranks
+SHARDED_GROUP_TIMEOUT_S = 180  # a rank's wait on the others, per collective
+SHARDED_BLANK = 501            # a blank on shard 2 of (1, 4) at V = 1000
+LOGITS_SPEC = ("data", None, None, "model")
+# The joint's output projection sharded over 'model' (tests/test_parallel.py:195);
+# enc and pred split over 'data'.
+JOINT_SPECS = {"we": (), "wp": (), "wv": (None, "model"), "bv": ("model",)}
+INPUT_SPECS = {"enc": ("data", None, None), "pred": ("data", None, None),
+               **JOINT_SPECS}
+LEAF_SPECS = {f"d_{k}": spec for k, spec in INPUT_SPECS.items()}
+
+
+RANK_CHECKS = {}   # a rank's measured errors, by check, for the parent
+
+
+def record(what: str, err: float) -> None:
+    RANK_CHECKS[what] = max(RANK_CHECKS.get(what, 0.0), float(err))
+
+
+def partial_vs_plain(mt, x, what) -> float:
+    """softmax_stats_partial against its plain version: m exact, se |d| <=
+    1e-5 + 1e-6|ref|; an all -inf row gives m = -inf, se = 0."""
+    m, se = mt.SK.softmax_stats_partial(x)
+    m_p, se_p = mt.SK.softmax_stats_partial_plain(x)
+    torch.cuda.synchronize()
+    check(torch.equal(m, m_p), f"{what}: m differs from the plain version")
+    return assert_close(se, se_p, 1e-5, 1e-6, f"{what} se")
+
+
+def rank_partial_kernel(mt, mesh, logits):
+    """This rank's shard of the padded lattice (f32, bf16), then V_local =
+    1, 250, 500 and 4096 with all -inf rows; returns the max |d| of se."""
+    x = mt.par.local_shard(logits, LOGITS_SPEC, mesh)
+    errs = [partial_vs_plain(mt, x.to(d), f"shard {list(x.shape)} {d}")
+            for d in (torch.float32, torch.bfloat16)]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    for v in (1, 250, 500, 4096):
+        x = torch.randn((4, 50, 51, v), generator=gen, device=DEVICE) * 2
+        x[0, 7] = float("-inf")
+        x[1, :, 3] = float("-inf")
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            errs.append(partial_vs_plain(mt, xd, f"V_local={v} {dtype}"))
+            m, se = mt.SK.softmax_stats_partial(xd)
+            check(bool((m[0, 7] == float("-inf")).all())
+                  and bool((se[0, 7] == 0).all()),
+                  f"V_local={v}: an all -inf row must give m -inf, se 0")
+    return max(errs)
+
+
+def rows_of(par, mesh, n):
+    start, size = par.local_batch_slice(n, mesh)
+    return slice(start, start + size)
+
+
+def tp_padded(mt, mesh, inputs, dtype, blank, weights, global_costs, what,
+              capture=False):
+    """make_dp_tp_loss on this rank's shard: a training step of the mean
+    (launch counts read after it), a cost-only call, and a weighted step
+    through rnnt_loss_vocab_sharded; each against the single-process port
+    route on this rank's batch slice and full V (the loss is batch-
+    separable). Returns (launches of the step, summary)."""
+    K, par = mt.K, mt.par
+    logits, labels, ilen, slen = inputs
+    lg = logits.to(dtype)
+    n_b = lg.shape[0]
+    rows = rows_of(par, mesh, n_b)
+    lb, il, sl, w = labels[rows], ilen[rows], slen[rows], weights[rows]
+    loss_fn = par.make_dp_tp_loss(mesh, blank_id=blank)
+    x = leaf(par.local_shard(lg, LOGITS_SPEC, mesh), dtype)
+    caps = (Capture(mt.collective, {"softmax_stats_partial": {0}}),
+            Capture(mt.sharding, {"grad_pass": {0}})) if capture else ()
+    K.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        for cap in caps:
+            stack.enter_context(cap)
+        loss = loss_fn(x, lb, il, sl)
+        loss.backward()
+        torch.cuda.synchronize()
+    step = launched(K)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        loss_c = loss_fn(x, lb, il, sl)
+    torch.cuda.synchronize()
+    cost_only = launched(K)
+    check(step == {"softmax_stats_partial": 1, "fwdbwd_scan": 1,
+                   "grad_pass": 1}, f"{what}: training step launches {step}")
+    check(cost_only == {"softmax_stats_partial": 1, "alpha_scan": 1},
+          f"{what}: cost-only launches {cost_only}")
+    loss = loss.detach()
+    check(float(loss_c) == float(loss), f"{what}: cost-only {float(loss_c)} "
+          f"!= training {float(loss)}")
+    xw = leaf(x, dtype)
+    bands = mt.bands.default_bands(il, sl, lg.shape[1])
+    costs = par.rnnt_loss_vocab_sharded(xw, lb, il, sl, bands.min_s,
+                                        bands.max_s, blank, mesh.model_group)
+    (costs * w).sum().backward()
+    v0 = mesh.model_index * x.shape[3]
+    cols = slice(v0, v0 + x.shape[3])
+    g_rtol = 1.6e-2 if dtype == torch.bfloat16 else 1e-3
+    errs = {}
+    for name, cot, got in (("mean", 1.0 / n_b, x.grad),
+                           ("weighted", w, xw.grad)):
+        xr = leaf(lg[rows], dtype)
+        ref = mt.monotonic_rnnt_loss(xr, lb, il, sl, blank_id=blank)
+        (ref * cot).sum().backward()
+        errs[f"{name}_grads"] = assert_close(
+            got, xr.grad[..., cols], 1e-6, g_rtol, f"{what} {name} grads")
+        del xr
+    errs["costs"] = assert_close(costs, ref, 1e-4, 1e-5, f"{what} costs")
+    if global_costs is None:
+        check(mesh.data == 1, "the rank's slice is the global batch")
+        global_costs = ref.detach()
+    mean = global_costs.double().mean()
+    errs["loss"] = abs(float(loss) - float(mean))
+    check(errs["loss"] <= 1e-4 + 1e-5 * abs(float(mean)),
+          f"{what}: loss {float(loss)!r} vs the single-process mean "
+          f"{float(mean)!r}")
+    path_errs = {}
+    for cap in caps:
+        path_errs.update(compare_captured(mt, cap, what))
+    for k, v in errs.items():
+        record(f"{what} {k}", v)
+    log(f"{what}: launches step {step}, cost-only {cost_only}; vs the "
+        "single-process route max|d| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()))
+    return step, path_errs
+
+
+def dp_case(mt, mesh, inputs, global_costs):
+    """make_data_parallel_loss (a training step) and make_per_sample_loss on
+    the data axis, against the parent's single-process costs."""
+    K, par = mt.K, mt.par
+    logits, labels, ilen, slen = inputs
+    rows = rows_of(par, mesh, logits.shape[0])
+    args = (labels[rows], ilen[rows], slen[rows])
+    x = leaf(logits[rows], torch.float32)
+    K.reset_launch_counts()
+    loss = par.make_data_parallel_loss(mesh)(x, *args)
+    loss.backward()
+    torch.cuda.synchronize()
+    step = launched(K)
+    check(step == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+          f"data-parallel step launches {step}")
+    with torch.no_grad():
+        per = par.make_per_sample_loss(mesh)(logits[rows], *args)
+    ref = global_costs[rows]
+    rel = float(((per - ref).abs() / ref.abs()).max())
+    mean = float(global_costs.double().mean())
+    rel_mean = abs(float(loss.detach()) - mean) / abs(mean)
+    record("data-parallel (4,1) per-sample costs relative", rel)
+    record("data-parallel (4,1) mean relative", rel_mean)
+    check(rel <= 1e-6 and rel_mean <= 1e-6,
+          f"data-parallel costs relative error {rel:.3g}, mean {rel_mean:.3g}")
+    log(f"data-parallel (4,1): launches {step}; per-sample costs vs the "
+        f"single-process ones, relative {rel:.3g}; mean {rel_mean:.3g}")
+    return step
+
+
+def tp_banded(mt, mesh, case, dtype):
+    """make_dp_tp_banded_loss on this rank's shard of the packed band
+    tensor: a training step of the mean and a cost-only call, against
+    monotonic_rnnt_loss_banded on this rank's batch slice."""
+    K, par = mt.K, mt.par
+    band = case["logits_band"].to(dtype)
+    n_b = band.shape[0]
+    rows = rows_of(par, mesh, n_b)
+    args = (case["labels"][rows], case["ilen"][rows], case["slen"][rows])
+    bmin, bmax = case["band_min"][rows], case["band_max"][rows]
+    loss_fn = par.make_dp_tp_banded_loss(mesh)
+    x = leaf(par.local_shard(band, LOGITS_SPEC, mesh), dtype)
+    K.reset_launch_counts()
+    loss = loss_fn(x, *args, bmin, bmax)
+    loss.backward()
+    torch.cuda.synchronize()
+    step = launched(K)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        loss_c = loss_fn(x, *args, bmin, bmax)
+    torch.cuda.synchronize()
+    cost_only = launched(K)
+    what = f"banded TP (2,2) {dtype}"
+    check(step == {"softmax_stats_partial": 1, "fwdbwd_scan_banded": 1,
+                   "grad_pass": 1}, f"{what}: step launches {step}")
+    check(cost_only == {"softmax_stats_partial": 1, "alpha_scan_banded": 1},
+          f"{what}: cost-only launches {cost_only}")
+    loss = loss.detach()
+    check(float(loss_c) == float(loss), f"{what}: cost-only differs")
+    xr = leaf(band[rows], dtype)
+    ref = mt.monotonic_rnnt_loss_banded(xr, *args,
+                                        bands=mt.bands.Bands(bmin, bmax))
+    (ref / n_b).sum().backward()
+    v0 = mesh.model_index * x.shape[3]
+    ref_g = xr.grad[..., v0:v0 + x.shape[3]]
+    e_g = float((x.grad.float() - ref_g.float()).abs().max())
+    if dtype == torch.bfloat16:
+        assert_close(x.grad, ref_g, 1e-6, 1.6e-2, f"{what} grads")
+        rel = None
+    else:
+        # At T=1600 the alphas reach ~1.1e4 (f32 ulp ~1e-3), so two f32
+        # routes whose statistics round otherwise differ by up to a few
+        # 1e-3 in an occupancy exponent: relative L2, as the fused-joint
+        # losses (the module docstring's fused-joint tolerance).
+        rel = rel_l2(x.grad, ref_g)
+        check(rel <= 2e-3, f"{what} grads: relative L2 {rel:.3g} > 2e-3")
+    mean = float(case["costs"][str(dtype)].double().mean())
+    e_l = abs(float(loss) - mean)
+    check(e_l <= 1e-4 + 1e-5 * abs(mean), f"{what}: loss {float(loss)!r} vs "
+          f"the single-process mean {mean!r}")
+    record(f"{what} loss", e_l)
+    record(f"{what} grads max|d|", e_g)
+    if rel is not None:
+        record(f"{what} grads relative L2", rel)
+    log(f"{what} [{list(x.shape)} a rank]: launches step {step}, cost-only "
+        f"{cost_only}; loss vs single-process |d| {e_l:.3g}, grads max|d| "
+        f"{e_g:.3g}" + (f", relative L2 {rel:.3g}" if rel is not None else ""))
+    return step
+
+
+def tp_fused(mt, mesh, case, banded):
+    """The fused-joint TP loss on (2,2): a training step of the mean from
+    fresh leaves (launches read after the forward and after the step, peak
+    memory), against the parent's single-process step; then one more step
+    whose kernel calls (the last and an interior chunk) are kept and held
+    against their plain versions. Returns (launches, path errs, summary)."""
+    K, par = mt.K, mt.par
+    t = case["enc"].shape[1]
+    n_chunks = -(-t // FUSED_CHUNK)
+    rows = rows_of(par, mesh, case["enc"].shape[0])
+    args = (case["labels"][rows], case["ilen"][rows], case["slen"][rows])
+    if banded:
+        loss_fn = par.make_dp_tp_fused_banded_loss(
+            mesh, joint_banded, JOINT_SPECS, band_width=case["w"],
+            chunk_t=FUSED_CHUNK)
+        tail = (case["band_min"][rows], case["band_max"][rows])
+        alpha, beta, module = "alpha_scan_banded", "fwdbwd_scan_banded", \
+            mt.chunked_banded
+    else:
+        loss_fn = par.make_dp_tp_fused_loss(mesh, joint_full, JOINT_SPECS,
+                                            chunk_t=FUSED_CHUNK)
+        tail = ()
+        alpha, beta, module = "alpha_scan", "beta_scan", mt.chunked
+    what = f"{'banded ' if banded else ''}fused-joint TP (2,2)"
+
+    def step():
+        e, p = (leaf(par.local_shard(case[k], INPUT_SPECS[k], mesh),
+                     torch.float32) for k in ("enc", "pred"))
+        pr = {k: leaf(par.local_shard(v, JOINT_SPECS[k], mesh), torch.float32)
+              for k, v in case["params"].items()}
+        K.reset_launch_counts()
+        loss = loss_fn(e, p, *args, pr, *tail)
+        torch.cuda.synchronize()
+        fwd = launched(K)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), [e.grad, p.grad] + [pr[k].grad for k in pr], \
+            fwd, launched(K)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss, grads, fwd, launches = step()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    check(fwd == {"softmax_stats_partial": n_chunks, alpha: 1},
+          f"{what}: forward launches {fwd}")
+    check(launches == {"softmax_stats_partial": 2 * n_chunks, alpha: 1,
+                       beta: n_chunks, "grad_pass": n_chunks},
+          f"{what}: step launches {launches}")
+    mean = float(case["ref_costs"].double().mean())
+    e_l = abs(float(loss) - mean)
+    check(e_l <= 1e-4 + 1e-5 * abs(mean),
+          f"{what}: loss {float(loss)!r} vs the single-process {mean!r}")
+    record(f"{what} loss", e_l)
+    # Squared error and norm of each leaf's shard against the same shard of
+    # the single-process gradient; the parent sums them over the shards.
+    sq = {}
+    for name, g in zip(JOINT_GRADS, grads):
+        check(bool(torch.isfinite(g).all()), f"{what}: {name} finite")
+        r = par.local_shard(case["ref_grads"][name], LEAF_SPECS[name], mesh)
+        sq[name] = [float((g.double() - r.double()).pow(2).sum()),
+                    float(r.double().pow(2).sum())]
+    del grads
+    mid = n_chunks // 2
+    caps = (Capture(mt.collective, {"softmax_stats_partial":
+                                    {n_chunks, n_chunks + mid}}),
+            Capture(module, {"grad_pass": {0, mid}}))
+    with caps[0], caps[1]:
+        step()
+    path_errs = {}
+    for cap in caps:
+        path_errs.update(compare_captured(mt, cap, what))
+    del caps
+    torch.cuda.empty_cache()
+    log(f"{what}: launches fwd {fwd}, step {launches}; loss vs the single-"
+        f"process route |d| {e_l:.3g}; peak memory of the step "
+        f"{peak / 2**30:.3f} GiB above its inputs; step {step_s * 1e3:.1f} ms"
+        " (4 ranks sharing one card)")
+    return launches, path_errs, {"sq": sq, "peak_bytes": peak,
+                                 "step_ms_4_ranks_one_card": step_s * 1e3,
+                                 "loss": float(loss)}
+
+
+def run_rank(mt, rank, tmp):
+    """Everything one rank of run_sharded runs; returns its results."""
+    par = mt.par
+    meshes = {shape: par.make_mesh(*shape, device=DEVICE)
+              for shape in ((2, 2), (1, 4), (4, 1))}
+    padded = torch.load(tmp / "padded.pt", map_location=DEVICE)
+    inputs = make_inputs(mt, B, T, S, V, seed=SEED, t_range=(3 * T // 4, T),
+                         s_range=(3 * S // 5, S), device=DEVICE)
+    weights = torch.linspace(-0.5, 2.0, B, device=DEVICE)
+    out = {"launches": {}, "errs": {}, "fused": {}}
+    out["partial_kernel_err"] = rank_partial_kernel(mt, meshes[2, 2],
+                                                    inputs[0])
+    path_errs = {}
+    for shape in ((2, 2), (1, 4)):
+        for dtype in (torch.float32, torch.bfloat16):
+            first = shape == (2, 2) and dtype == torch.float32
+            launches, errs = tp_padded(
+                mt, meshes[shape], inputs, dtype, 0, weights,
+                padded["costs"][str(dtype)], f"padded TP {shape} {dtype}",
+                capture=first)
+            if first:
+                out["launches"]["tp_padded"] = launches
+                path_errs["tp_padded"] = errs
+    blank_inputs = make_inputs(mt, B, T, S, V, blank=SHARDED_BLANK,
+                               seed=SEED, t_range=(3 * T // 4, T),
+                               s_range=(3 * S // 5, S), device=DEVICE)
+    tp_padded(mt, meshes[1, 4], blank_inputs, torch.float32, SHARDED_BLANK,
+              weights, None, f"padded TP (1, 4) blank {SHARDED_BLANK}")
+    del blank_inputs
+    out["launches"]["dp"] = dp_case(mt, meshes[4, 1], inputs,
+                                    padded["costs"][str(torch.float32)])
+    del inputs, padded
+    torch.cuda.empty_cache()
+    banded = torch.load(tmp / "banded.pt", map_location=DEVICE)
+    for dtype in (torch.float32, torch.bfloat16):
+        launches = tp_banded(mt, meshes[2, 2], banded, dtype)
+        if dtype == torch.float32:
+            out["launches"]["tp_banded"] = launches
+    del banded
+    for name, banded in (("tp_fused", False), ("tp_fused_banded", True)):
+        case = torch.load(tmp / f"{name}.pt", map_location=DEVICE)
+        launches, errs, summary = tp_fused(mt, meshes[2, 2], case, banded)
+        out["launches"][name] = launches
+        path_errs[name] = errs
+        out["fused"][name] = summary
+        del case
+        torch.cuda.empty_cache()
+    out["errs"] = path_errs
+    out["checks"] = RANK_CHECKS
+    out["mesh_index"] = {"data": meshes[2, 2].data_index,
+                         "model": meshes[2, 2].model_index}
+    return out
+
+
+def sharded_rank_main(rank: int, world: int, tmp: Path) -> int:
+    """One rank of run_sharded (this script run with --sharded-rank)."""
+    global LOG_PREFIX
+    LOG_PREFIX = f"[rank {rank}] "
+    mt = _Port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    import torch.distributed as dist
+
+    mt.par.initialize_multihost(f"file://{tmp / 'rendezvous'}", world, rank,
+                                backend="gloo",
+                                timeout_s=SHARDED_GROUP_TIMEOUT_S)
+    try:
+        out = run_rank(mt, rank, tmp)
+    finally:
+        dist.destroy_process_group()
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def save_sharded_inputs(mt, tmp, banded_case, costs):
+    """What the ranks read: the parent's single-process costs, the packed
+    band tensor of the banded case, and each fused case with the
+    single-process step's costs and gradients of the mean."""
+    cpu = lambda d: {k: v.cpu() if torch.is_tensor(v) else v  # noqa: E731
+                     for k, v in d.items()}
+    torch.save({"costs": {str(d): c.cpu() for d, c in costs.items()}},
+               tmp / "padded.pt")
+    torch.save(cpu(banded_case), tmp / "banded.pt")
+    for name, make, joint in (("tp_fused", fused_case, joint_full),
+                              ("tp_fused_banded", fused_banded_case,
+                               joint_banded)):
+        if name == "tp_fused":
+            case = make(mt, *FUSED_CASE)
+            loss = lambda e, p, pr: mt.rnnt_loss_fused_joint(  # noqa: E731
+                e, p, case["labels"], case["ilen"], case["slen"], joint, pr,
+                chunk_t=FUSED_CHUNK)
+        else:
+            case = make(mt, *FUSED_BANDED_CASE, BAND_SHIFT)
+            case["band_min"], case["band_max"] = case.pop("bands")
+            loss = lambda e, p, pr: mt.rnnt_loss_fused_joint_banded(  # noqa
+                e, p, case["labels"], case["ilen"], case["slen"], joint, pr,
+                bands=mt.bands.Bands(case["band_min"], case["band_max"]),
+                band_width=case["w"], chunk_t=FUSED_CHUNK)
+        n_b = case["enc"].shape[0]
+        ref_costs, ref_grads, _, _ = joint_step(
+            mt, loss, case, torch.full((n_b,), 1.0 / n_b, device=DEVICE))
+        case.update(ref_costs=ref_costs,
+                    ref_grads=dict(zip(JOINT_GRADS, ref_grads)))
+        case["params"] = cpu(case["params"])
+        case["ref_grads"] = cpu(case["ref_grads"])
+        torch.save(cpu(case), tmp / f"{name}.pt")
+        del case, ref_grads
+        torch.cuda.empty_cache()
+
+
+def spawn_ranks(tmp):
+    """Starts the ranks, one process each on the one card; fails as soon as
+    one fails, or when they pass SHARDED_TIMEOUT_S, and stops them all."""
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(SHARDED_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank",
+         str(r), str(SHARDED_WORLD), str(tmp)],
+        stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(SHARDED_WORLD)]
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for line in (tmp / "rank0.log").read_text().splitlines():
+        log(line)
+    bad = [r for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        for r in bad:
+            log(f"--- rank {r} exited {procs[r].returncode}:\n"
+                + (tmp / f"rank{r}.log").read_text()[-4000:])
+        raise CheckFailed(f"sharded ranks {bad} failed or passed "
+                          f"{SHARDED_TIMEOUT_S} s")
+    return [json.loads((tmp / f"rank{r}.json").read_text())
+            for r in range(SHARDED_WORLD)]
+
+
+def phase_partial_timing(mt):
+    """softmax_stats_partial at a rank's padded shard on a (2,2) mesh,
+    [16, 200, 51, 500], single process: the kernel (median of 20), its
+    bound, its plain version (once) and torch.logsumexp."""
+    SK = mt.SK
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x32 = torch.randn((B // 2, T, S + 1, V // 2), generator=gen,
+                      device=DEVICE) * 2
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        rows = x.numel() // x.shape[-1]
+        out[dtype] = {
+            "ms": cuda_ms(lambda: SK.softmax_stats_partial(x)),
+            "plain_ms": cuda_ms(lambda: SK.softmax_stats_partial_plain(x),
+                                reps=1, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.logsumexp(x, dim=-1)),
+            "bound": bound_ms(x.numel() * x.element_size() + 2 * rows * 4,
+                              4 * x.numel())}
+        del x
+    log("softmax_stats_partial timing at [%d,%d,%d,%d]: " % tuple(x32.shape)
+        + "; ".join(f"{d} {r['ms']:.4f} ms (bound {r['bound'][0]:.4f}, plain "
+                    f"{r['plain_ms']:.4f}, logsumexp {r['library_ms']:.4f})"
+                    for d, r in out.items()))
+    del x32
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_sharded(mt, banded_case, costs):
+    """The sharded losses on 4 ranks sharing the one card, a gloo group
+    (NCCL takes one rank per card); returns each path's launches (rank 0's)
+    and kernel errors, and softmax_stats_partial's JSON entry."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mrnnt_sharded_") as tmp:
+        tmp = Path(tmp)
+        save_sharded_inputs(mt, tmp, banded_case, costs)
+        t_saved = time.perf_counter() - t0
+        ranks = spawn_ranks(tmp)
+    for name in ("tp_fused", "tp_fused_banded"):
+        losses = {r["fused"][name]["loss"] for r in ranks}
+        check(len(losses) == 1, f"{name}: the ranks' losses differ {losses}")
+        # Each leaf's global relative L2 from the shards that hold it once:
+        # enc and pred by data index, wv and bv by model index, we and wp
+        # whole on every rank.
+        rel = {}
+        for leaf_name, spec in LEAF_SPECS.items():
+            owners = [r for r in ranks
+                      if all(r["mesh_index"][ax] == 0
+                             for ax in ("data", "model") if ax not in spec)]
+            d2, r2 = (sum(r["fused"][name]["sq"][leaf_name][i] for r in owners)
+                      for i in (0, 1))
+            rel[leaf_name] = (d2 / r2) ** 0.5
+            check(rel[leaf_name] <= 2e-3, f"{name} {leaf_name}: relative L2 "
+                  f"{rel[leaf_name]:.3g} > 2e-3 against the single-process "
+                  "route")
+        log(f"{name}: gradients vs the single-process route, relative L2 "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + "; peak GiB per rank " + ", ".join(
+                f"{r['fused'][name]['peak_bytes'] / 2**30:.3f}"
+                for r in ranks) + " (single-process fused-joint 1.278); "
+            "step ms per rank (4 ranks sharing one card) " + ", ".join(
+                f"{r['fused'][name]['step_ms_4_ranks_one_card']:.1f}"
+                for r in ranks))
+    log("sharded checks, the max over the 4 ranks: " + "; ".join(
+        f"{k} {max(r['checks'][k] for r in ranks):.3g}"
+        for k in ranks[0]["checks"]))
+    launches = ranks[0]["launches"]
+    errs = {path: {k: max(r["errs"][path][k] for r in ranks)
+                   for k in ranks[0]["errs"][path]}
+            for path in ranks[0]["errs"]}
+    partial_err = max(r["partial_kernel_err"] for r in ranks)
+    timing = phase_partial_timing(mt)
+    f32, b16 = timing[torch.float32], timing[torch.bfloat16]
+    entry = {
+        "name": "softmax_stats_partial", "route": "cuda",
+        "source": "monotonic_rnnt_tpu_torch/csrc/split.cu",
+        "replaces": "monotonic_rnnt_tpu/ops/pallas/kernels.py:816",
+        "launches": launches["tp_padded"].get("softmax_stats_partial", 0),
+        "max_abs_err": max(partial_err,
+                           errs["tp_padded"]["softmax_stats_partial"]),
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
+        "library_ms": f32["library_ms"], "library_call": "torch.logsumexp",
+        "status": "ported", "dtype": "float32",
+        "shape": "B=%d,T=%d,S1=%d,V_local=%d" % (B // 2, T, S + 1, V // 2),
+        "bf16": {"ms": b16["ms"], "plain_ms": b16["plain_ms"],
+                 "bound_ms": b16["bound"][0],
+                 "library_ms": b16["library_ms"]},
+    }
+    log(f"sharded phase: inputs saved in {t_saved:.1f} s, whole phase "
+        f"{time.perf_counter() - t0:.1f} s; launches by path {launches}")
+    return launches, {"kernel_vs_plain": {"softmax_stats_partial":
+                                          partial_err}, **errs}, entry
+
+
 class _Port:
     """The port's modules that the phases use."""
 
     def __init__(self):
         import monotonic_rnnt_tpu_torch as pkg
-        from monotonic_rnnt_tpu_torch import convert
+        from monotonic_rnnt_tpu_torch import convert, parallel
         from monotonic_rnnt_tpu_torch.ops import (banded, bands, chunked,
-                                                  chunked_banded, helpers)
+                                                  chunked_banded, collective,
+                                                  helpers)
+        from monotonic_rnnt_tpu_torch.parallel import sharding
         from monotonic_rnnt_tpu_torch.ops.cuda import (_build, banded_kernels,
                                                        fused, kernels,
                                                        split_kernels)
@@ -1677,6 +2278,8 @@ class _Port:
         self.bands, self.banded, self.BK = bands, banded, banded_kernels
         self.SK, self.helpers = split_kernels, helpers
         self.chunked, self.chunked_banded = chunked, chunked_banded
+        self.par, self.collective, self.sharding = (parallel, collective,
+                                                    sharding)
 
 
 def gpu_line() -> str:
@@ -1710,21 +2313,20 @@ def main() -> int:
     errs = phase_kernels(mt, main_inputs)
     main_launches, costs_f32 = phase_main(mt, main_inputs, weights,
                                           torch.float32)
-    phase_main(mt, main_inputs, weights, torch.bfloat16)
+    _, costs_bf16 = phase_main(mt, main_inputs, weights, torch.bfloat16)
     phase_cost_only(mt, main_inputs, costs_f32)
     phase_goldens(mt, golden)
     restricted = phase_restricted(mt, main_inputs, weights)
     phase_train(mt, main_inputs)
     kernels, e2e = phase_timing(mt, main_inputs, weights, errs, main_launches)
-    by_path(kernels, "padded", {}, {})
     log(f"end-to-end loss at B={B},T={T},S={S},V={V}: {json.dumps(e2e)}")
     split_errs, split_launches, split_rows = run_split(mt, golden, main_inputs,
                                                       weights)
     log(f"end-to-end split loss at B={B},T={T},S={S},V={V}: " + json.dumps(
         {str(d).removeprefix("torch."): split_rows[d][1]
          for d in split_rows}))
-    band_kernels, band_e2e = run_banded(mt, golden, main_inputs, weights,
-                                        restricted)
+    band_kernels, band_e2e, band_keep = run_banded(mt, golden, main_inputs,
+                                                   weights, restricted)
     log(f"end-to-end banded loss at B,T,S,V={BANDED_CASE}, shift "
         f"{BAND_SHIFT}: {json.dumps(band_e2e)}")
     del main_inputs, restricted
@@ -1732,14 +2334,21 @@ def main() -> int:
     fused_launches, fused_errs, fused_e2e = run_fused_joint(mt)
     log(f"end-to-end fused-joint losses at B,T',S,V,H={FUSED_CASE} and "
         f"B,T,S,V,H={FUSED_BANDED_CASE}: {json.dumps(fused_e2e)}")
+    sharded_launches, sharded_errs, partial_entry = run_sharded(
+        mt, band_keep, {torch.float32: costs_f32, torch.bfloat16: costs_bf16})
+    del band_keep
     split_f32 = split_errs[torch.float32]
+    by_path(kernels, "padded", sharded_launches, {})
     by_path(band_kernels, "banded", {"split": split_launches,
-                                     **fused_launches},
-            {"split": {"grad_pass": split_f32["grad_pass"]}, **fused_errs})
+                                     **fused_launches, **sharded_launches},
+            {"split": {"grad_pass": split_f32["grad_pass"]}, **fused_errs,
+             **sharded_errs})
     split_kernels = split_kernel_entries(split_errs, split_launches,
                                          split_rows)
-    by_path(split_kernels, "split", fused_launches, fused_errs)
-    kernels += band_kernels + split_kernels
+    by_path(split_kernels, "split", {**fused_launches, **sharded_launches},
+            {**fused_errs, **sharded_errs})
+    by_path([partial_entry], "tp_padded", sharded_launches, sharded_errs)
+    kernels += band_kernels + split_kernels + [partial_entry]
     log(f"total {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
@@ -1751,4 +2360,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                   Path(sys.argv[4])))
     sys.exit(main())

@@ -12,17 +12,26 @@
 //  * beta_scan (body _beta_kernel):
 //      lp_blank, lp_label, beta_maskadd [B,T,S1] f32, input_lengths [B]
 //      int32, beta_virtual [B,S1] f32 -> betas;
-//  * fwdbwd_scan (body _fwdbwd_kernel): both, one launch.
+//  * fwdbwd_scan (body _fwdbwd_kernel): both, one launch;
+//  * softmax_stats_partial (body _stats_partial_kernel), the vocab-sharded
+//    losses' pre-reduction statistics: logits [B,T,S1,V_local] f32 or bf16
+//    (S1 is W on the band layout) -> m = max_v x and se = sum_v exp(x - m),
+//    each [B,T,S1] f32, which the caller combines across the shards.
 //
-// What bounds them on an H100. The stats kernel: HBM bytes, one read of the
+// What bounds them on an H100. The stats kernels: HBM bytes, one read of the
 // logits (1.31 GB f32 / 0.65 GB bf16 at B=32, T=200, S=50, V=1000: ~0.39 /
-// 0.20 ms at 3.35 TB/s). The scans: latency, not bytes. Their traffic is
-// O(B*T*S1) f32 (a few us of HBM time) but each walks T dependent steps.
+// 0.20 ms at 3.35 TB/s; a rank's [16,200,51,500] shard on a 2x2 mesh: 0.097
+// / 0.049 ms). The scans: latency, not bytes. Their traffic is O(B*T*S1)
+// f32 (a few us of HBM time) but each walks T dependent steps.
 //
 // Design.
 //  * Stats: one warp per (b,t,s) row, the online log-sum-exp of common.cuh
 //    (as the other stats kernels). Lane 0 gathers x[blank] and x[label];
 //    labels are addressed with a b- and a t-stride (t-stride 0 for [B,S1]).
+//    The partial kernel writes the row's (m, se) and gathers nothing. An all
+//    -inf row gives m = -inf and se = 0, where the TPU kernel's
+//    exp(-inf - -inf) gives se = NaN: the shards' combine then needs no
+//    guard against a shard whose row is all -inf.
 //  * Scans: the TPU kernel packs alpha and t-reversed beta into one row of
 //    2*S1 lanes so one roll pair advances both chains; that packing serves
 //    the TPU's vector unit only. Here the chains run in two blocks per
@@ -74,6 +83,22 @@ __global__ void mrnnt_softmax_stats_kernel(
   denom[row] = d;
   lp_blank[row] = to_f32(x[blank]) + d;
   lp_label[row] = xl + d;
+}
+
+template <typename T>
+__global__ void mrnnt_softmax_stats_partial_kernel(
+    const T* __restrict__ logits, long long rows, int v,
+    float* __restrict__ m_out, float* __restrict__ se_out) {
+  const int lane = threadIdx.x % kWarp;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) +
+      threadIdx.x / kWarp;
+  if (row >= rows) return;
+  float m, s;
+  warp_row_lse(logits + row * static_cast<long long>(v), v, lane, m, s);
+  if (lane != 0) return;
+  m_out[row] = m;
+  se_out[row] = s;
 }
 
 // Operand bytes one chunk stages in shared memory (three [tc, S1] streams).
@@ -278,6 +303,25 @@ extern "C" int mrnnt_softmax_stats(const void* logits, int is_bf16,
     mrnnt_softmax_stats_kernel<float><<<blocks, kRowThreads, 0, st>>>(
         static_cast<const float*>(logits), labels, b_stride, t_stride, rows,
         t_max, s1, v, blank, denom, lp_blank, lp_label);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mrnnt_softmax_stats_partial(const void* logits, int is_bf16,
+                                           int batch, int t_max, int s1,
+                                           int v, float* m, float* se,
+                                           void* stream) {
+  using namespace mrnnt;
+  const long long rows = static_cast<long long>(batch) * t_max * s1;
+  unsigned blocks;
+  if (const int err = row_blocks(rows, &blocks)) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    mrnnt_softmax_stats_partial_kernel<__nv_bfloat16>
+        <<<blocks, kRowThreads, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(logits), rows, v, m, se);
+  else
+    mrnnt_softmax_stats_partial_kernel<float><<<blocks, kRowThreads, 0, st>>>(
+        static_cast<const float*>(logits), rows, v, m, se);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -166,11 +166,16 @@ def band_occupancy_coefficients(alphas, betas, ll, input_lengths,
 
 
 def band_gradients(logits_band, denom, lab_band, occ, cb, cl,
-                   blank_id: int) -> torch.Tensor:
-    """dL/dz on the packed layout, f32; exactly 0 where the coefficient is 0."""
+                   blank_id: int, v_offset: int = 0) -> torch.Tensor:
+    """dL/dz on the packed layout, f32; exactly 0 where the coefficient is 0.
+
+    v_offset shifts local vocab indices to global ids (the vocab-sharded
+    path; cf. reference.gradients_from_coefficients).
+    """
     v = logits_band.shape[-1]
     p = torch.exp(logits_band.float() + denom[..., None])
-    v_idx = torch.arange(v, dtype=torch.int32, device=logits_band.device)
+    v_idx = torch.arange(v, dtype=torch.int32,
+                         device=logits_band.device) + v_offset
     coef = (occ[..., None]
             - torch.where(v_idx == blank_id, cb[..., None], 0.0)
             - torch.where(v_idx == lab_band[..., None], cl[..., None], 0.0))

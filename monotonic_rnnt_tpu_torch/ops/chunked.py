@@ -25,7 +25,17 @@ takes the carry from the next chunk as its virtual row. The gradient of a
 chunk goes through ``grad_pass``: one read of the chunk's logits and one
 write, where the plain formula would hold several [B, Tc, S1, V] f32
 temporaries. The masks are applied by a select, as everywhere in the port.
-The vocab-sharded variant (``axis_name``) waits for the sharding slice.
+
+With ``group`` (the counterpart of JAX's ``axis_name``) the vocab axis is
+sharded over a torch.distributed process group: the joint makes only this
+rank's [B, Tc, S+1, V_local] slice, the chunk statistics come from
+``ops/collective.py`` (``softmax_stats_partial`` and two all-reduces), in
+the forward and again in the backward's recompute, and each chunk's
+``grad_pass`` takes label and blank ids relative to the shard. Every rank
+runs every chunk, so all of them issue the same collectives in the same
+order. The gradients are this rank's contribution: summing those of the
+inputs every shard holds whole (enc, pred, a replicated weight) over the
+group is the caller's, as parallel/sharding.make_dp_tp_fused_loss does.
 
 The joint function contract:
 
@@ -44,17 +54,22 @@ from torch.autograd.function import once_differentiable
 
 from ..utils.status import RnntError, Status, _is_integer
 from .bands import Bands, default_bands, lattice_masks
+from .collective import sharded_lattice_stats
 from .cuda.kernels import grad_pass
 from .cuda.split_kernels import alpha_scan, beta_scan, softmax_stats
 from .helpers import NEG_INF, extend_labels, mask_to_additive, shift_left_s
 from .reference import LatticeStats, _gather_ll
 
 
-def _chunk_stats(logits_c, labels_ext, blank_id: int) -> LatticeStats:
-    """LatticeStats of one chunk: softmax_stats, then -inf on invalid slots."""
+def _chunk_stats(logits_c, labels_ext, blank_id: int, group=None):
+    """(LatticeStats, v_offset) of one chunk: softmax_stats, then -inf on
+    invalid slots; with a group, the collective stats of this V slice."""
+    if group is not None:
+        return sharded_lattice_stats(logits_c, labels_ext, blank_id, group)
     denom, lp_blank, lpl_raw = softmax_stats(logits_c, labels_ext, blank_id)
     lp_label = torch.where((labels_ext >= 0)[:, None, :], lpl_raw, NEG_INF)
-    return LatticeStats(denom=denom, lp_blank=lp_blank, lp_label=lp_label)
+    return LatticeStats(denom=denom, lp_blank=lp_blank,
+                        lp_label=lp_label), 0
 
 
 def _chunks(t_max: int, chunk_t: int):
@@ -162,7 +177,7 @@ class _FusedJointCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, enc, pred, labels_ext, ilen, slen, band_min, band_max,
-                joint_fn, blank_id, chunk_t, keys, *values):
+                joint_fn, blank_id, chunk_t, group, keys, *values):
         batch, t_max, _ = enc.shape
         s1 = pred.shape[1]
         params = dict(zip(keys, values))
@@ -172,17 +187,17 @@ class _FusedJointCore(torch.autograd.Function):
                                           device=enc.device)
                               for _ in range(2))
         for t0, t1 in _chunks(t_max, chunk_t):
-            stats = _chunk_stats(
+            stats, _ = _chunk_stats(
                 joint_fn(params, enc[:, t0:t1], pred).contiguous(),
-                labels_ext, blank_id)
+                labels_ext, blank_id, group)
             lp_blank[:, t0:t1] = stats.lp_blank
             lp_label[:, t0:t1] = stats.lp_label
             del stats
         alphas = alpha_scan(lp_blank, lp_label, mask_to_additive(masks.alpha))
         del lp_blank, lp_label
         ll = _gather_ll(alphas, ilen, slen)
-        ctx.joint_fn, ctx.blank_id, ctx.chunk_t, ctx.keys = (
-            joint_fn, blank_id, chunk_t, keys)
+        ctx.joint_fn, ctx.blank_id, ctx.chunk_t, ctx.group, ctx.keys = (
+            joint_fn, blank_id, chunk_t, group, keys)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(enc, pred, labels_ext, ilen, slen, band_min,
                                   band_max, alphas, ll, *values)
@@ -204,7 +219,7 @@ class _FusedJointCore(torch.autograd.Function):
         ll_ok = torch.isfinite(ll)
         llb = torch.where(ll_ok, ll, 0.0)[:, None, None]
         weight = cost_cotangent.to(torch.float32)[:, None, None]
-        needs, acc = gradient_targets(ctx, enc, pred, values, 11)
+        needs, acc = gradient_targets(ctx, enc, pred, values, 12)
 
         beta_row = torch.full((batch, s1), NEG_INF, dtype=torch.float32,
                               device=dev)
@@ -214,7 +229,8 @@ class _FusedJointCore(torch.autograd.Function):
                 logits_c = ctx.joint_fn(dict(zip(ctx.keys, leaves[2:])),
                                         leaves[0], leaves[1])
             x = logits_c.detach().contiguous()
-            stats = _chunk_stats(x, labels_ext, ctx.blank_id)
+            stats, v_off = _chunk_stats(x, labels_ext, ctx.blank_id,
+                                        ctx.group)
             betas, bnext = chunk_betas(
                 beta_row, stats, mask_to_additive(masks.beta[:, t0:t1]),
                 beta_virt, ilen, t0)
@@ -224,12 +240,13 @@ class _FusedJointCore(torch.autograd.Function):
                      & ll_ok[:, None, None])
             occ, cb, cl = coefficients(aprev[:, t0:t1], betas, bnext, valid,
                                        llb, weight)
-            dlogits = grad_pass(x, stats.denom, occ, cb, cl, labels_ext,
-                                ctx.blank_id, out_dtype=x.dtype)
+            dlogits = grad_pass(x, stats.denom, occ, cb, cl,
+                                labels_ext - v_off, ctx.blank_id - v_off,
+                                out_dtype=x.dtype)
             targets = [acc[0][:, t0:t1] if needs[0] else None, *acc[1:]]
             push_through_joint(logits_c, leaves, dlogits, targets)
             del logits_c, x, dlogits
-        return (acc[0], acc[1]) + (None,) * 9 + tuple(acc[2:])
+        return (acc[0], acc[1]) + (None,) * 10 + tuple(acc[2:])
 
 
 def rnnt_loss_fused_joint(
@@ -244,6 +261,7 @@ def rnnt_loss_fused_joint(
     blank_id: int = 0,
     chunk_t: int = 32,
     bands: Optional[Bands] = None,
+    group=None,
 ) -> torch.Tensor:
     """Monotonic RNN-T costs from encoder/predictor outputs, O(B*Tc*S1*V) memory.
 
@@ -256,10 +274,16 @@ def rnnt_loss_fused_joint(
       joint_fn: (params, enc_chunk, pred) -> [B, Tc, S+1, V] raw logits.
       joint_params: dict of the joint's parameter tensors.
       chunk_t: frames per chunk; the last chunk may be shorter.
+      group: if set, a torch.distributed process group over which the vocab
+        axis is sharded: joint_fn and joint_params make only this rank's V
+        slice (rank r holds columns [r * V_local, (r + 1) * V_local)), and
+        the statistics are combined by all-reduces (ops/collective.py).
+        Gradients stay this rank's contribution (module docstring).
 
     Returns [B] f32 costs, differentiable w.r.t. enc, pred and every tensor
     of joint_params. On CUDA tensors the chunk statistics and gradients run
-    the softmax_stats and grad_pass kernels.
+    the softmax_stats (with a group, softmax_stats_partial) and grad_pass
+    kernels.
     """
     validate_fused_inputs(enc, pred, labels, input_lengths, label_lengths)
     dev = enc.device
@@ -279,4 +303,4 @@ def rnnt_loss_fused_joint(
         enc, pred, labels_ext, ilen, slen,
         bands.min_s.to(device=dev, dtype=torch.int32),
         bands.max_s.to(device=dev, dtype=torch.int32), joint_fn,
-        int(blank_id), int(chunk_t), keys, *values)
+        int(blank_id), int(chunk_t), group, keys, *values)

@@ -25,6 +25,7 @@ predictor rows arrive gathered per band cell,
                                  pred_band [B, Tc, W, Dp]) -> [B, Tc, W, V]
 
 (for an additive joint, project enc once per (b, t) and broadcast over W).
+``group`` shards the vocab axis over a process group, as in ops/chunked.py.
 """
 
 from __future__ import annotations
@@ -42,16 +43,21 @@ from .chunked import (_chunks, carry_operands, coefficients,
                       gradient_targets, graph_leaves, push_through_joint,
                       validate_fused_inputs)
 from .cuda.banded_kernels import alpha_scan_banded, fwdbwd_scan_banded
+from .collective import sharded_band_stats
 from .cuda.kernels import grad_pass
 from .cuda.split_kernels import softmax_stats
 from .helpers import NEG_INF, mask_to_additive, shift_left_s, shift_right_s
 
 
-def _band_chunk_stats(logits_c, lab_k, blank_id: int) -> BandStats:
-    """BandStats of one chunk: softmax_stats on per-t labels, -inf on invalid slots."""
+def _band_chunk_stats(logits_c, lab_k, blank_id: int, group=None):
+    """(BandStats, v_offset) of one chunk: softmax_stats on per-t labels,
+    -inf on invalid slots; with a group, the collective stats of this V
+    slice."""
+    if group is not None:
+        return sharded_band_stats(logits_c, lab_k, blank_id, group)
     denom, lp_blank, lpl_raw = softmax_stats(logits_c, lab_k, blank_id)
     return BandStats(denom=denom, lp_blank=lp_blank,
-                     lp_label=torch.where(lab_k >= 0, lpl_raw, NEG_INF))
+                     lp_label=torch.where(lab_k >= 0, lpl_raw, NEG_INF)), 0
 
 
 def _gather_pred(pred, idx_c):
@@ -114,7 +120,7 @@ class _FusedBandedCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, enc, pred, labels, ilen, slen, band_min, band_max,
-                joint_fn, blank_id, chunk_t, width, keys, *values):
+                joint_fn, blank_id, chunk_t, width, group, keys, *values):
         batch, t_max, _ = enc.shape
         s1 = pred.shape[1]
         params = dict(zip(keys, values))
@@ -126,16 +132,17 @@ class _FusedBandedCore(torch.autograd.Function):
         for t0, t1 in _chunks(t_max, chunk_t):
             logits_c = joint_fn(params, enc[:, t0:t1],
                                 _gather_pred(pred, L.idx[:, t0:t1]))
-            stats = _band_chunk_stats(logits_c.contiguous(),
-                                      L.lab[:, t0:t1].contiguous(), blank_id)
+            stats, _ = _band_chunk_stats(logits_c.contiguous(),
+                                         L.lab[:, t0:t1].contiguous(),
+                                         blank_id, group)
             lpb[:, t0:t1], lpl[:, t0:t1] = alpha_streams(
                 stats, L.masks.alpha[:, t0:t1])
             del logits_c, stats
         alphas = alpha_scan_banded(lpb, lpl, L.layout.d.contiguous())
         del lpb, lpl
         ll = band_final_slot(alphas, L.layout, ilen, slen)
-        ctx.joint_fn, ctx.blank_id, ctx.chunk_t, ctx.width, ctx.keys = (
-            joint_fn, blank_id, chunk_t, width, keys)
+        (ctx.joint_fn, ctx.blank_id, ctx.chunk_t, ctx.width, ctx.group,
+         ctx.keys) = (joint_fn, blank_id, chunk_t, width, group, keys)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(enc, pred, labels, ilen, slen, band_min,
                                   band_max, alphas, ll, *values)
@@ -162,7 +169,7 @@ class _FusedBandedCore(torch.autograd.Function):
         ll_ok = torch.isfinite(ll)
         llb = torch.where(ll_ok, ll, 0.0)[:, None, None]
         weight = cost_cotangent.to(torch.float32)[:, None, None]
-        needs, acc = gradient_targets(ctx, enc, pred, values, 12)
+        needs, acc = gradient_targets(ctx, enc, pred, values, 13)
 
         beta_row = torch.full((batch, w), NEG_INF, dtype=torch.float32,
                               device=dev)
@@ -174,7 +181,8 @@ class _FusedBandedCore(torch.autograd.Function):
                     dict(zip(ctx.keys, leaves[2:])), leaves[0],
                     _gather_pred(leaves[1], L.idx[:, t0:t1]))
             x = logits_c.detach().contiguous()
-            stats = _band_chunk_stats(x, lab_k, ctx.blank_id)
+            stats, v_off = _band_chunk_stats(x, lab_k, ctx.blank_id,
+                                             ctx.group)
             betas, bnext = chunk_band_betas(
                 beta_row, stats, d_next[:, t0:t1].contiguous(),
                 bvirt[:, t0:t1], L.masks.beta[:, t0:t1], ilen, t0)
@@ -184,12 +192,12 @@ class _FusedBandedCore(torch.autograd.Function):
                      & ll_ok[:, None, None])
             occ, cb, cl = coefficients(aprev[:, t0:t1], betas, bnext, valid,
                                        llb, weight)
-            dlogits = grad_pass(x, stats.denom, occ, cb, cl, lab_k,
-                                ctx.blank_id, out_dtype=x.dtype)
+            dlogits = grad_pass(x, stats.denom, occ, cb, cl, lab_k - v_off,
+                                ctx.blank_id - v_off, out_dtype=x.dtype)
             targets = [acc[0][:, t0:t1] if needs[0] else None, *acc[1:]]
             push_through_joint(logits_c, leaves, dlogits, targets)
             del logits_c, x, dlogits
-        return (acc[0], acc[1]) + (None,) * 10 + tuple(acc[2:])
+        return (acc[0], acc[1]) + (None,) * 11 + tuple(acc[2:])
 
 
 def rnnt_loss_fused_joint_banded(
@@ -205,6 +213,7 @@ def rnnt_loss_fused_joint_banded(
     band_width: int,
     blank_id: int = 0,
     chunk_t: int = 32,
+    group=None,
 ) -> torch.Tensor:
     """Alignment-restricted costs from encoder/predictor outputs, O(W) compute.
 
@@ -220,6 +229,8 @@ def rnnt_loss_fused_joint_banded(
       band_width: the packed window width W (size it with
         bands.suggested_band_width).
       chunk_t: frames per streamed chunk; the last chunk may be shorter.
+      group: if set, the process group over which the vocab axis is sharded
+        (see rnnt_loss_fused_joint).
 
     Returns [B] f32 costs, differentiable w.r.t. enc, pred and every tensor
     of joint_params.
@@ -244,4 +255,5 @@ def rnnt_loss_fused_joint_banded(
         label_lengths.to(device=dev, dtype=torch.int32),
         bands.min_s.to(device=dev, dtype=torch.int32),
         bands.max_s.to(device=dev, dtype=torch.int32), joint_fn,
-        int(blank_id), int(chunk_t), int(band_width), keys, *values)
+        int(blank_id), int(chunk_t), int(band_width), group, keys,
+        *values)

@@ -8,7 +8,8 @@ Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776, 1304-1360``:
   ``mrnnt_beta_kernel`` (csrc/beta_grad.cu) then ``mrnnt_grad_kernel``;
 * ``grad_pass`` (TPU kernel at kernels.py:1322) launches
   ``mrnnt_grad_kernel`` (csrc/grad_pass.cu) alone, for the banded and the
-  split routes and the fused-joint losses' chunks.
+  split routes, the fused-joint losses' chunks and the vocab-sharded
+  losses' local slices.
 
 The banded kernels' wrappers (ops/cuda/banded_kernels.py) and the split
 pipeline's (ops/cuda/split_kernels.py) count their launches here. Each wrapper takes its plain PyTorch version (same
@@ -33,7 +34,7 @@ from . import _build
 LAUNCHES = {"stats_alpha_fused": 0, "beta_grad_fused": 0, "grad_pass": 0,
             "softmax_stats_banded": 0, "fwdbwd_scan_banded": 0,
             "alpha_scan_banded": 0, "softmax_stats": 0, "fwdbwd_scan": 0,
-            "alpha_scan": 0, "beta_scan": 0}
+            "alpha_scan": 0, "beta_scan": 0, "softmax_stats_partial": 0}
 
 
 def reset_launch_counts() -> None:
@@ -54,6 +55,7 @@ _ENTRIES = {
     "mrnnt_alpha_banded": ("banded", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "mrnnt_fwdbwd_banded": ("banded", [_P] * 8 + [_I] * 3 + [_P] * 3),
     "mrnnt_softmax_stats": ("split", [_P, _I, _P] + [_I] * 6 + [_P] * 4),
+    "mrnnt_softmax_stats_partial": ("split", [_P] + [_I] * 5 + [_P] * 3),
     "mrnnt_alpha_scan": ("split", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "mrnnt_beta_scan": ("split", [_P] * 5 + [_I] * 3 + [_P] * 2),
     "mrnnt_fwdbwd_scan": ("split", [_P] * 6 + [_I] * 3 + [_P] * 3),
@@ -100,7 +102,9 @@ def _check_cuda(t: torch.Tensor) -> None:
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
-def _check_logits(logits: torch.Tensor, blank_id: int):
+def _check_logits(logits: torch.Tensor, blank_id: Optional[int]):
+    """Checks the big tensor, and that blank_id is in [0, V) unless it is
+    None (grad_pass takes any int, as its Pallas function does)."""
     _check_cuda(logits)
     if logits.dtype not in _FLOATS:
         raise ValueError(f"logits must be float32 or bfloat16, got {logits.dtype}")
@@ -108,7 +112,7 @@ def _check_logits(logits: torch.Tensor, blank_id: int):
         raise ValueError("logits must be a contiguous [B, T, S1 or W, V] "
                          f"tensor, got shape {tuple(logits.shape)}")
     v = logits.shape[3]
-    if not 0 <= blank_id < v:
+    if blank_id is not None and not 0 <= blank_id < v:
         raise ValueError(f"blank_id must be in [0, {v}), got {blank_id}")
     return tuple(logits.shape)
 
@@ -252,11 +256,14 @@ def grad_pass(logits, denom, occ, cb, cl, labels_ext, blank_id: int,
     occ, cb, cl [B, T, S1] f32; labels_ext [B, S1] or [B, T, S1] int32 (-1
     sentinel). Returns grads [B, T, S1, V] in out_dtype (f32 or bf16):
     p * (occ - [v == blank] cb - [v == label] cl), 0 where that is 0.
+    blank_id and the label ids may be any int: on a vocab shard the caller
+    passes ids relative to its first column, and an id outside [0, V)
+    matches no column.
     """
     if logits.device.type == "cpu":
         return grad_pass_plain(logits, denom, occ, cb, cl, labels_ext,
                                blank_id, out_dtype)
-    batch, t_max, s1, _ = _check_logits(logits, blank_id)
+    batch, t_max, s1, _ = _check_logits(logits, None)
     dev = logits.device
     if out_dtype not in _FLOATS:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")

@@ -9,6 +9,8 @@ on the padded [B, T, S1(, V)] lattice:
   the alpha and beta chains side by side;
 * ``alpha_scan`` (kernels.py:921) launches ``mrnnt_alpha_scan_kernel``;
 * ``beta_scan`` (kernels.py:947) launches ``mrnnt_beta_scan_kernel``;
+* ``softmax_stats_partial`` (kernels.py:816), the vocab-sharded losses'
+  per-shard (max, sum-exp), launches ``mrnnt_softmax_stats_partial_kernel``;
 
 all from csrc/split.cu. Each keeps its Pallas function's operands and
 outputs, except that input_lengths is [B] (the TPU's [B, 1, 1] block shape),
@@ -68,6 +70,39 @@ def softmax_stats(logits, labels_ext, blank_id: int):
           batch, t_max, s1, v, blank_id, *(_ptr(t) for t in out))
     LAUNCHES["softmax_stats"] += 1
     return out
+
+
+# --- softmax_stats_partial -------------------------------------------------------
+
+def softmax_stats_partial_plain(logits) -> Pair:
+    """Plain-torch softmax_stats_partial: the same argument and outputs."""
+    x = logits.float()
+    m = torch.amax(x, dim=-1)
+    # An all -inf row: m = -inf and se = 0 (exp(-inf - 0)), not NaN.
+    se = torch.exp(x - torch.where(m == NEG_INF, 0.0, m)[..., None]).sum(-1)
+    return m, se
+
+
+def softmax_stats_partial(logits) -> Pair:
+    """Per-cell (max, sum-exp) over this shard's vocab slice, one read.
+
+    logits [B, T, S1, V_local] f32 or bf16 (S1 = W on the band layout).
+    Returns (m, se), each [B, T, S1] f32: m = max_v x, se = sum_v exp(x - m),
+    so that the shards combine exactly: m_g = max m, se_g = sum se *
+    exp(m - m_g), denom = -(m_g + log se_g). An all -inf row gives m = -inf,
+    se = 0 (the Pallas kernel gives se = NaN there).
+    """
+    if logits.device.type == "cpu":
+        return softmax_stats_partial_plain(logits)
+    batch, t_max, s1, v = _check_logits(logits, None)
+    dev = logits.device
+    m, se = (torch.empty((batch, t_max, s1), dtype=torch.float32, device=dev)
+             for _ in range(2))
+    _call("mrnnt_softmax_stats_partial", dev, _ptr(logits),
+          int(logits.dtype == torch.bfloat16), batch, t_max, s1, v, _ptr(m),
+          _ptr(se))
+    LAUNCHES["softmax_stats_partial"] += 1
+    return m, se
 
 
 # --- the scans -------------------------------------------------------------------

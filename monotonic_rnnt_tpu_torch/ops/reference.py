@@ -171,20 +171,23 @@ def gradients_from_coefficients(logits: torch.Tensor, denom: torch.Tensor,
                                 labels: torch.Tensor,
                                 label_lengths: torch.Tensor,
                                 occ: torch.Tensor, cb: torch.Tensor,
-                                cl: torch.Tensor, blank_id: int) -> torch.Tensor:
+                                cl: torch.Tensor, blank_id: int,
+                                v_offset: int = 0) -> torch.Tensor:
     """Assemble dL/dz from per-cell coefficients.
 
       dL/dz[t,s,v] = p(v|t,s) * (occ - [v==blank]*cb - [v==label[s]]*cl)
 
     and exactly 0 where the coefficient is 0, so +-inf padding logits
-    (p = NaN or inf there) cannot leak NaN into the gradient.
+    (p = NaN or inf there) cannot leak NaN into the gradient. v_offset
+    shifts local vocab indices to global ids (the vocab-sharded path, where
+    this shard holds columns [v_offset, v_offset + V_local)).
     """
     s1, v = logits.shape[2], logits.shape[3]
     p = torch.exp(logits.float() + denom[..., None])
 
     lab_ext = extend_labels(labels, label_lengths, s1)
 
-    v_idx = torch.arange(v, dtype=torch.int32, device=logits.device)
+    v_idx = torch.arange(v, dtype=torch.int32, device=logits.device) + v_offset
     blank_mask = (v_idx == blank_id)[None, None, None, :]
     label_mask = v_idx[None, None, None, :] == lab_ext[:, None, :, None]
 

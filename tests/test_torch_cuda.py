@@ -485,3 +485,51 @@ def test_fused_joint_banded_through_kernels_matches_materialised(device):
     _close(got[0], want[0], 1e-4, 1e-5)
     for g, r in zip(got[1], want[1]):
         _close(g, r, 1e-5, 1e-4)
+
+
+# --- the vocab-sharded losses' kernels -----------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v_local", [1, 250, 4096])
+def test_softmax_stats_partial_kernel_matches_plain(device, v_local, dtype):
+    rng = np.random.RandomState(v_local)
+    x = torch.from_numpy((rng.randn(3, 7, 5, v_local) * 3).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    x[0, 2, 3] = float("-inf")                 # an all -inf row
+    x[1, :, 1, ::2] = float("-inf")
+    before = K.LAUNCHES["softmax_stats_partial"]
+    m, se = SK.softmax_stats_partial(x)
+    m_p, se_p = SK.softmax_stats_partial_plain(x)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["softmax_stats_partial"] == before + 1
+    assert m[0, 2, 3] == float("-inf") and se[0, 2, 3] == 0
+    assert torch.equal(m, m_p)                 # a max: exact in any order
+    _close(se, se_p, 1e-5, 1e-6)               # another summation order
+
+
+@pytest.mark.parametrize("labels_3d", [False, True], ids=["BS1", "BTW"])
+def test_grad_pass_kernel_takes_relative_ids(device, labels_3d):
+    """On a vocab shard: label ids and blank relative to the shard's first
+    column, the blank outside [0, V_local) on all but one shard."""
+    rng = np.random.RandomState(11)
+    b, t, s1, v, n = 2, 9, 6, 1000, 4
+    vl = v // n
+    x = torch.from_numpy(rng.randn(b, t, s1, v).astype(np.float32)).to(device)
+    denom = -torch.logsumexp(x, -1)
+    occ, cb, cl = (torch.from_numpy(np.where(
+        rng.rand(b, t, s1) < 0.3, 0.0, rng.randn(b, t, s1)).astype(
+            np.float32)).to(device) for _ in range(3))
+    labels = torch.from_numpy(rng.randint(-1, v, (b, t, s1) if labels_3d
+                                          else (b, s1)).astype(
+        np.int32)).to(device)
+    blank = 501
+    full = K.grad_pass(x, denom, occ, cb, cl, labels, blank)
+    for shard in range(n):
+        off = shard * vl
+        got = K.grad_pass(x[..., off:off + vl].contiguous(), denom, occ, cb,
+                          cl, (labels - off).contiguous(), blank - off)
+        want = K.grad_pass_plain(x[..., off:off + vl], denom, occ, cb, cl,
+                                 labels - off, blank - off)
+        torch.cuda.synchronize()
+        assert torch.equal(got, full[..., off:off + vl])
+        _close(got, want, 1e-6, 1e-4)
