@@ -6,11 +6,23 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``monotonic_rnnt_tpu_torch/csrc``,
-holds each kernel wrapper against its plain PyTorch version, drives the
-padded loss's main path (forward, cost-only and backward at the benchmark
-lattice B=32, T=200, S=50, V=1000, in float32 and bfloat16) against the
-plain-torch oracle, checks the golden values of the reference's worked
-example, takes five SGD steps, and times the kernels with CUDA events.
+then measures the card's copy ceiling (``run_ceiling``): the three copy
+kernels of csrc/stream.cu (``stream_copy`` in its vmem and dma modes,
+``stream_copy_blocked``, ``stream_copy_blocked_tbsv``) bit for bit against
+their plain versions and their inputs, at bench.py's sizes ([327680, 1024]
+flat; [32, 200, 51, 1024] blocked, tt=1 f32 and 2 bf16; its t-major
+control) in f32 and bf16, at V=7 and odd blocks, and at every divisor;
+then a ping-pong chain of 24 copies per configuration, 5 interleaved
+trials, median, printed as GB/s = 2*bytes/t beside ``Tensor.copy_`` and the
+3.35 TB/s spec. A dtype's copy ceiling is the best of the flat modes.
+Then it holds each loss kernel wrapper against its plain PyTorch version,
+drives the padded loss's main path (forward, cost-only and backward at the
+benchmark lattice B=32, T=200, S=50, V=1000, in float32 and bfloat16)
+against the plain-torch oracle, checks the golden values of the
+reference's worked example, takes five SGD steps, and times the kernels
+with CUDA events; the end-to-end line carries bench.py's roofline fraction
+of the padded step (3 passes over the logits at the measured ceiling over
+the fwd+bwd time, and at the blocked ceiling and the spec).
 
 The banded phase then builds the banded acceptance case (B=2, T=1600,
 S=200, V=1024, alignment band +-20; benchmarks/banded_bench.py) with the
@@ -72,11 +84,35 @@ parent fails as soon as a rank fails or the ranks pass SHARDED_TIMEOUT_S,
 sums the fused gradients' squared errors over the shards, and times
 ``softmax_stats_partial`` at a rank's padded shard [16, 200, 51, 500].
 
+The packed-layout, binding and alignment paths run last, so that every
+figure above is taken in the same state as without them. The alignment phase
+(``run_alignment``) runs ``viterbi_alignment`` on the banded case's full
+lattice (the clipped band) and ``viterbi_alignment_banded`` on its band,
+and both occupancy posteriors: identical alignments, each score at least
+the loss and equal to its own alignment's score, occupancies that sum to 1
+and agree between the two layouts; the Viterbi path's +-20 band through
+the binding's restricted loss on the packed acts against
+``monotonic_rnnt_loss_banded``; launch counts; both Viterbi calls timed.
+The packed phase (``run_packed``) packs the benchmark lattice to the
+reference's [sum T_b(S_b+1), V] layout and drives the torch binding
+(``monotonic_rnnt_loss``, ``MonotonicRNNTLoss`` none/sum/mean) and
+``monotonic_rnnt_loss_packed`` against the padded loss on the same logits:
+a weighted training step, a cost-only call (launch counts read after each),
+the +-8 restricted variant and bf16; the native engine on the host on the
+first 4 samples against the card; the goldens through the binding; the
+packed step, the padded step and the two index ops timed. Last, one
+training step of the padded loss runs under the port's
+``utils/profiling.device_trace``: the top 10 device operations and the
+device time over the step's wall time (a trace without device time is
+printed, not failed).
+
 Any failed check raises, and the script exits non-zero. The last three lines
 of its output are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 
 Tolerances, each with its reason:
+  * copy kernels vs plain versions and inputs: bit for bit (a copy has no
+    arithmetic);
   * kernel vs plain version, same inputs: stats |d| <= 1e-5 + 1e-6|ref|
     (the kernel's warp reduction sums V in another order than
     torch.logsumexp); alphas and betas |d| <= 1e-4 + 1e-5|ref| (that
@@ -122,7 +158,27 @@ Tolerances, each with its reason:
     exponent); the banded TP gradients at T=1600 and the fused-joint TP
     gradients by relative L2 <= 2e-3, the bound between two f32 routes
     above (bf16 banded entry by entry, 1.6e-2); data-parallel costs
-    relative 1e-6 (the same kernels on the same rows).
+    relative 1e-6 (the same kernels on the same rows);
+  * packed binding and packed loss vs the padded loss on the same logits:
+    costs and packed grads 1e-6 relative, expected bit for bit (the same
+    kernels on the same valid cells; unpacking copies rows and its backward
+    gathers them);
+  * native engine on the host vs the card's binding: costs as "loss vs
+    oracle" above; gradients |d| <= 1e-6 + max(1e-3, 16 ulp(|ll_b|))|ref|
+    (~2e-3 at the benchmark lattice, |ll| ~ 1.3e3): another f32 implementation,
+    whose ll rounds otherwise in every occupancy exponent (the card showed
+    1.1e-3 at one entry, past the oracle's 1e-3);
+    binding goldens as above, restricted 1.22 / 2.7 at 1e-2 as
+    tests/test_interop.py;
+  * Viterbi on the band vs the full lattice: alignments identical, scores
+    |d| <= 1e-4 + 1e-5|ref| (the same max-plus steps on stats from two
+    stats kernels); each score vs its own alignment's restricted loss at
+    that tolerance, and at least the loss less it; occupancy sums: a
+    frame's sum misses 1 by the f32 rounding of alpha + beta - ll, so its
+    bound is max(1e-4, 32 ulps of |ll|): 0.031 at T=1600, where |ll| ~ 1.1e4
+    and the card showed 0.0097 (~10 ulps); banded vs full occupancy relative L2
+    <= 2e-3, the long-T bound between two f32 routes; the realigned
+    binding loss vs the banded loss as costs above.
 """
 
 from __future__ import annotations
@@ -1013,8 +1069,9 @@ def phase_banded_timing(mt, case, weights, errs, launches):
 
 
 def run_banded(mt, golden, main_inputs, weights, restricted):
-    """Every banded phase; returns the kernels' JSON entries, the e2e times
-    and the case's packed band tensor with its costs (for run_sharded)."""
+    """Every banded phase; returns the kernels' JSON entries, the e2e times,
+    the case's packed band tensor with its costs (for run_sharded) and the
+    case itself (for run_alignment)."""
     b, t, s, v = BANDED_CASE
     t0 = time.perf_counter()
     case = banded_case(mt, b, t, s, v, BAND_SHIFT)
@@ -1044,7 +1101,7 @@ def run_banded(mt, golden, main_inputs, weights, restricted):
             "ilen": case["ilen"], "slen": case["slen"],
             "band_min": case["bands"].min_s, "band_max": case["bands"].max_s,
             "costs": costs_by_dtype}
-    return kernels, e2e, keep
+    return kernels, e2e, keep, case
 
 
 # --- the split pipeline ---------------------------------------------------------
@@ -2250,19 +2307,622 @@ def run_sharded(mt, banded_case, costs):
                                           partial_err}, **errs}, entry
 
 
+# --- the copy ceiling -----------------------------------------------------------
+
+# bench.py's calibration tensors: the flat [327680, 1024] array
+# (bench.py:91) and the blocked lattice [B, T, S1, V rounded up to 128]
+# (bench.py:171-176), with its t-major control [T, B, S1, V128].
+CEIL_FLAT = (327680, 1024)
+CEIL_BLOCKED = (B, T, S + 1, 1024)
+CEIL_BLOCK_ROWS, CEIL_NBUF = 512, 8   # bench.py:117's vmem_512; 8 slabs
+CEIL_K = 24          # copies per timed chain (bench.py:133)
+CEIL_TRIALS = 5      # interleaved trials per configuration (bench.py:134)
+
+
+def events_ms(fn) -> float:
+    """One CUDA-event timing of fn(), in ms (no warm-up, no repeats)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def ceiling_exactness(mt):
+    """Every copy kernel bit for bit against its plain version and its
+    input: at the bench sizes in f32 and bf16, at small odd shapes (V=7
+    through the blocked pair's element-wise path, 2-byte units in the
+    register copy, a slab of a few chunks in the TMA copy), and at every
+    block_rows / nbuf / tt that divides."""
+    ST = mt.ST
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tt = 2 if dtype == torch.bfloat16 else 1
+        flat = (torch.randn(CEIL_FLAT, generator=gen, device=DEVICE)
+                * 3).to(dtype)
+        blocked = (torch.randn(CEIL_BLOCKED, generator=gen, device=DEVICE)
+                   * 3).to(dtype)
+        b_, t_, s1_, v_ = CEIL_BLOCKED
+        cases = [
+            (ST.stream_copy, ST.stream_copy_plain, flat,
+             dict(mode="vmem", block_rows=CEIL_BLOCK_ROWS)),
+            (ST.stream_copy, ST.stream_copy_plain, flat,
+             dict(mode="dma", nbuf=CEIL_NBUF)),
+            (ST.stream_copy_blocked, ST.stream_copy_blocked_plain, blocked,
+             dict(tt=tt)),
+            (ST.stream_copy_blocked_tbsv, ST.stream_copy_blocked_tbsv_plain,
+             blocked.view(t_, b_, s1_, v_), dict(tt=tt))]
+        small = (torch.randn((6, 8, 5, 7), generator=gen, device=DEVICE)
+                 * 3).to(dtype)
+        odd = (torch.randn((96, 40), generator=gen, device=DEVICE)
+               * 3).to(dtype)
+        for tt_s in (1, 2, 4, 8):
+            cases += [(ST.stream_copy_blocked, ST.stream_copy_blocked_plain,
+                       small, dict(tt=tt_s)),
+                      (ST.stream_copy_blocked_tbsv,
+                       ST.stream_copy_blocked_tbsv_plain,
+                       small.transpose(0, 1).contiguous(), dict(tt=tt_s))]
+        for br in (1, 3, 32, 96):
+            cases.append((ST.stream_copy, ST.stream_copy_plain, odd[:, :7],
+                          dict(mode="vmem", block_rows=br)))
+        for nb in (1, 2, 3, 4, 6, 8, 12, 24):
+            cases.append((ST.stream_copy, ST.stream_copy_plain, odd,
+                          dict(mode="dma", nbuf=nb)))
+        for kern, plain, x, kw in cases:
+            x = x.contiguous()
+            got, ref = kern(x, **kw), plain(x, **kw)
+            torch.cuda.synchronize()
+            shape = "x".join(map(str, x.shape))
+            check(torch.equal(got, ref) and torch.equal(got, x),
+                  f"{kern.__name__} {kw} [{shape}] {dtype}: not an exact copy")
+            n += 1
+        del flat, blocked, cases, got, ref
+        torch.cuda.empty_cache()
+    log(f"copy kernels: {n} calls bit for bit equal to their plain versions "
+        "and their inputs (bench sizes, V=7, odd blocks, every divisor)")
+
+
+def ceiling_configs(mt, dtype, flat, blocked):
+    """The timed chains: name -> (one copy of its input, the input)."""
+    ST = mt.ST
+    tt = 2 if dtype == torch.bfloat16 else 1
+    b_, t_, s1_, v_ = CEIL_BLOCKED
+    tbsv = blocked.view(t_, b_, s1_, v_)
+    bufs = [torch.empty_like(flat), torch.empty_like(flat)]
+    flip = [0]
+
+    def copy_(x):                 # the yardstick: two preallocated buffers
+        out = bufs[flip[0]]
+        flip[0] ^= 1
+        return out.copy_(x)
+
+    return {
+        "vmem": (lambda x: ST.stream_copy(x, "vmem", CEIL_BLOCK_ROWS), flat),
+        "dma": (lambda x: ST.stream_copy(x, "dma", nbuf=CEIL_NBUF), flat),
+        "blocked": (lambda x: ST.stream_copy_blocked(x, tt=tt), blocked),
+        "tbsv": (lambda x: ST.stream_copy_blocked_tbsv(x, tt=tt), tbsv),
+        "copy_": (copy_, flat),
+    }
+
+
+def run_ceiling(mt):
+    """Rows 12-14: the copy kernels bit for bit, then the card's copy rates
+    as bench.py measures them: a ping-pong chain of CEIL_K copies (the
+    caching allocator hands each copy the buffer the one before last
+    freed), CEIL_TRIALS trials a configuration, interleaved, median. The
+    copy ceiling of a dtype is the best median of the hand-written flat
+    modes (vmem, dma). Returns the rates and the three kernels' entries."""
+    K, ST = mt.K, mt.ST
+    t0 = time.perf_counter()
+    ceiling_exactness(mt)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    inputs = {d: ((torch.randn(CEIL_FLAT, generator=gen, device=DEVICE)
+                   * 3).to(d),
+                  (torch.randn(CEIL_BLOCKED, generator=gen, device=DEVICE)
+                   * 3).to(d))
+              for d in (torch.float32, torch.bfloat16)}
+    configs = {(d, name): cfg for d, (flat, blocked) in inputs.items()
+               for name, cfg in ceiling_configs(mt, d, flat, blocked).items()}
+
+    def chain(cfg):
+        fn, x = cfg
+        a = x
+        for _ in range(CEIL_K):
+            a = fn(a)
+        return a
+
+    # The ceiling path: counts reset just before, read just after.
+    K.reset_launch_counts()
+    for cfg in configs.values():                      # warm-up
+        chain(cfg)
+    trials = {key: [] for key in configs}
+    for _ in range(CEIL_TRIALS):
+        for key, cfg in configs.items():
+            trials[key].append(events_ms(lambda: chain(cfg)) / CEIL_K)
+    torch.cuda.synchronize()
+    launches = launched(K)
+    check(set(launches) == {"stream_copy", "stream_copy_blocked",
+                            "stream_copy_blocked_tbsv"},
+          f"ceiling path launches {launches}")
+    # The chains' last copies still equal their inputs.
+    for key, cfg in configs.items():
+        check(torch.equal(chain(cfg), cfg[1]), f"{key}: the chain drifted")
+
+    rates, per_copy = {}, {}
+    for (d, name), ts in trials.items():
+        nbytes = configs[(d, name)][1].numel() * configs[(d, name)][1].element_size()
+        med = statistics.median(ts)
+        per_copy[(d, name)] = med
+        rates.setdefault(dtype_name(d), {})[name] = {
+            "GBps": 2 * nbytes / (med * 1e-3) / 1e9, "ms": med,
+            "spread": (max(ts) - min(ts)) / med,
+            "trials_GBps": [2 * nbytes / (t * 1e-3) / 1e9 for t in ts]}
+    for d in rates.values():
+        d["ceiling_GBps"] = max(d["vmem"]["GBps"], d["dma"]["GBps"])
+        d["ceiling_mode"] = max(("vmem", "dma"), key=lambda m: d[m]["GBps"])
+    spec = HBM_BYTES_PER_S / 1e9
+    for d, r in rates.items():
+        log(f"copy rates {d} (median of {CEIL_TRIALS} interleaved trials of "
+            f"{CEIL_K}-copy chains, GB/s = 2*bytes/t; spec {spec:.0f}): "
+            + ", ".join(f"{m} {r[m]['GBps']:.1f} ({r[m]['GBps'] / spec:.1%} "
+                        f"of spec, spread {r[m]['spread']:.1%})"
+                        for m in ("vmem", "dma", "blocked", "tbsv", "copy_"))
+            + f"; copy ceiling {r['ceiling_GBps']:.1f} GB/s "
+            f"({r['ceiling_mode']}, {r['ceiling_GBps'] / spec:.1%} of spec)")
+
+    # Each kernel's entry: its time per copy at the bench size, its byte
+    # bound, its plain version (one call) and the copy_ yardstick.
+    plain_ms = {}
+    for (d, name), (fn, x) in configs.items():
+        plain = {"vmem": lambda: ST.stream_copy_plain(x, "vmem",
+                                                      CEIL_BLOCK_ROWS),
+                 "dma": lambda: ST.stream_copy_plain(x, "dma",
+                                                     nbuf=CEIL_NBUF),
+                 "blocked": lambda: ST.stream_copy_blocked_plain(
+                     x, tt=2 if d == torch.bfloat16 else 1),
+                 "tbsv": lambda: ST.stream_copy_blocked_tbsv_plain(
+                     x, tt=2 if d == torch.bfloat16 else 1)}.get(name)
+        if plain is not None:
+            plain_ms[(d, name)] = cuda_ms(plain, reps=1, warmup=1)
+    entries = []
+    spec_rows = (("stream_copy", ("vmem", "dma"), 50, "R=327680,C=1024"),
+                 ("stream_copy_blocked", ("blocked",), 82,
+                  "B=%d,T=%d,S1=%d,V=%d; tt=1 f32, 2 bf16" % CEIL_BLOCKED),
+                 ("stream_copy_blocked_tbsv", ("tbsv",), 114,
+                  "T=%d,B=%d,S1=%d,V=%d; tt=1 f32, 2 bf16"
+                  % (T, B, S + 1, 1024)))
+    for kname, modes, line, shape in spec_rows:
+        def numbers(d, mode):
+            x = configs[(d, mode)][1]
+            return {"ms": per_copy[(d, mode)], "plain_ms": plain_ms[(d, mode)],
+                    "bound_ms": bound_ms(2 * x.numel() * x.element_size(),
+                                         0)[0],
+                    "library_ms": per_copy[(d, "copy_")]}
+        f32, b16 = numbers(torch.float32, modes[0]), numbers(torch.bfloat16,
+                                                             modes[0])
+        entry = {
+            "name": kname, "route": "cuda",
+            "source": "monotonic_rnnt_tpu_torch/csrc/stream.cu",
+            "replaces": f"monotonic_rnnt_tpu/ops/pallas/stream.py:{line}",
+            "launches": launches.get(kname, 0), "max_abs_err": 0.0,
+            **f32, "bound_by": "bytes", "library_call": "Tensor.copy_",
+            "status": "ported", "dtype": "float32", "shape": shape,
+            "bf16": b16, "launches_by_path": {"ceiling":
+                                              launches.get(kname, 0)},
+            "max_abs_err_by_path": {"ceiling": 0.0}}
+        if len(modes) > 1:
+            entry["modes"] = {m: {"float32": numbers(torch.float32, m),
+                                  "bfloat16": numbers(torch.bfloat16, m)}
+                              for m in modes}
+        entries.append(entry)
+    del configs, inputs
+    torch.cuda.empty_cache()
+    log(f"ceiling phase: launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return rates, entries
+
+
+def dtype_name(d) -> str:
+    return str(d).removeprefix("torch.")
+
+
+def add_ceiling(entries, rates):
+    """Each entry's (and its bf16 numbers') bound at the measured copy
+    ceiling of its dtype: its bytes (bound_ms at the spec rate) over the
+    ceiling, and the share of that bound the kernel reaches. A row bound
+    by its operations keeps its bound."""
+    def one(e, d):
+        if e.get("bound_ms") is None or not e.get("ms"):
+            return
+        ceiling = rates[d]["ceiling_GBps"] * 1e9
+        by_bytes = e.get("bound_by", "bytes") == "bytes"
+        e["ceiling_bound_ms"] = (e["bound_ms"] * HBM_BYTES_PER_S / ceiling
+                                 if by_bytes else e["bound_ms"])
+        e["share_of_ceiling"] = e["ceiling_bound_ms"] / e["ms"]
+
+    for e in entries:
+        one(e, "float32")
+        if isinstance(e.get("bf16"), dict):
+            one(e["bf16"], "bfloat16")
+
+
+def add_roofline(e2e, rates, nbytes_f32):
+    """bench.py's roofline fraction of the padded step (bench.py:247-249,
+    293-298, 383-390): 3 passes over the logits (two reads, one write) at
+    the measured copy ceiling over the fwd+bwd time, the same at the
+    blocked ceiling, and at the 3.35 TB/s spec."""
+    for d, row in e2e.items():
+        nbytes = nbytes_f32 // 2 if d == "bfloat16" else nbytes_f32
+        t = row["fwd_bwd_ms"] * 1e-3
+        row["roofline_fraction"] = (3 * nbytes / (rates[d]["ceiling_GBps"]
+                                                  * 1e9)) / t
+        row["fraction_of_blocked_ceiling"] = (
+            3 * nbytes / (rates[d]["blocked"]["GBps"] * 1e9)) / t
+        row["roofline_fraction_vs_spec"] = (3 * nbytes / HBM_BYTES_PER_S) / t
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def phase_trace(mt, main_inputs, weights):
+    """One training step of the padded loss under the port's device_trace
+    (torch.profiler, CPU and CUDA, a Chrome trace into a temporary
+    directory, its name and size printed): the
+    top 10 device operations by device time, and the device time summed
+    over the step's wall time (profiler on). A trace without device time is
+    printed as a finding; a profiler exception fails the run."""
+    logits, labels, ilen, slen = main_inputs
+    x = leaf(logits, torch.float32)
+
+    def step():
+        costs = mt.monotonic_rnnt_loss(x, labels, ilen, slen)
+        (costs * weights).sum().backward()
+        x.grad = None
+
+    step()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="mrnnt_trace_") as out_dir:
+        with mt.profiling.device_trace(out_dir) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        traces = [f"{t.name} ({t.stat().st_size / 1e6:.1f} MB)"
+                  for t in Path(out_dir).glob("*.pt.trace.json")]
+    check(len(traces) == 1, f"device_trace wrote {traces}")
+    avgs = list(prof.key_averages())
+    cuda_type = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in avgs if e.device_type == cuda_type
+               and _device_us(e) > 0]
+    if not kernels:
+        log(f"traced step: {wall_ms:.3f} ms wall; key_averages() shows no "
+            "device time (a finding: time with CUDA events instead)")
+        return {"wall_ms": wall_ms, "device_ms": None}
+    kernels.sort(key=_device_us, reverse=True)
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    log(f"traced step (padded fwd+bwd, f32, profiler on): wall {wall_ms:.3f} "
+        f"ms, device time summed {device_ms:.3f} ms = {device_ms / wall_ms:.1%}"
+        f" of the wall time, {sum(e.count for e in kernels)} device ops in "
+        f"{len(kernels)} kinds; trace {traces[0]}; "
+        "top 10 by device time: " + "; ".join(
+            f"{e.key[:70]} x{e.count} {_device_us(e) / 1e3:.4f} ms"
+            for e in kernels[:10]))
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms}
+
+
+# --- the packed layout and the binding ------------------------------------------
+
+def packed_step(fn, acts, reduce, *args, **kw):
+    """fn(acts leaf, *args, **kw), reduced and differentiated; returns the
+    (unreduced or reduced) output and acts' gradient."""
+    a = acts.detach().clone().requires_grad_(True)
+    out = fn(a, *args, **kw)
+    reduce(out).backward()
+    return out.detach(), a.grad
+
+
+def check_bitwise(got, ref, what) -> float:
+    """Held at 1e-6 relative, expected bit for bit; returns max |d|."""
+    err = assert_close(got, ref, 0.0, 1e-6, what)
+    if not torch.equal(got, ref):
+        log(f"{what}: within 1e-6 relative but not bit for bit (max|d| "
+            f"{err:.3g})")
+    return err
+
+
+def phase_packed_goldens(mt, golden):
+    conv, bind = mt.convert, mt.interop
+
+    def run(lg, lb, il, sl, **kw):
+        lg, lb, il, sl = conv.loss_inputs_from_numpy(lg, lb, il, sl,
+                                                     device=DEVICE)
+        acts = mt.pack_acts(lg, il, sl).requires_grad_(True)
+        costs = bind.monotonic_rnnt_loss(acts, lb, il, sl, **kw)
+        costs.sum().backward()
+        return (costs.detach().cpu().numpy(),
+                mt.unpack_acts(acts.grad, il, sl).cpu().numpy())
+
+    costs, grads = run(*golden.readme_batch())
+    check(abs(costs[0] - golden.README_LOSS) < 1e-4, f"README loss {costs}")
+    check(np.abs(grads[0] - golden.README_GRADS).max() < 1e-2, "README grads")
+    lg, lb, il, sl, exp_l, exp_g = golden.multibatch()
+    costs, grads = run(lg, lb, il, sl)
+    check(np.abs(costs - exp_l).max() < 1e-4, f"multibatch loss {costs}")
+    check(np.abs(grads - exp_g).max() < 1e-2, "multibatch grads")
+    for align, shift, expected in ((golden.ALIGN_A, 1, 1.22),
+                                   (golden.ALIGN_B, 0, 2.7)):
+        costs, grads = run(*golden.readme_batch(),
+                           alignment=torch.from_numpy(align[None]),
+                           max_distance_from_alignment=shift)
+        check(abs(costs[0] - expected) < 1e-2,
+              f"binding restricted shift={shift}: {costs} vs {expected}")
+        check(np.isfinite(grads).all(), "binding restricted grads finite")
+    log("packed goldens through the binding on the card: README -log 0.363 "
+        "+ gradient table, multibatch 0.39/0.363, restricted 1.22 and 2.7 ok")
+
+
+def run_packed(mt, golden, main_inputs, weights, restricted):
+    """The reference's packed layout and torch binding at the benchmark
+    lattice: the binding and the packed loss against the padded loss on the
+    same logits (expected bit for bit), the native engine on the host
+    against the card, the goldens, and the packed step's time beside the
+    padded step's. Returns the packed path's launches and its timings."""
+    K, bind = mt.K, mt.interop
+    logits, labels, ilen, slen = main_inputs
+    align, (r_costs, r_grads) = restricted
+    args = (labels, ilen, slen)
+    t0 = time.perf_counter()
+    acts = mt.pack_acts(logits, ilen, slen)
+    rows = acts.shape[0]
+    cells = logits.shape[0] * logits.shape[1] * logits.shape[2]
+    log(f"packed layout: {rows} rows of {cells} padded "
+        f"({acts.numel() * 4 / 1e9:.3f} GB f32)")
+    weighted = lambda c: (c * weights).sum()
+    ident = lambda c: c
+
+    # The packed path: counts reset once before, read after each part.
+    K.reset_launch_counts()
+    costs, grads = packed_step(bind.monotonic_rnnt_loss, acts, weighted,
+                               *args)
+    torch.cuda.synchronize()
+    after_step = launched(K)
+    with torch.no_grad():
+        costs_only = bind.monotonic_rnnt_loss(acts, *args)
+    torch.cuda.synchronize()
+    launches = launched(K)
+    check(after_step == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+          f"packed training step launches {after_step}")
+    check(launches == {"stats_alpha_fused": 2, "beta_grad_fused": 1},
+          f"packed cost-only launches {launches}")
+
+    errs = {}
+    for name, reduce in (("weighted", weighted), ("sum", lambda c: c.sum()),
+                         ("mean", lambda c: c.mean())):
+        ref_c, ref_g = packed_step(mt.monotonic_rnnt_loss, logits, reduce,
+                                   *args)
+        ref_g = mt.pack_acts(ref_g, ilen, slen)
+        if name == "weighted":
+            runs = {"monotonic_rnnt_loss": (costs, grads),
+                    "MonotonicRNNTLoss(none)": packed_step(
+                        bind.MonotonicRNNTLoss(reduction="none"), acts,
+                        weighted, *args)}
+            with torch.no_grad():
+                ref_only = mt.monotonic_rnnt_loss(logits, *args)
+            errs["cost-only"] = check_bitwise(costs_only, ref_only,
+                                              "packed cost-only costs")
+        else:
+            runs = {f"MonotonicRNNTLoss({name})": packed_step(
+                bind.MonotonicRNNTLoss(reduction=name), acts, ident, *args)}
+            ref_c = reduce(ref_c)
+        for what, (c, g) in runs.items():
+            errs[what] = max(check_bitwise(c, ref_c, f"{what} costs"),
+                             check_bitwise(g, ref_g, f"{what} grads"))
+        del ref_g, runs
+
+    # The +-8 restricted variant, and bf16 through the packed loss.
+    c, g = packed_step(bind.monotonic_rnnt_loss, acts, weighted, *args,
+                       alignment=align, max_distance_from_alignment=ALIGN_SHIFT)
+    errs["restricted"] = max(
+        check_bitwise(c, r_costs, "packed restricted costs"),
+        check_bitwise(g, mt.pack_acts(r_grads, ilen, slen),
+                      "packed restricted grads"))
+    lg16 = logits.to(torch.bfloat16)
+    c, g = packed_step(mt.monotonic_rnnt_loss_packed, mt.pack_acts(
+        lg16, ilen, slen), weighted, *args)
+    ref_c, ref_g = packed_step(mt.monotonic_rnnt_loss, lg16, weighted, *args)
+    check(g.dtype == torch.bfloat16, f"packed bf16 grads dtype {g.dtype}")
+    errs["bf16"] = max(check_bitwise(c, ref_c, "packed bf16 costs"),
+                       check_bitwise(g, mt.pack_acts(ref_g, ilen, slen),
+                                     "packed bf16 grads"))
+    del c, g, ref_c, ref_g, lg16
+    torch.cuda.empty_cache()
+
+    # The native engine on the host, first 4 samples, against the card.
+    n4 = int((ilen[:4].long() * (slen[:4].long() + 1)).sum())
+    il4, sl4 = ilen[:4].cpu(), slen[:4].cpu()
+    a4 = acts[:n4].cpu().requires_grad_(True)
+    t_nat = time.perf_counter()
+    c4 = bind.monotonic_rnnt_loss(a4, labels[:4].cpu(), il4, sl4)
+    (c4 * weights[:4].cpu()).sum().backward()
+    t_nat = time.perf_counter() - t_nat
+    ref4 = costs[:4].cpu()
+    e_nc = assert_close(c4.detach(), ref4, 1e-4, 1e-5, "native vs card costs")
+    # Two f32 implementations: each sample's |ll| (~1.3e3 here, ulp 1.2e-4)
+    # enters every occupancy exponent, so the gradients are held at the
+    # oracle's 1e-3 or 16 ulps of |ll| relative (~2e-3), the larger.
+    ulp = torch.nextafter(ref4, ref4 + 1) - ref4
+    rtol = torch.clamp(16 * ulp, min=1e-3).repeat_interleave(
+        il4.long() * (sl4.long() + 1))
+    g_ref = grads[:n4].cpu()
+    e_ng = assert_close(a4.grad, g_ref, 1e-6, rtol[:, None],
+                        "native vs card grads")
+    past = int((~((a4.grad - g_ref).abs() <= 1e-6 + 1e-3 * g_ref.abs()))
+               .sum())
+    log(f"native engine on the host (4 samples, {n4} rows, {t_nat:.2f} s) vs "
+        f"the card's binding: costs max|d| {e_nc:.3g}, grads max|d| "
+        f"{e_ng:.3g} (relative L2 {rel_l2(a4.grad, g_ref):.3g}; {past} of "
+        f"{g_ref.numel()} entries past 1e-6 + 1e-3|ref|; bound "
+        f"{float(rtol.max()):.3g} relative)")
+    phase_packed_goldens(mt, golden)
+
+    lg_leaf, a_leaf = leaf(logits, torch.float32), leaf(acts, torch.float32)
+
+    def step(fn, x):
+        (fn(x, *args) * weights).sum().backward()
+        x.grad = None
+
+    gthr = mt.unpack_acts(acts, ilen, slen)
+    timing = {"packed_fwd_bwd_ms": cuda_ms(
+                  lambda: step(bind.monotonic_rnnt_loss, a_leaf)),
+              "padded_fwd_bwd_ms": cuda_ms(
+                  lambda: step(mt.monotonic_rnnt_loss, lg_leaf)),
+              "unpack_ms": cuda_ms(lambda: mt.unpack_acts(acts, ilen, slen)),
+              "pack_ms": cuda_ms(lambda: mt.pack_acts(gthr, ilen, slen))}
+    timing["packed_over_padded_ms"] = (timing["packed_fwd_bwd_ms"]
+                                       - timing["padded_fwd_bwd_ms"])
+    log("packed vs padded at B=%d,T=%d,S=%d,V=%d (f32): max|d| by check "
+        % (B, T, S, V) + json.dumps(errs) + "; launches step "
+        f"{after_step}, +cost-only {launches}; timing " + json.dumps(timing)
+        + f"; phase {time.perf_counter() - t0:.1f} s")
+    del acts, gthr, lg_leaf, a_leaf, grads
+    torch.cuda.empty_cache()
+    return {"packed": launches}, timing
+
+
+# --- Viterbi alignment ----------------------------------------------------------
+
+def run_alignment(mt, case):
+    """Viterbi alignment and the occupancy posteriors at the banded case,
+    on the full lattice and on the band; their checks, the realignment
+    through the binding's restricted loss, the two Viterbi calls' times.
+    Returns the alignment path's launches and the times."""
+    K, bd = mt.K, mt.bands
+    args = (case["labels"], case["ilen"], case["slen"])
+    ilen, slen = case["ilen"], case["slen"]
+    clipped = bd.clip_bands_to_width(case["bands"], case["layout"])
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    full = mt.viterbi_alignment(case["logits"], *args, bands=clipped)
+    torch.cuda.synchronize()
+    after_full = launched(K)
+    band = mt.viterbi_alignment_banded(case["logits_band"], *args,
+                                       bands=case["bands"])
+    torch.cuda.synchronize()
+    after_band = launched(K)
+    occ = mt.occupancy_posteriors(case["logits"], *args, bands=clipped)
+    occ_b = mt.occupancy_posteriors_banded(case["logits_band"], *args,
+                                           bands=case["bands"])
+    torch.cuda.synchronize()
+    launches = launched(K)
+    check(after_full == {"softmax_stats": 1},
+          f"viterbi_alignment launches {after_full}")
+    check(after_band == {"softmax_stats": 1, "softmax_stats_banded": 1},
+          f"viterbi_alignment_banded launches {after_band}")
+    check(launches == {"softmax_stats": 2, "fwdbwd_scan": 1,
+                       "softmax_stats_banded": 2, "fwdbwd_scan_banded": 1},
+          f"alignment path launches {launches}")
+
+    check(torch.equal(full.alignment, band.alignment),
+          "banded and full Viterbi alignments differ")
+    e_s = assert_close(band.score, full.score, 1e-4, 1e-5,
+                       "banded vs full Viterbi scores")
+    with torch.no_grad():
+        cost = mt.monotonic_rnnt_loss(case["logits"], *args, bands=clipped)
+        own = mt.monotonic_rnnt_alignment_score(case["logits"], *args,
+                                                full.alignment)
+    tol = 1e-4 + 1e-5 * cost.abs()
+    check(bool((full.score >= cost - tol).all()),
+          f"Viterbi score {full.score.tolist()} below the loss "
+          f"{cost.tolist()}")
+    e_own = assert_close(full.score, own, 1e-4, 1e-5,
+                         "Viterbi score vs its alignment's score")
+    # A frame's sum is exp(alpha(t-1) + beta(t) - ll) summed over s, so it
+    # misses 1 by the f32 rounding of that exponent: a few ulps of |ll|
+    # (~1e-3 at T=1600, where ll ~ -1.1e4). Bound: 1e-4 or 32 ulps of ll.
+    t_idx = torch.arange(occ.shape[1], device=DEVICE)[None, :]
+    valid = t_idx < ilen[:, None]
+    ll = cost.abs()
+    sum_tol = torch.clamp(32 * (torch.nextafter(ll, ll + 1) - ll), min=1e-4)
+    dev_sum = torch.where(valid, (occ.sum(-1) - 1).abs(), 0.0)
+    e_sum = float(dev_sum.max())
+    check(bool((dev_sum <= sum_tol[:, None]).all()),
+          f"occupancy sums over s: max |1 - sum| {e_sum:.3g} over the "
+          f"bounds {sum_tol.tolist()}")
+    rel = rel_l2(occ_b, bd.pack_band(occ, case["layout"]))
+    check(rel <= 2e-3, f"banded occupancy vs full: relative L2 {rel:.3g}")
+
+    # Realign: the Viterbi path's +-BAND_SHIFT band through the binding's
+    # restricted loss on the packed acts, against the banded loss.
+    t_max, s1 = case["logits"].shape[1], case["labels"].shape[1] + 1
+    bands2 = bd.bands_from_alignment(full.alignment, ilen, slen, BAND_SHIFT, 0)
+    w2 = bd.suggested_band_width(ilen, slen, bands2, t_max, s1)
+    check(bool(bd.band_layout_is_exact(ilen, slen, bands2, t_max, s1,
+                                       w2).all()), "realigned layout exact")
+    layout2 = bd.compute_band_layout(ilen, slen, bands2, t_max, s1, w2)
+    with torch.no_grad():
+        acts = mt.pack_acts(case["logits"], ilen, slen)
+        via_binding = mt.interop.monotonic_rnnt_loss(
+            acts, *args, alignment=full.alignment,
+            max_distance_from_alignment=BAND_SHIFT)
+        del acts
+        banded = mt.monotonic_rnnt_loss_banded(
+            bd.pack_band(case["logits"], layout2), *args, bands=bands2)
+    e_re = assert_close(via_binding, banded, 1e-4, 1e-5,
+                        "realigned binding loss vs banded loss")
+    timing = {"viterbi_full_ms": cuda_ms(
+                  lambda: mt.viterbi_alignment(case["logits"], *args,
+                                               bands=clipped),
+                  reps=3, warmup=1),
+              "viterbi_banded_ms": cuda_ms(
+                  lambda: mt.viterbi_alignment_banded(
+                      case["logits_band"], *args, bands=case["bands"]),
+                  reps=3, warmup=1)}
+    log(f"alignment at B,T,S,V={BANDED_CASE} (W={case['w']}): alignments "
+        f"identical; scores {full.score.tolist()} (banded max|d| {e_s:.3g}; "
+        f"vs own alignment's score {e_own:.3g}; loss {cost.tolist()}); "
+        f"occupancy sums max |1 - sum| {e_sum:.3g} (bounds "
+        f"{[round(b, 5) for b in sum_tol.tolist()]}), banded vs full relative L2 "
+        f"{rel:.3g}; realigned +-{BAND_SHIFT} (W={w2}) binding vs banded "
+        f"loss max|d| {e_re:.3g}; launches {launches}; "
+        + json.dumps(timing) + f"; phase {time.perf_counter() - t0:.1f} s")
+    del full, band, occ, occ_b
+    torch.cuda.empty_cache()
+    return {"alignment": launches}, timing
+
+
+def moved(obj, device):
+    """obj with every tensor in it (in tuples, named tuples and dicts) moved
+    to device."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: moved(v, device) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(moved(v, device) for v in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(moved(v, device) for v in obj)
+    return obj
+
+
 class _Port:
     """The port's modules that the phases use."""
 
     def __init__(self):
         import monotonic_rnnt_tpu_torch as pkg
-        from monotonic_rnnt_tpu_torch import convert, parallel
+        from monotonic_rnnt_tpu_torch import convert, interop, parallel
         from monotonic_rnnt_tpu_torch.ops import (banded, bands, chunked,
                                                   chunked_banded, collective,
                                                   helpers)
         from monotonic_rnnt_tpu_torch.parallel import sharding
         from monotonic_rnnt_tpu_torch.ops.cuda import (_build, banded_kernels,
                                                        fused, kernels,
-                                                       split_kernels)
+                                                       split_kernels, stream)
+        from monotonic_rnnt_tpu_torch.utils import profiling
 
         pkg_dir = Path(pkg.__file__).resolve().parent
         if pkg_dir.parent != ROOT:
@@ -2280,6 +2940,12 @@ class _Port:
         self.chunked, self.chunked_banded = chunked, chunked_banded
         self.par, self.collective, self.sharding = (parallel, collective,
                                                     sharding)
+        self.ST, self.interop, self.profiling = stream, interop, profiling
+        for name in ("pack_acts", "unpack_acts", "monotonic_rnnt_loss_packed",
+                     "viterbi_alignment", "viterbi_alignment_banded",
+                     "occupancy_posteriors", "occupancy_posteriors_banded",
+                     "monotonic_rnnt_alignment_score"):
+            setattr(self, name, getattr(pkg, name))
 
 
 def gpu_line() -> str:
@@ -2306,6 +2972,7 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     phase_build(mt)
+    rates, stream_entries = run_ceiling(mt)
 
     main_inputs = make_inputs(mt, B, T, S, V, seed=SEED,
                               t_range=(3 * T // 4, T), s_range=(3 * S // 5, S))
@@ -2319,17 +2986,22 @@ def main() -> int:
     restricted = phase_restricted(mt, main_inputs, weights)
     phase_train(mt, main_inputs)
     kernels, e2e = phase_timing(mt, main_inputs, weights, errs, main_launches)
+    add_roofline(e2e, rates, main_inputs[0].numel() * 4)
     log(f"end-to-end loss at B={B},T={T},S={S},V={V}: {json.dumps(e2e)}")
     split_errs, split_launches, split_rows = run_split(mt, golden, main_inputs,
                                                       weights)
     log(f"end-to-end split loss at B={B},T={T},S={S},V={V}: " + json.dumps(
         {str(d).removeprefix("torch."): split_rows[d][1]
          for d in split_rows}))
-    band_kernels, band_e2e, band_keep = run_banded(mt, golden, main_inputs,
-                                                   weights, restricted)
+    band_kernels, band_e2e, band_keep, band_case = run_banded(
+        mt, golden, main_inputs, weights, restricted)
     log(f"end-to-end banded loss at B,T,S,V={BANDED_CASE}, shift "
         f"{BAND_SHIFT}: {json.dumps(band_e2e)}")
-    del main_inputs, restricted
+    # What the alignment and packed phases read waits on the host, so the
+    # next phases find the card as without them: ~5.5 GB kept there slowed
+    # the host-bound banded fused-joint step.
+    parked = moved((main_inputs, restricted, band_case), "cpu")
+    del main_inputs, restricted, band_case
     torch.cuda.empty_cache()
     fused_launches, fused_errs, fused_e2e = run_fused_joint(mt)
     log(f"end-to-end fused-joint losses at B,T',S,V,H={FUSED_CASE} and "
@@ -2337,18 +3009,42 @@ def main() -> int:
     sharded_launches, sharded_errs, partial_entry = run_sharded(
         mt, band_keep, {torch.float32: costs_f32, torch.bfloat16: costs_bf16})
     del band_keep
+    # The alignment, packed and traced phases run last, so that the figures
+    # above are taken as without them (a profiler session or thousands of
+    # small ops could leave host state behind that slows later host-bound
+    # steps).
+    main_inputs, restricted, band_case = moved(parked, DEVICE)
+    del parked
+    align_launches, align_timing = run_alignment(mt, band_case)
+    ratio = (align_timing["viterbi_full_ms"]
+             / band_e2e["float32"]["banded_fwd_bwd_ms"])
+    log(f"Viterbi at B,T,S,V={BANDED_CASE}: {json.dumps(align_timing)}; the "
+        f"full-lattice call over the banded training step: {ratio:.1f}x")
+    del band_case
+    torch.cuda.empty_cache()
+    packed_launches, packed_e2e = run_packed(mt, golden, main_inputs, weights,
+                                             restricted)
+    log(f"end-to-end packed loss at B={B},T={T},S={S},V={V}: "
+        f"{json.dumps(packed_e2e)}")
+    phase_trace(mt, main_inputs, weights)
+    del main_inputs, restricted
+    torch.cuda.empty_cache()
     split_f32 = split_errs[torch.float32]
-    by_path(kernels, "padded", sharded_launches, {})
+    by_path(kernels, "padded", {**sharded_launches, **packed_launches}, {})
     by_path(band_kernels, "banded", {"split": split_launches,
-                                     **fused_launches, **sharded_launches},
+                                     **fused_launches, **sharded_launches,
+                                     **align_launches},
             {"split": {"grad_pass": split_f32["grad_pass"]}, **fused_errs,
              **sharded_errs})
     split_kernels = split_kernel_entries(split_errs, split_launches,
                                          split_rows)
-    by_path(split_kernels, "split", {**fused_launches, **sharded_launches},
+    by_path(split_kernels, "split", {**fused_launches, **sharded_launches,
+                                     **align_launches},
             {**fused_errs, **sharded_errs})
     by_path([partial_entry], "tp_padded", sharded_launches, sharded_errs)
-    kernels += band_kernels + split_kernels + [partial_entry]
+    kernels += band_kernels + split_kernels + [partial_entry] + stream_entries
+    add_ceiling(kernels, rates)
+    check(len(kernels) == 14, f"the kernels JSON lists {len(kernels)} of 14")
     log(f"total {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -2,13 +2,19 @@
 
 Counterpart of the JAX package ``monotonic_rnnt_tpu``, which stays the
 reference. The padded loss (on the DP-fused or the split pipeline), the
-banded loss (packed [B, T, W, V] layout) and the two fused-joint losses,
-which compute the loss from encoder and predictor outputs in T-chunks, run
-forward, cost-only and backward through hand-written CUDA kernels
-(``csrc/``, built for sm_90a at first use) on CUDA tensors, and through the
-kernels' plain versions or the plain-torch oracles on CPU tensors.
+reference's packed [sum T_b(S_b+1), V] layout over it, the banded loss
+(packed [B, T, W, V] layout) and the two fused-joint losses, which compute
+the loss from encoder and predictor outputs in T-chunks, run forward,
+cost-only and backward through hand-written CUDA kernels (``csrc/``, built
+for sm_90a at first use) on CUDA tensors, and through the kernels' plain
+versions or the plain-torch oracles on CPU tensors; so do Viterbi
+alignment and the occupancy posteriors. ``interop`` holds the reference's
+PyTorch binding surface, ``native`` the C++ engine it runs on CPU tensors.
 """
 
+from .ops.alignment import (ViterbiResult, occupancy_posteriors,
+                            occupancy_posteriors_banded, viterbi_alignment,
+                            viterbi_alignment_banded)
 from .ops.banded import monotonic_rnnt_loss_banded
 from .ops.chunked import rnnt_loss_fused_joint
 from .ops.chunked_banded import rnnt_loss_fused_joint_banded
@@ -17,6 +23,7 @@ from .ops.bands import (BandLayout, Bands, band_layout_is_exact,
                         default_bands, pack_band, required_band_width,
                         suggested_band_width, unpack_band)
 from .ops.loss import monotonic_rnnt_alignment_score, monotonic_rnnt_loss
+from .ops.packing import monotonic_rnnt_loss_packed, pack_acts, unpack_acts
 from .ops.reference import rnnt_loss_reference
 from .utils.config import config_override, get_config, update_config
 from .utils.status import RnntError, Status
@@ -26,6 +33,7 @@ __all__ = [
     "Bands",
     "RnntError",
     "Status",
+    "ViterbiResult",
     "band_layout_is_exact",
     "bands_from_alignment",
     "compute_band_layout",
@@ -35,12 +43,19 @@ __all__ = [
     "monotonic_rnnt_alignment_score",
     "monotonic_rnnt_loss",
     "monotonic_rnnt_loss_banded",
+    "monotonic_rnnt_loss_packed",
+    "occupancy_posteriors",
+    "occupancy_posteriors_banded",
+    "pack_acts",
     "pack_band",
     "required_band_width",
     "rnnt_loss_fused_joint",
     "rnnt_loss_fused_joint_banded",
     "rnnt_loss_reference",
     "suggested_band_width",
+    "unpack_acts",
     "unpack_band",
     "update_config",
+    "viterbi_alignment",
+    "viterbi_alignment_banded",
 ]

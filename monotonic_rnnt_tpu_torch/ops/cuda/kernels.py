@@ -11,8 +11,9 @@ Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776, 1304-1360``:
   split routes, the fused-joint losses' chunks and the vocab-sharded
   losses' local slices.
 
-The banded kernels' wrappers (ops/cuda/banded_kernels.py) and the split
-pipeline's (ops/cuda/split_kernels.py) count their launches here. Each wrapper takes its plain PyTorch version (same
+The banded kernels' wrappers (ops/cuda/banded_kernels.py), the split
+pipeline's (ops/cuda/split_kernels.py) and the copy-ceiling kernels'
+(ops/cuda/stream.py) count their launches here. Each wrapper takes its plain PyTorch version (same
 arguments, same outputs) for tensors on the CPU, and for CUDA tensors
 launches its kernels or raises. Each adds one to ``LAUNCHES[<name>]`` when
 it has launched. The TPU tiling helpers (pick_tv_tiles, fused_dp_tiles, the
@@ -34,7 +35,9 @@ from . import _build
 LAUNCHES = {"stats_alpha_fused": 0, "beta_grad_fused": 0, "grad_pass": 0,
             "softmax_stats_banded": 0, "fwdbwd_scan_banded": 0,
             "alpha_scan_banded": 0, "softmax_stats": 0, "fwdbwd_scan": 0,
-            "alpha_scan": 0, "beta_scan": 0, "softmax_stats_partial": 0}
+            "alpha_scan": 0, "beta_scan": 0, "softmax_stats_partial": 0,
+            "stream_copy": 0, "stream_copy_blocked": 0,
+            "stream_copy_blocked_tbsv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -42,7 +45,7 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> (library, argtypes); see csrc/*.cu for the parameters.
 _ENTRIES = {
     "mrnnt_stats": ("stats_alpha", [_P, _I, _P] + [_I] * 5 + [_P] * 4),
@@ -59,6 +62,10 @@ _ENTRIES = {
     "mrnnt_alpha_scan": ("split", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "mrnnt_beta_scan": ("split", [_P] * 5 + [_I] * 3 + [_P] * 2),
     "mrnnt_fwdbwd_scan": ("split", [_P] * 6 + [_I] * 3 + [_P] * 3),
+    "mrnnt_stream_copy_vmem": ("stream", [_P, _P, _I, _L, _P]),
+    "mrnnt_stream_copy_dma": ("stream", [_P, _P, _I, _L, _P]),
+    "mrnnt_stream_copy_blocked": ("stream", [_P, _P] + [_I] * 6 + [_P]),
+    "mrnnt_stream_copy_blocked_tbsv": ("stream", [_P, _P] + [_I] * 6 + [_P]),
 }
 
 

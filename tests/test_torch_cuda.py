@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a GPU: each against its plain version, and the
 padded (DP-fused and split) and banded losses and the fused-joint losses
-through them against the plain-torch oracles.
+through them against the plain-torch oracles; the copy-ceiling kernels bit
+for bit; the packed binding and Viterbi alignment through the kernels.
 
 Every test here is marked ``cuda`` and skips where no GPU is present. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -21,6 +22,8 @@ from monotonic_rnnt_tpu_torch.ops.cuda import banded_kernels as BK
 from monotonic_rnnt_tpu_torch.ops.cuda import fused
 from monotonic_rnnt_tpu_torch.ops.cuda import kernels as K
 from monotonic_rnnt_tpu_torch.ops.cuda import split_kernels as SK
+from monotonic_rnnt_tpu_torch.ops.cuda import stream as ST
+from monotonic_rnnt_tpu_torch.interop import torch_binding as binding
 
 pytestmark = pytest.mark.cuda
 
@@ -533,3 +536,95 @@ def test_grad_pass_kernel_takes_relative_ids(device, labels_3d):
         torch.cuda.synchronize()
         assert torch.equal(got, full[..., off:off + vl])
         _close(got, want, 1e-6, 1e-4)
+
+
+# --- the copy-ceiling kernels --------------------------------------------------------
+
+def _random_bits(shape, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=device) * 3).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,rows,cols,kw", [
+    ("vmem", 1024, 256, dict(block_rows=128)),
+    ("vmem", 1024, 256, dict(block_rows=1024)),
+    ("vmem", 45, 7, dict(block_rows=5)),          # 2- or 4-byte units
+    ("dma", 1024, 256, dict(nbuf=1)),
+    ("dma", 1024, 256, dict(nbuf=8)),
+    ("dma", 96, 40, dict(nbuf=3)),                # slabs of 2-3 chunks' tail
+    ("dma", 8192, 1024, dict(nbuf=4)),            # many 16 KB chunks a CTA
+], ids=lambda p: str(p))
+def test_stream_copy_kernel_is_exact(device, mode, rows, cols, kw, dtype):
+    x = _random_bits((rows, cols), dtype, device, rows + cols)
+    before = K.LAUNCHES["stream_copy"]
+    got = ST.stream_copy(x, mode=mode, **kw)
+    want = ST.stream_copy_plain(x, mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["stream_copy"] == before + 1
+    assert torch.equal(got, want) and torch.equal(got, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,tt", [((3, 8, 5, 7), 2),      # scalar path
+                                      ((3, 8, 5, 128), 1),
+                                      ((4, 6, 51, 1000), 3)])
+def test_blocked_copy_kernels_are_exact(device, shape, tt, dtype):
+    x = _random_bits(shape, dtype, device, shape[3])
+    got = ST.stream_copy_blocked(x, tt=tt)
+    xt = x.transpose(0, 1).contiguous()
+    got_t = ST.stream_copy_blocked_tbsv(xt, tt=tt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ST.stream_copy_blocked_plain(x, tt=tt))
+    assert torch.equal(got, x)
+    assert torch.equal(got_t, ST.stream_copy_blocked_tbsv_plain(xt, tt=tt))
+    assert torch.equal(got_t, xt)
+
+
+def test_dma_mode_refuses_what_tma_cannot_move(device):
+    x = torch.zeros((6, 5), device=device)       # slabs of 60 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        ST.stream_copy(x, mode="dma", nbuf=2)
+
+
+# --- the packed layout, the binding and alignment on the card ---------------------
+
+def test_packed_binding_equals_the_padded_loss(device):
+    logits, labels, ilen, slen = golden.repeat_label_case(9, 4, 30, 8, 300)
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
+                                                    device=device)
+    w = torch.tensor([1.0, -0.5, 2.0, 0.25], device=device)
+    x = lg.clone().requires_grad_(True)
+    ref = mt.monotonic_rnnt_loss(x, lb, il, sl)
+    (ref * w).sum().backward()
+    acts = mt.pack_acts(lg, il, sl).requires_grad_(True)
+    K.reset_launch_counts()
+    costs = binding.monotonic_rnnt_loss(acts, lb, il, sl)
+    (costs * w).sum().backward()
+    torch.cuda.synchronize()
+    assert _launched() == {"stats_alpha_fused": 1, "beta_grad_fused": 1}
+    assert torch.equal(costs, ref.detach())
+    assert torch.equal(acts.grad, mt.pack_acts(x.grad, il, sl))
+
+
+def test_viterbi_and_occupancy_kernels_match_the_oracles(device):
+    rng = np.random.RandomState(4)
+    b, t, s, v = 2, 60, 12, 50
+    logits = (rng.randn(b, t, s + 1, v) * 2).astype(np.float32)
+    labels = rng.randint(1, v, (b, s)).astype(np.int32)
+    ilen, slen = np.array([60, 41], np.int32), np.array([12, 9], np.int32)
+    cpu = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
+                                         device="cpu")
+    gpu = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
+                                         device=device)
+    K.reset_launch_counts()
+    got = mt.viterbi_alignment(*gpu)
+    occ = mt.occupancy_posteriors(*gpu)
+    torch.cuda.synchronize()
+    assert _launched() == {"softmax_stats": 2, "fwdbwd_scan": 1}
+    want = mt.viterbi_alignment(*cpu)
+    assert torch.equal(got.alignment.cpu(), want.alignment)
+    _close(got.score, want.score, 1e-4, 1e-5)
+    # Two f32 routes: the alphas (~1e2) round otherwise, and their ulp
+    # enters the exponent of every occupancy (1.2e-5 seen on the card).
+    _close(occ, mt.occupancy_posteriors(*cpu), 1e-4, 0)
