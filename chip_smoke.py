@@ -16,11 +16,16 @@ then a ping-pong chain of 24 copies per configuration, 5 interleaved
 trials, median, printed as GB/s = 2*bytes/t beside ``Tensor.copy_`` and the
 3.35 TB/s spec. A dtype's copy ceiling is the best of the flat modes.
 Then it holds each loss kernel wrapper against its plain PyTorch version,
-drives the padded loss's main path (forward, cost-only and backward at the
+rows 1-2 (the persistent ``stats_alpha_fused`` and ``beta_grad_fused``)
+also at EDGE_CASES, one launch a call, probing there exact -inf from
+LSE(-inf, -inf), +inf cost with a zero gradient on an infeasible lattice, an
+exact zero gradient on +-inf padding, and bf16 summed in f32 and written in
+bf16; then it drives the padded loss's main path (forward, cost-only and backward at the
 benchmark lattice B=32, T=200, S=50, V=1000, in float32 and bfloat16)
 against the plain-torch oracle, checks the golden values of the
 reference's worked example, takes five SGD steps, and times the kernels
-with CUDA events; the end-to-end line carries bench.py's roofline fraction
+with CUDA events (rows 1-2: the wrapper, the kernel alone on zeroed
+scratch, and their difference, the host prelude); the end-to-end line carries bench.py's roofline fraction
 of the padded step (3 passes over the logits at the measured ceiling over
 the fwd+bwd time, and at the blocked ceiling and the spec).
 
@@ -260,6 +265,24 @@ def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(launch, scratch, reps: int = TIMING_REPS,
+              warmup: int = 3) -> float:
+    """Median CUDA-event time of launch() alone: its scratch is zeroed
+    before each start event, outside the timed window."""
+    times = []
+    for i in range(warmup + reps):
+        scratch.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def bound_ms(n_bytes: float, n_flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / F32_FLOPS_PER_S * 1e3
@@ -387,13 +410,17 @@ def kernel_operands(mt, logits, labels, ilen, slen, blank, bands=None):
     return sa_args, bg_args, scale
 
 
-def compare_kernels(mt, sa_args, bg_args, scale, what):
-    """Each wrapper against its plain version on the same inputs."""
+def compare_kernels(mt, sa_args, bg_args, scale, what, valid=None):
+    """Each wrapper against its plain version on the same inputs; the stats
+    only on the `valid` cells where given (a row of +-inf logits has NaN
+    stats in the kernel and -inf in torch.logsumexp; no valid cell reads
+    them)."""
     K = mt.K
     bf16 = sa_args[0].dtype == torch.bfloat16
     got = K.stats_alpha_fused(*sa_args)
     ref = K.stats_alpha_fused_plain(*sa_args)
-    errs_sa = [assert_close(g, r, 1e-5, 1e-6, f"{what} stats {n}")
+    pick = (lambda x: x) if valid is None else (lambda x: x[valid])
+    errs_sa = [assert_close(pick(g), pick(r), 1e-5, 1e-6, f"{what} stats {n}")
                for n, g, r in zip(("denom", "lp_blank", "lp_label"), got, ref)]
     errs_sa.append(assert_close(got[3], ref[3], 1e-4, 1e-5, f"{what} alphas"))
     g_k, b_k = K.beta_grad_fused(*bg_args, grad_scale=scale)
@@ -420,6 +447,116 @@ def phase_build(mt):
         f"{time.perf_counter() - t0:.2f} s")
 
 
+# Edge cases of the persistent kernels of rows 1-2: (kind, B, T, S, V,
+# blank, T_b, S_b). 16-byte rows at V = 1000 and 1024; the scalar path at
+# V = 79 and 1030 and on a logits view one element off a 16-byte boundary;
+# one-warp beta chains at S1 <= 32, strided chains at S1 = 41 and 1101; B =
+# 2048 past the resident grid (T_b 2..4, S_b 0..2); T_b = 1 and S_b = 0; an
+# infeasible sample (its band never reaches S_b); +-inf padding logits.
+EDGE_CASES = (
+    ("vec-v1000", 2, 50, 40, 1000, 3, (50, 44), (40, 31)),
+    ("vec-v1024", 4, 9, 6, 1024, 0, (9, 9, 7, 6), (6, 4, 6, 0)),
+    ("scalar-v79", 3, 17, 6, 79, 5, (17, 1, 12), (6, 0, 3)),
+    ("scalar-v1030", 2, 6, 5, 1030, 2, (6, 5), (5, 2)),
+    ("misaligned", 2, 8, 10, 1000, 0, (8, 8), (7, 2)),
+    ("s1-1101", 1, 1200, 1100, 16, 3, (1200,), (1100,)),
+    ("b2048", 2048, 4, 2, 16, 0, None, None),
+    ("infeasible", 3, 12, 4, 20, 0, (12, 12, 9), (4, 3, 3)),
+    ("inf-padding", 3, 12, 4, 1000, 0, (12, 7, 5), (4, 2, 1)),
+)
+
+
+def edge_operands(mt, case, dtype):
+    """(sa_args, bg_args, scale, padding mask [B, T, S1], T_b, S_b) of an
+    edge case."""
+    kind, b, t, s, v, blank, ilen, slen = case
+    if ilen is None:
+        ilen = 2 + np.arange(b) % 3
+        slen = np.minimum(np.arange(b) % 3, ilen)
+    lg, lab, il, sl = make_inputs(mt, b, t, s, v, blank=blank, dtype=dtype,
+                                  seed=1, device=DEVICE)
+    il = torch.as_tensor(np.asarray(ilen), dtype=torch.int32, device=DEVICE)
+    sl = torch.as_tensor(np.asarray(slen), dtype=torch.int32, device=DEVICE)
+    t_idx = torch.arange(t, device=DEVICE)[None, :, None]
+    s_idx = torch.arange(s + 1, device=DEVICE)[None, None, :]
+    pad = (t_idx >= il[:, None, None]) | (s_idx > sl[:, None, None])
+    if kind == "misaligned":
+        flat = torch.empty(lg.numel() + 1, dtype=dtype, device=DEVICE)
+        flat[1:] = lg.reshape(-1)
+        lg = flat[1:].view(lg.shape)
+        check(lg.is_contiguous() and lg.data_ptr() % 16 != 0,
+              "misaligned logits view")
+    if kind == "inf-padding":
+        lg[..., ::2][pad] = float("inf")
+        lg[..., 1::2][pad] = float("-inf")
+    bands = mt.bands.default_bands(il, sl, t)
+    if kind == "infeasible":
+        bands.max_s[2] = sl[2] - 1
+    sa, bg, scale = kernel_operands(mt, lg, lab, il, sl, blank, bands)
+    return sa, bg, scale, pad, il, sl
+
+
+def probe_edge(mt, case, dtype):
+    """Rows 1-2 against their plain versions on one edge case, one launch
+    each, then the contracts the case probes; returns the max errors."""
+    K = mt.K
+    kind = case[0]
+    sa, bg, scale, pad, ilen, slen = edge_operands(mt, case, dtype)
+    valid = ~pad if kind == "inf-padding" else None
+    before = dict(K.LAUNCHES)
+    errs = compare_kernels(mt, sa, bg, scale, f"edge {kind} {dtype}",
+                           valid=valid)
+    check(K.LAUNCHES["stats_alpha_fused"] == before["stats_alpha_fused"] + 1
+          and K.LAUNCHES["beta_grad_fused"] == before["beta_grad_fused"] + 1,
+          f"edge {kind}: one launch a wrapper call")
+    # Exact -inf from LSE(-inf, -inf): unreachable cells are -inf, not NaN.
+    alphas = K.stats_alpha_fused(*sa)[3]
+    grads, betas = K.beta_grad_fused(*bg, grad_scale=scale)
+    torch.cuda.synchronize()
+    for name, x in (("alphas", alphas), ("betas", betas)):
+        check(not bool(torch.isnan(x).any()), f"edge {kind}: NaN in {name}")
+        check(bool((x[pad] == float("-inf")).all()),
+              f"edge {kind}: {name} not exactly -inf on padding cells")
+    check(bool(torch.isfinite(grads.float()).all()),
+          f"edge {kind}: grads finite")
+    check(bool((grads[pad] == 0).all()),
+          f"edge {kind}: gradient exactly zero on padding cells")
+    if kind == "infeasible":
+        ll = mt.fused._gather_ll(alphas, ilen, slen)
+        check(bool(torch.isinf(ll[2])) and float(ll[2]) < 0
+              and bool((grads[2] == 0).all()),
+              f"edge {kind}: cost +inf and a zero gradient ({ll})")
+    return errs
+
+
+def probe_bf16_accumulation(mt):
+    """bf16 logits are summed in f32 and the gradient is written in bf16:
+    the bf16 kernels agree with the f32 kernels on the same (rounded)
+    values at the f32 tolerances for the stats and the DP, and within one
+    bf16 ulp (their f32 result rounded) for the gradient."""
+    K = mt.K
+    lg, lab, il, sl = make_inputs(mt, 4, 40, 12, 1000, dtype=torch.bfloat16,
+                                  seed=2, t_range=(30, 40), s_range=(6, 12),
+                                  device=DEVICE)
+    sa16, bg16, scale = kernel_operands(mt, lg, lab, il, sl, 0)
+    sa32 = (lg.float(),) + sa16[1:]
+    bg32 = (lg.float(),) + bg16[1:]
+    got16, got32 = K.stats_alpha_fused(*sa16), K.stats_alpha_fused(*sa32)
+    errs = [assert_close(a, b, 1e-5, 1e-6, f"bf16 vs f32 stats {n}")
+            for n, a, b in zip(("denom", "lp_blank", "lp_label"), got16[:3],
+                               got32[:3])]
+    errs.append(assert_close(got16[3], got32[3], 1e-4, 1e-5,
+                             "bf16 vs f32 alphas"))
+    g16, _ = K.beta_grad_fused(*bg16, grad_scale=scale)
+    g32, _ = K.beta_grad_fused(*bg32, grad_scale=scale)
+    check(g16.dtype == torch.bfloat16, f"bf16 grads dtype {g16.dtype}")
+    errs.append(assert_close(g16, g32.to(torch.bfloat16), 1e-6, 8e-3,
+                             "bf16 grads vs f32 grads rounded"))
+    torch.cuda.synchronize()
+    log(f"bf16 accumulates in f32, writes bf16: max|d| "
+        f"{[f'{e:.3g}' for e in errs]}")
+
+
 def phase_kernels(mt, main_inputs):
     """Kernel wrappers vs plain versions; returns the benchmark-shape errors."""
     for (b, t, s, v, blank) in ((3, 17, 6, 79, 5), (2, 391, 300, 79, 0),
@@ -430,6 +567,10 @@ def phase_kernels(mt, main_inputs):
                                           s_range=(0, s))
             compare_kernels(mt, *kernel_operands(mt, lg, lab, il, sl, blank),
                             f"({b},{t},{s},{v}) blank={blank} {dtype}")
+    for case in EDGE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            probe_edge(mt, case, dtype)
+    probe_bf16_accumulation(mt)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         lg, lab, il, sl = main_inputs
@@ -621,33 +762,40 @@ def phase_timing(mt, main_inputs, weights, errs, main_launches):
         sa_args, bg_args, _ = kernel_operands(mt, lg, labels, ilen, slen, 0)
         scale = weights
         lab = sa_args[1]
-        out = [torch.empty((n_b, n_t, n_s1), device="cuda") for _ in range(8)]
-        denom, lpb, lpl, alphas, betas, occ, cb, cl = out
+        out4 = torch.empty((4, n_b, n_t, n_s1), device="cuda")
+        betas = torch.empty((n_b, n_t, n_s1), device="cuda")
+        coef = torch.empty((3, n_b, n_t, n_s1), device="cuda")
+        sync_sa = torch.zeros(n_b * n_t + 2, dtype=torch.int32, device="cuda")
+        sync_bg = torch.zeros(n_b + 2, dtype=torch.int32, device="cuda")
         grads = torch.empty_like(lg)
-        _, lpbb, lplb, aprev, il32, llb, bvirt, _, _ = bg_args[1:]
+        _, denom, lpbb, lplb, aprev, il32, llb, bvirt, _, _ = bg_args
 
-        t_stats = cuda_ms(lambda: K.launch_stats(lg, lab, 0, denom, lpb, lpl))
-        t_alpha = cuda_ms(lambda: K.launch_alpha(lpb, lpl, sa_args[2],
-                                                 sa_args[3], alphas))
-        t_beta = cuda_ms(lambda: K.launch_beta(lpbb, lplb, aprev, il32, llb,
-                                               scale, bvirt, betas, occ, cb,
-                                               cl))
-        # The grad kernel reads only rows whose coefficients are not all 0.
+        # The kernels alone, each on its zeroed scratch (zeroed outside the
+        # timed window); the wrappers' times less these are host time.
+        t_sa = kernel_ms(lambda: K.launch_stats_alpha(
+            lg, lab, sa_args[2], sa_args[3], 0, out4, sync_sa), sync_sa)
+        t_bg = kernel_ms(lambda: K.launch_beta_grad(
+            lg, denom, lpbb, lplb, aprev, il32, llb, scale, bvirt, lab, 0,
+            grads, betas, coef, sync_bg), sync_bg)
+        t_zero_sa = cuda_ms(lambda: torch.zeros(n_b * n_t + 2,
+                                                dtype=torch.int32,
+                                                device="cuda"))
+        t_zero_bg = cuda_ms(lambda: torch.zeros(n_b + 2, dtype=torch.int32,
+                                                device="cuda"))
+        # The gradient tiles read only rows whose coefficients are not all 0.
+        occ, cb, cl = coef
         live = int(((occ != 0) | (cb != 0) | (cl != 0)).sum())
         read_live = live * lg.shape[3] * isz
-        t_grad = cuda_ms(lambda: K.launch_grad(lg, denom, occ, cb, cl, lab, 0,
-                                               grads))
         sa = {
             "ms": cuda_ms(lambda: K.stats_alpha_fused(*sa_args)),
             "plain_ms": cuda_ms(lambda: K.stats_alpha_fused_plain(*sa_args)),
             "library_ms": cuda_ms(lambda: torch.logsumexp(lg, dim=-1)),
             "bound": bound_ms(big + n_b * n_s1 * 4 + 2 * n_b * n_t * 4
                               + 4 * small, 4 * lg.numel()),
+            "kernel_ms": t_sa,
             "parts": [
-                {"name": "mrnnt_stats_kernel", "ms": t_stats, "bound_ms":
-                 bound_ms(big + n_b * n_s1 * 4 + 3 * small, 4 * lg.numel())[0]},
-                {"name": "mrnnt_alpha_kernel", "ms": t_alpha, "bound_ms":
-                 bound_ms(3 * small + 2 * n_b * n_t * 4, 8 * n_cells)[0]},
+                {"name": "mrnnt_stats_alpha_kernel", "ms": t_sa},
+                {"name": "scratch zeros (int32 [B*T+2])", "ms": t_zero_sa},
             ],
         }
         bg = {
@@ -659,14 +807,15 @@ def phase_timing(mt, main_inputs, weights, errs, main_launches):
             "bound": bound_ms(read_live + big + 5 * small + 2 * n_b * n_s1 * 4
                               + 3 * n_b * 4, 6 * live * lg.shape[3]),
             "live_rows": live, "rows": n_cells,
+            "kernel_ms": t_bg,
             "parts": [
-                {"name": "mrnnt_beta_kernel", "ms": t_beta, "bound_ms":
-                 bound_ms(7 * small + n_b * n_s1 * 4, 12 * n_cells)[0]},
-                {"name": "mrnnt_grad_kernel", "ms": t_grad, "bound_ms":
-                 bound_ms(read_live + big + 4 * small,
-                          6 * live * lg.shape[3])[0]},
+                {"name": "mrnnt_beta_grad_kernel", "ms": t_bg},
+                {"name": "scratch zeros (int32 [B+2])", "ms": t_zero_bg},
             ],
         }
+        for row in (sa, bg):
+            row["host_ms"] = row["ms"] - row["kernel_ms"]
+            row["parts"][0]["bound_ms"] = row["bound"][0]
         lg_leaf = lg.detach().clone().requires_grad_(True)
 
         def fwd_bwd():
@@ -684,13 +833,15 @@ def phase_timing(mt, main_inputs, weights, errs, main_launches):
             f"{sa['bound'][0]:.4f}, plain {sa['plain_ms']:.4f}, logsumexp "
             f"{sa['library_ms']:.4f}); beta_grad_fused {bg['ms']:.4f} ms (bound "
             f"{bg['bound'][0]:.4f}, plain {bg['plain_ms']:.4f}, softmax "
-            f"{bg['library_ms']:.4f}); parts "
-            + ", ".join(f"{p['name']} {p['ms']:.4f} ms (bound "
-                        f"{p['bound_ms']:.4f})"
+            f"{bg['library_ms']:.4f}); kernels alone: stats_alpha "
+            f"{sa['kernel_ms']:.4f} ms, beta_grad {bg['kernel_ms']:.4f} ms; "
+            f"wrapper minus kernel (host): stats_alpha {sa['host_ms']:.4f} "
+            f"ms, beta_grad {bg['host_ms']:.4f} ms; parts "
+            + ", ".join(f"{p['name']} {p['ms']:.4f} ms"
                         for p in sa["parts"] + bg["parts"])
             + f"; live rows {live}/{n_cells}; loss fwd+bwd "
             f"{e2e['fwd_bwd_ms']:.4f} ms, cost-only {e2e['cost_only_ms']:.4f} ms")
-        del grads, out, sa_args, bg_args, lg_leaf
+        del grads, out4, betas, coef, sa_args, bg_args, lg_leaf
         torch.cuda.empty_cache()
 
     kernels = []
@@ -707,10 +858,14 @@ def phase_timing(mt, main_inputs, weights, errs, main_launches):
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
             "library_ms": f32["library_ms"],
-            "status": "ported", "dtype": "float32", "parts": f32["parts"],
+            "status": "redesigned", "dtype": "float32",
+            "kernel_ms": f32["kernel_ms"], "host_ms": f32["host_ms"],
+            "parts": f32["parts"],
             "bf16": {"max_abs_err": errs[torch.bfloat16][i], "ms": b16["ms"],
                      "plain_ms": b16["plain_ms"], "bound_ms": b16["bound"][0],
-                     "library_ms": b16["library_ms"], "parts": b16["parts"]},
+                     "library_ms": b16["library_ms"],
+                     "kernel_ms": b16["kernel_ms"], "host_ms": b16["host_ms"],
+                     "parts": b16["parts"]},
         }
         if "live_rows" in f32:
             entry["live_rows"] = f32["live_rows"]
@@ -2541,6 +2696,8 @@ def add_ceiling(entries, rates):
         e["ceiling_bound_ms"] = (e["bound_ms"] * HBM_BYTES_PER_S / ceiling
                                  if by_bytes else e["bound_ms"])
         e["share_of_ceiling"] = e["ceiling_bound_ms"] / e["ms"]
+        if e.get("kernel_ms"):   # the kernel alone, without the host prelude
+            e["kernel_share_of_ceiling"] = e["ceiling_bound_ms"] / e["kernel_ms"]
 
     for e in entries:
         one(e, "float32")

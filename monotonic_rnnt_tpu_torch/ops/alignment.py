@@ -14,10 +14,11 @@ loops in the JAX package, not Pallas kernels; here they are torch loops
 over t on the tensor's device, a few small ops a step.
 
 The V-dependent statistics and the forward-backward of the occupancies come
-from the CUDA kernels on CUDA tensors: ``softmax_stats`` then
+from the CUDA kernels on CUDA tensors (unless the config backend is
+'reference'): ``softmax_stats`` then
 ``fwdbwd_scan`` on the full lattice, ``softmax_stats_banded`` (whose
 mask-folded streams are exactly the banded recursion's operands) then
-``fwdbwd_scan_banded`` on the band. On CPU tensors they come from the
+``fwdbwd_scan_banded`` on the band. Otherwise they come from the
 plain-torch oracles (ops/reference.py, ops/banded.py), as in the JAX
 package. The alignments feed ``bands_from_alignment`` and the
 alignment-restricted losses.
@@ -36,6 +37,7 @@ from .bands import (Bands, band_final_slot, band_lattice_masks,
                     lattice_masks)
 from .cuda.banded import banded_deferred_fwd
 from .cuda.banded_kernels import softmax_stats_banded
+from .cuda.kernels import use_kernels
 from .cuda.split_kernels import fwdbwd_scan, softmax_stats
 from .helpers import (NEG_INF, extend_labels, mask_to_additive, shift_left_s,
                       shift_right_s)
@@ -55,8 +57,9 @@ class ViterbiResult(NamedTuple):
 
 
 def _use_kernels(x: torch.Tensor) -> bool:
-    """CUDA tensors take the CUDA kernels, CPU tensors the oracles."""
-    return x.is_cuda
+    """The CUDA kernels where use_kernels(x) (a CUDA tensor, a backend
+    other than 'reference'), else the oracles."""
+    return use_kernels(x)
 
 
 def _lengths(logits, labels, input_lengths, label_lengths):

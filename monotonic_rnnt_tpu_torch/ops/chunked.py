@@ -55,8 +55,10 @@ from torch.autograd.function import once_differentiable
 from ..utils.status import RnntError, Status, _is_integer
 from .bands import Bands, default_bands, lattice_masks
 from .collective import sharded_lattice_stats
-from .cuda.kernels import grad_pass
-from .cuda.split_kernels import alpha_scan, beta_scan, softmax_stats
+from .cuda.kernels import grad_pass, grad_pass_plain, kernel_or_plain
+from .cuda.split_kernels import (alpha_scan, alpha_scan_plain, beta_scan,
+                                 beta_scan_plain, softmax_stats,
+                                 softmax_stats_plain)
 from .helpers import NEG_INF, extend_labels, mask_to_additive, shift_left_s
 from .reference import LatticeStats, _gather_ll
 
@@ -66,7 +68,9 @@ def _chunk_stats(logits_c, labels_ext, blank_id: int, group=None):
     invalid slots; with a group, the collective stats of this V slice."""
     if group is not None:
         return sharded_lattice_stats(logits_c, labels_ext, blank_id, group)
-    denom, lp_blank, lpl_raw = softmax_stats(logits_c, labels_ext, blank_id)
+    denom, lp_blank, lpl_raw = kernel_or_plain(
+        softmax_stats, softmax_stats_plain, logits_c)(logits_c, labels_ext,
+                                                      blank_id)
     lp_label = torch.where((labels_ext >= 0)[:, None, :], lpl_raw, NEG_INF)
     return LatticeStats(denom=denom, lp_blank=lp_blank,
                         lp_label=lp_label), 0
@@ -106,8 +110,8 @@ def chunk_betas(row, stats: LatticeStats, beta_maskadd, beta_virt, ilen,
     tc = stats.lp_blank.shape[1]
     t1 = t0 + tc
     local_len, virt = carry_operands(row, beta_virt, ilen, t0, t1)
-    betas = beta_scan(stats.lp_blank, stats.lp_label, beta_maskadd,
-                      local_len, virt)
+    betas = kernel_or_plain(beta_scan, beta_scan_plain, row)(
+        stats.lp_blank, stats.lp_label, beta_maskadd, local_len, virt)
     t_idx = torch.arange(t0 + 1, t1 + 1, device=row.device)
     bnext = torch.where(t_idx[None, :, None] >= ilen[:, None, None],
                         beta_virt[:, None],
@@ -193,7 +197,8 @@ class _FusedJointCore(torch.autograd.Function):
             lp_blank[:, t0:t1] = stats.lp_blank
             lp_label[:, t0:t1] = stats.lp_label
             del stats
-        alphas = alpha_scan(lp_blank, lp_label, mask_to_additive(masks.alpha))
+        alphas = kernel_or_plain(alpha_scan, alpha_scan_plain, enc)(
+            lp_blank, lp_label, mask_to_additive(masks.alpha))
         del lp_blank, lp_label
         ll = _gather_ll(alphas, ilen, slen)
         ctx.joint_fn, ctx.blank_id, ctx.chunk_t, ctx.group, ctx.keys = (
@@ -240,9 +245,9 @@ class _FusedJointCore(torch.autograd.Function):
                      & ll_ok[:, None, None])
             occ, cb, cl = coefficients(aprev[:, t0:t1], betas, bnext, valid,
                                        llb, weight)
-            dlogits = grad_pass(x, stats.denom, occ, cb, cl,
-                                labels_ext - v_off, ctx.blank_id - v_off,
-                                out_dtype=x.dtype)
+            dlogits = kernel_or_plain(grad_pass, grad_pass_plain, x)(
+                x, stats.denom, occ, cb, cl, labels_ext - v_off,
+                ctx.blank_id - v_off, out_dtype=x.dtype)
             targets = [acc[0][:, t0:t1] if needs[0] else None, *acc[1:]]
             push_through_joint(logits_c, leaves, dlogits, targets)
             del logits_c, x, dlogits

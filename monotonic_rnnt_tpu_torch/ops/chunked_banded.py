@@ -42,10 +42,12 @@ from .bands import (Bands, band_final_slot, band_lattice_masks,
 from .chunked import (_chunks, carry_operands, coefficients,
                       gradient_targets, graph_leaves, push_through_joint,
                       validate_fused_inputs)
-from .cuda.banded_kernels import alpha_scan_banded, fwdbwd_scan_banded
+from .cuda.banded_kernels import (alpha_scan_banded, alpha_scan_banded_plain,
+                                  fwdbwd_scan_banded,
+                                  fwdbwd_scan_banded_plain)
 from .collective import sharded_band_stats
-from .cuda.kernels import grad_pass
-from .cuda.split_kernels import softmax_stats
+from .cuda.kernels import grad_pass, grad_pass_plain, kernel_or_plain
+from .cuda.split_kernels import softmax_stats, softmax_stats_plain
 from .helpers import NEG_INF, mask_to_additive, shift_left_s, shift_right_s
 
 
@@ -55,7 +57,9 @@ def _band_chunk_stats(logits_c, lab_k, blank_id: int, group=None):
     slice."""
     if group is not None:
         return sharded_band_stats(logits_c, lab_k, blank_id, group)
-    denom, lp_blank, lpl_raw = softmax_stats(logits_c, lab_k, blank_id)
+    denom, lp_blank, lpl_raw = kernel_or_plain(
+        softmax_stats, softmax_stats_plain, logits_c)(logits_c, lab_k,
+                                                      blank_id)
     return BandStats(denom=denom, lp_blank=lp_blank,
                      lp_label=torch.where(lab_k >= 0, lpl_raw, NEG_INF)), 0
 
@@ -93,8 +97,9 @@ def chunk_band_betas(row, stats: BandStats, d_next, bvirt, mask_beta, ilen,
     local_len, virt = carry_operands(row, bvirt, ilen, t0, t1)
     lpb = torch.where(mask_beta, stats.lp_blank, NEG_INF)
     lpl = torch.where(mask_beta, stats.lp_label, NEG_INF)
-    _, betas = fwdbwd_scan_banded(lpb, lpl, d_next, lpb, lpl, d_next,
-                                  local_len, virt)
+    _, betas = kernel_or_plain(fwdbwd_scan_banded, fwdbwd_scan_banded_plain,
+                               row)(lpb, lpl, d_next, lpb, lpl, d_next,
+                                    local_len, virt)
     t_idx = torch.arange(t0 + 1, t1 + 1, device=row.device)
     nxt = torch.where(t_idx[None, :, None] >= ilen[:, None, None], bvirt,
                       torch.cat([betas[:, 1:], row[:, None]], dim=1))
@@ -138,7 +143,8 @@ class _FusedBandedCore(torch.autograd.Function):
             lpb[:, t0:t1], lpl[:, t0:t1] = alpha_streams(
                 stats, L.masks.alpha[:, t0:t1])
             del logits_c, stats
-        alphas = alpha_scan_banded(lpb, lpl, L.layout.d.contiguous())
+        alphas = kernel_or_plain(alpha_scan_banded, alpha_scan_banded_plain,
+                                 lpb)(lpb, lpl, L.layout.d.contiguous())
         del lpb, lpl
         ll = band_final_slot(alphas, L.layout, ilen, slen)
         (ctx.joint_fn, ctx.blank_id, ctx.chunk_t, ctx.width, ctx.group,
@@ -192,8 +198,9 @@ class _FusedBandedCore(torch.autograd.Function):
                      & ll_ok[:, None, None])
             occ, cb, cl = coefficients(aprev[:, t0:t1], betas, bnext, valid,
                                        llb, weight)
-            dlogits = grad_pass(x, stats.denom, occ, cb, cl, lab_k - v_off,
-                                ctx.blank_id - v_off, out_dtype=x.dtype)
+            dlogits = kernel_or_plain(grad_pass, grad_pass_plain, x)(
+                x, stats.denom, occ, cb, cl, lab_k - v_off,
+                ctx.blank_id - v_off, out_dtype=x.dtype)
             targets = [acc[0][:, t0:t1] if needs[0] else None, *acc[1:]]
             push_through_joint(logits_c, leaves, dlogits, targets)
             del logits_c, x, dlogits

@@ -33,7 +33,9 @@ import torch
 import torch.distributed as dist
 
 from .banded import BandStats
-from .cuda.split_kernels import softmax_stats_partial
+from .cuda.kernels import kernel_or_plain
+from .cuda.split_kernels import (softmax_stats_partial,
+                                 softmax_stats_partial_plain)
 from .helpers import NEG_INF, select_label_logits
 from .reference import LatticeStats
 
@@ -41,8 +43,10 @@ from .reference import LatticeStats
 def local_max_sumexp(x_local: torch.Tensor) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
     """Pre-reduction (m, sum-exp) per lattice cell over the local V slice:
-    the kernel on CUDA tensors, its plain version on CPU tensors."""
-    return softmax_stats_partial(x_local.contiguous())
+    the kernel on CUDA tensors (its plain version under the 'reference'
+    backend), the plain version on CPU tensors."""
+    return kernel_or_plain(softmax_stats_partial, softmax_stats_partial_plain,
+                           x_local)(x_local.contiguous())
 
 
 def _shard(x_local: torch.Tensor, group) -> Tuple[int, int]:

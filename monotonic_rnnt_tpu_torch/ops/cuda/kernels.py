@@ -3,9 +3,11 @@
 Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776, 1304-1360``:
 
 * ``stats_alpha_fused`` (TPU kernel at kernels.py:586) launches
-  ``mrnnt_stats_kernel`` then ``mrnnt_alpha_kernel`` (csrc/stats_alpha.cu);
+  ``mrnnt_stats_alpha_kernel`` (csrc/stats_alpha.cu), one persistent launch
+  whose alpha chains trail its stats tiles;
 * ``beta_grad_fused`` (TPU kernel at kernels.py:712) launches
-  ``mrnnt_beta_kernel`` (csrc/beta_grad.cu) then ``mrnnt_grad_kernel``;
+  ``mrnnt_beta_grad_kernel`` (csrc/beta_grad.cu), one persistent launch
+  whose beta chains run ahead of its gradient tiles;
 * ``grad_pass`` (TPU kernel at kernels.py:1322) launches
   ``mrnnt_grad_kernel`` (csrc/grad_pass.cu) alone, for the banded and the
   split routes, the fused-joint losses' chunks and the vocab-sharded
@@ -28,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...utils.config import get_config
 from ..helpers import (NEG_INF, log_sum_exp, select_label_logits, shift_left_s,
                        shift_right_s)
 from . import _build
@@ -45,12 +48,32 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def use_kernels(x: torch.Tensor) -> bool:
+    """Whether a path calls the CUDA kernels on x, or their plain versions.
+
+    True for a CUDA tensor under any config backend but 'reference', which
+    forces the plain versions on the card too: the counterpart of the JAX
+    package's use_pallas_kernels (monotonic_rnnt_tpu/ops/loss.py:46-58).
+    The paths that choose their backend themselves (ops/loss.py,
+    ops/banded.py) do not need it.
+    """
+    return x.is_cuda and get_config().backend != "reference"
+
+
+def kernel_or_plain(kernel, plain, x: torch.Tensor):
+    """`kernel` where use_kernels(x) or x lies on the CPU (a wrapper takes
+    its plain version there by itself), `plain` for a CUDA tensor under the
+    'reference' backend."""
+    return kernel if use_kernels(x) or not x.is_cuda else plain
+
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> (library, argtypes); see csrc/*.cu for the parameters.
 _ENTRIES = {
-    "mrnnt_stats": ("stats_alpha", [_P, _I, _P] + [_I] * 5 + [_P] * 4),
-    "mrnnt_alpha": ("stats_alpha", [_P] * 4 + [_I] * 3 + [_P] * 2),
-    "mrnnt_beta": ("beta_grad", [_P] * 7 + [_I] * 3 + [_P] * 5),
+    "mrnnt_stats_alpha": ("stats_alpha", [_P, _I] + [_P] * 3 + [_I] * 5
+                          + [_P] * 6),
+    "mrnnt_beta_grad": ("beta_grad", [_P, _I] + [_P] * 9 + [_I] * 5
+                        + [_P] * 5),
     "mrnnt_grad": ("grad_pass", [_P, _I] + [_P] * 5 + [_I] * 6 + [_P, _I,
                                                                  _P]),
     "mrnnt_stats_banded": ("banded", [_P, _I] + [_P] * 5 + [_I] * 5
@@ -69,15 +92,29 @@ _ENTRIES = {
 }
 
 
+_BOUND = {}   # entry -> (function with argtypes set, its library)
+
+
+def _bound(entry: str):
+    """The C entry point, its argtypes and restype set once, at first use."""
+    hit = _BOUND.get(entry)
+    if hit is None:
+        lib_name, argtypes = _ENTRIES[entry]
+        lib = _build.load(lib_name)
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        hit = _BOUND[entry] = (fn, lib)
+    return hit
+
+
 def _call(entry: str, device: torch.device, *args) -> None:
-    lib_name, argtypes = _ENTRIES[entry]
-    lib = _build.load(lib_name)
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    fn, lib = _bound(entry)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.mrnnt_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
@@ -130,33 +167,33 @@ def _small(shape, device) -> torch.Tensor:
 
 # --- single-kernel launchers (no checks: the wrappers check) -----------------
 
-def launch_stats(logits, labels_ext, blank_id, denom, lp_blank, lp_label):
-    """(a) mrnnt_stats_kernel: denom, lp_blank, lp_label from one read."""
+def launch_stats_alpha(logits, labels_ext, a_lo, a_hi, blank_id, out, sync):
+    """mrnnt_stats_alpha_kernel: out [4, B, T, S1] f32 gets denom, lp_blank,
+    lp_label and alphas; sync: B*T + 2 int32 zeros (ready flags, tickets)."""
     batch, t_max, s1, v = logits.shape
-    _call("mrnnt_stats", logits.device, _ptr(logits),
-          int(logits.dtype == torch.bfloat16), _ptr(labels_ext), batch, t_max,
-          s1, v, blank_id, _ptr(denom), _ptr(lp_blank), _ptr(lp_label))
+    _call("mrnnt_stats_alpha", logits.device, _ptr(logits),
+          int(logits.dtype == torch.bfloat16), _ptr(labels_ext), _ptr(a_lo),
+          _ptr(a_hi), batch, t_max, s1, v, blank_id, _ptr(out[0]),
+          _ptr(out[1]), _ptr(out[2]), _ptr(out[3]), _ptr(sync))
 
 
-def launch_alpha(lp_blank, lp_label, a_lo, a_hi, alphas):
-    """(b) mrnnt_alpha_kernel: the windowed alpha recurrence."""
-    batch, t_max, s1 = lp_blank.shape
-    _call("mrnnt_alpha", lp_blank.device, _ptr(lp_blank), _ptr(lp_label),
-          _ptr(a_lo), _ptr(a_hi), batch, t_max, s1, _ptr(alphas))
-
-
-def launch_beta(lpb_bmask, lpl_bmask, aprev_masked, input_lengths, ll_bounded,
-                grad_scale, beta_virtual, betas, occ, cb, cl):
-    """(c) mrnnt_beta_kernel: betas and the occupancy coefficients."""
-    batch, t_max, s1 = lpb_bmask.shape
-    _call("mrnnt_beta", lpb_bmask.device, _ptr(lpb_bmask), _ptr(lpl_bmask),
-          _ptr(aprev_masked), _ptr(input_lengths), _ptr(ll_bounded),
-          _ptr(grad_scale), _ptr(beta_virtual), batch, t_max, s1, _ptr(betas),
-          _ptr(occ), _ptr(cb), _ptr(cl))
+def launch_beta_grad(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
+                     input_lengths, ll_bounded, grad_scale, beta_virtual,
+                     labels_ext, blank_id, grads, betas, coef, sync):
+    """mrnnt_beta_grad_kernel: grads and betas; coef [3, B, T, S1] f32
+    scratch; sync: B + 2 int32 zeros (progress words, tickets);
+    grad_scale None = 1."""
+    batch, t_max, s1, v = logits.shape
+    _call("mrnnt_beta_grad", logits.device, _ptr(logits),
+          int(logits.dtype == torch.bfloat16), _ptr(denom), _ptr(lpb_bmask),
+          _ptr(lpl_bmask), _ptr(aprev_masked), _ptr(input_lengths),
+          _ptr(ll_bounded), _ptr(grad_scale), _ptr(beta_virtual),
+          _ptr(labels_ext), batch, t_max, s1, v, blank_id, _ptr(grads),
+          _ptr(betas), _ptr(coef), _ptr(sync))
 
 
 def launch_grad(logits, denom, occ, cb, cl, labels_ext, blank_id, grads):
-    """(d) mrnnt_grad_kernel: the gradient from the coefficients.
+    """mrnnt_grad_kernel: the gradient from the coefficients.
 
     labels_ext is [B, S1] or [B, T, S1]; grads f32 or bf16.
     """
@@ -208,19 +245,19 @@ def stats_alpha_fused(logits, labels_ext, a_lo, a_hi, blank_id: int):
     _check(labels_ext, "labels_ext", torch.int32, (batch, s1), dev)
     _check(a_lo, "a_lo", torch.int32, (batch, t_max), dev)
     _check(a_hi, "a_hi", torch.int32, (batch, t_max), dev)
-    denom, lp_blank, lp_label, alphas = (_small((batch, t_max, s1), dev)
-                                         for _ in range(4))
-    launch_stats(logits, labels_ext, blank_id, denom, lp_blank, lp_label)
-    launch_alpha(lp_blank, lp_label, a_lo, a_hi, alphas)
+    out = _small((4, batch, t_max, s1), dev)
+    sync = torch.zeros(batch * t_max + 2, dtype=torch.int32, device=dev)
+    launch_stats_alpha(logits, labels_ext, a_lo, a_hi, blank_id, out, sync)
     LAUNCHES["stats_alpha_fused"] += 1
-    return denom, lp_blank, lp_label, alphas
+    return tuple(out.unbind(0))
 
 
 # --- beta + grad ---------------------------------------------------------------
 
 def beta_coefficients_plain(lpb_bmask, lpl_bmask, aprev_masked, input_lengths,
                             ll_bounded, beta_virtual, grad_scale):
-    """Plain version of (c): (betas, occ, cb, cl), each [B, T, S1] f32."""
+    """The beta chain's plain version: (betas, occ, cb, cl), each [B, T, S1]
+    f32."""
     batch, t_max, s1 = lpb_bmask.shape
     ilen = input_lengths
     sc = grad_scale[:, None]
@@ -325,19 +362,21 @@ def beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
                                      grad_scale)
     batch, t_max, s1, _ = _check_logits(logits, blank_id)
     dev = logits.device
-    scale = _ones_scale(grad_scale, batch, dev)
     for name, t in (("denom", denom), ("lpb_bmask", lpb_bmask),
                     ("lpl_bmask", lpl_bmask), ("aprev_masked", aprev_masked)):
         _check(t, name, torch.float32, (batch, t_max, s1), dev)
     _check(input_lengths, "input_lengths", torch.int32, (batch,), dev)
     _check(ll_bounded, "ll_bounded", torch.float32, (batch,), dev)
-    _check(scale, "grad_scale", torch.float32, (batch,), dev)
+    if grad_scale is not None:
+        _check(grad_scale, "grad_scale", torch.float32, (batch,), dev)
     _check(beta_virtual, "beta_virtual", torch.float32, (batch, s1), dev)
     _check(labels_ext, "labels_ext", torch.int32, (batch, s1), dev)
-    betas, occ, cb, cl = (_small((batch, t_max, s1), dev) for _ in range(4))
+    betas = _small((batch, t_max, s1), dev)
+    coef = _small((3, batch, t_max, s1), dev)
+    sync = torch.zeros(batch + 2, dtype=torch.int32, device=dev)
     grads = torch.empty_like(logits)
-    launch_beta(lpb_bmask, lpl_bmask, aprev_masked, input_lengths, ll_bounded,
-                scale, beta_virtual, betas, occ, cb, cl)
-    launch_grad(logits, denom, occ, cb, cl, labels_ext, blank_id, grads)
+    launch_beta_grad(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
+                     input_lengths, ll_bounded, grad_scale, beta_virtual,
+                     labels_ext, blank_id, grads, betas, coef, sync)
     LAUNCHES["beta_grad_fused"] += 1
     return grads, betas

@@ -37,9 +37,13 @@ from ..ops.bands import (BandLayout, Bands, band_final_slot,
 from ..ops.chunked import rnnt_loss_fused_joint
 from ..ops.chunked_banded import alpha_streams, rnnt_loss_fused_joint_banded
 from ..ops.collective import sharded_band_stats, sharded_lattice_stats
-from ..ops.cuda.banded_kernels import alpha_scan_banded, fwdbwd_scan_banded
-from ..ops.cuda.kernels import grad_pass
-from ..ops.cuda.split_kernels import alpha_scan, fwdbwd_scan
+from ..ops.cuda.banded_kernels import (alpha_scan_banded,
+                                       alpha_scan_banded_plain,
+                                       fwdbwd_scan_banded,
+                                       fwdbwd_scan_banded_plain)
+from ..ops.cuda.kernels import grad_pass, grad_pass_plain, kernel_or_plain
+from ..ops.cuda.split_kernels import (alpha_scan, alpha_scan_plain,
+                                      fwdbwd_scan, fwdbwd_scan_plain)
 from ..ops.helpers import NEG_INF, extend_labels, mask_to_additive
 from ..ops.reference import _gather_ll, occupancy_coefficients
 from .data_parallel import batch_total
@@ -52,8 +56,9 @@ def _local_grad(x, denom, coefs, labels, blank_id: int, v_offset: int,
     coefficients (occ, cb, cl), ids relative to the shard."""
     sc = cost_cotangent.to(torch.float32)[:, None, None]
     occ, cb, cl = ((c * sc).contiguous() for c in coefs)
-    return grad_pass(x, denom, occ, cb, cl, (labels - v_offset).contiguous(),
-                     blank_id - v_offset, out_dtype=x.dtype)
+    return kernel_or_plain(grad_pass, grad_pass_plain, x)(
+        x, denom, occ, cb, cl, (labels - v_offset).contiguous(),
+        blank_id - v_offset, out_dtype=x.dtype)
 
 
 class _VocabShardedCore(torch.autograd.Function):
@@ -71,13 +76,13 @@ class _VocabShardedCore(torch.autograd.Function):
             # Deferred gradients (sharding.py:64-92): the forward stops after
             # the V-free recursions, one launch for both chains.
             s_idx = torch.arange(s1, dtype=torch.int32, device=x.device)
-            alphas, betas = fwdbwd_scan(
+            alphas, betas = kernel_or_plain(fwdbwd_scan, fwdbwd_scan_plain, x)(
                 stats.lp_blank, stats.lp_label, amask,
                 mask_to_additive(masks.beta), ilen,
                 mask_to_additive(s_idx[None, :] == slen[:, None]))
         else:
-            alphas, betas = alpha_scan(stats.lp_blank, stats.lp_label,
-                                       amask), None
+            alphas, betas = kernel_or_plain(alpha_scan, alpha_scan_plain, x)(
+                stats.lp_blank, stats.lp_label, amask), None
         ll = _gather_ll(alphas, ilen, slen)
         if betas is not None:
             ctx.blank_id, ctx.v_offset = blank_id, v_offset
@@ -140,11 +145,14 @@ class _BandedVocabShardedCore(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             lpbb, lplb = (torch.where(masks.beta, s, NEG_INF).contiguous()
                           for s in (stats.lp_blank, stats.lp_label))
-            alphas, betas = fwdbwd_scan_banded(
+            alphas, betas = kernel_or_plain(
+                fwdbwd_scan_banded, fwdbwd_scan_banded_plain, x)(
                 lpba, lpla, d, lpbb, lplb, layout.d_next.contiguous(), ilen,
                 band_virtual_next_rows(layout, slen).contiguous())
         else:
-            alphas, betas = alpha_scan_banded(lpba, lpla, d), None
+            alphas, betas = kernel_or_plain(
+                alpha_scan_banded, alpha_scan_banded_plain, x)(lpba, lpla,
+                                                               d), None
         ll = band_final_slot(alphas, layout, ilen, slen)
         if betas is not None:
             ctx.blank_id, ctx.v_offset, ctx.width = blank_id, v_offset, w

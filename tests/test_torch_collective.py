@@ -5,8 +5,9 @@ interpret mode (tests/test_pallas.py's case), its all -inf row convention,
 the gradient assemblies with ``v_offset`` against JAX's, ``grad_pass`` on a
 vocab shard with relative ids, and the collective statistics on a group of
 one process against the unsharded ones. CPU tensors, where the kernel
-wrappers take their plain versions. Tolerances: m exactly, se 1e-5
-relative (another summation order); gradients 1e-6 relative (the same
+wrappers take their plain versions. Tolerances: m exactly; se of both
+packages against a float64 truth, bounded by the f32 rounding of its
+200-term sum (see the test); gradients 1e-6 relative (the same
 arithmetic).
 """
 
@@ -46,7 +47,18 @@ def test_partial_stats_plain_matches_pallas(tiles, bf16):
     m_t, se_t = SK.softmax_stats_partial(xt)       # CPU: the plain version
     assert m_t.dtype == se_t.dtype == torch.float32
     np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
-    np.testing.assert_allclose(se_t.numpy(), np.asarray(se_j), rtol=1e-5)
+    # Both against a float64 truth on the same (rounded) inputs. An f32 sum
+    # of n positive terms rounds by at most (n - 1) half-ulps in all; each
+    # term adds exp's own error (an ulp or two) and the rounding of x - m
+    # in its exponent (|x - m| <= 2^5 here: 2^5 half-ulps). Two ulps a term,
+    # over the n = 200 terms, bounds the lot: 200 * 2 * 2^-23 = 4.8e-5.
+    x64 = xt.double().numpy()
+    m64 = x64.max(axis=-1)
+    se64 = np.exp(x64 - m64[..., None]).sum(axis=-1)
+    assert float((m64 - x64.min(axis=-1)).max()) <= 2 ** 5
+    bound = x.shape[-1] * 2 * 2.0 ** -23
+    for se in (se_t.numpy(), np.asarray(se_j)):
+        np.testing.assert_allclose(se, se64, rtol=bound)
 
 
 def test_partial_stats_all_neg_inf_row():

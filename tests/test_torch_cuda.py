@@ -15,6 +15,7 @@ import torch
 
 import golden
 import monotonic_rnnt_tpu_torch as mt
+import torch.distributed as dist
 from monotonic_rnnt_tpu_torch import convert
 from monotonic_rnnt_tpu_torch.ops import banded as tbanded
 from monotonic_rnnt_tpu_torch.ops import bands as tbands
@@ -24,6 +25,7 @@ from monotonic_rnnt_tpu_torch.ops.cuda import kernels as K
 from monotonic_rnnt_tpu_torch.ops.cuda import split_kernels as SK
 from monotonic_rnnt_tpu_torch.ops.cuda import stream as ST
 from monotonic_rnnt_tpu_torch.interop import torch_binding as binding
+from monotonic_rnnt_tpu_torch.parallel import sharding
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +70,13 @@ def _launched():
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_stats_alpha_kernel_matches_plain(device, shape, dtype):
     sa_args, _ = _inputs(device, *shape, dtype)
+    _hold_stats_alpha(sa_args)
+
+
+def _hold_stats_alpha(sa_args, valid=None):
+    """The kernel against its plain version, one launch; the stats only on
+    the `valid` cells where given (a row of +-inf logits has NaN stats in
+    the kernel and -inf in torch.logsumexp; no valid cell reads them)."""
     before = K.LAUNCHES["stats_alpha_fused"]
     got = K.stats_alpha_fused(*sa_args)
     want = K.stats_alpha_fused_plain(*sa_args)
@@ -76,8 +85,12 @@ def test_stats_alpha_kernel_matches_plain(device, shape, dtype):
     # The kernel sums V in another order than torch.logsumexp; the alphas
     # carry that rounding through T log-space steps.
     for g, w in zip(got[:3], want[:3]):
+        if valid is not None:
+            g, w = g[valid], w[valid]
         _close(g, w, 1e-5, 1e-6)
+    assert torch.equal(torch.isfinite(got[3]), torch.isfinite(want[3]))
     _close(got[3], want[3], 1e-4, 1e-5)
+    return got
 
 
 @pytest.mark.parametrize("scaled", [False, True])
@@ -85,14 +98,103 @@ def test_stats_alpha_kernel_matches_plain(device, shape, dtype):
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_beta_grad_kernel_matches_plain(device, shape, dtype, scaled):
     _, bg_args = _inputs(device, *shape, dtype)
-    scale = (torch.linspace(-0.5, 2.0, shape[1], device=device) if scaled
-             else None)
+    _hold_beta_grad(bg_args, scaled)
+
+
+def _hold_beta_grad(bg_args, scaled):
+    """The kernel against its plain version, one launch; returns its grads."""
+    lg = bg_args[0]
+    scale = (torch.linspace(-0.5, 2.0, lg.shape[0], device=lg.device)
+             if scaled else None)
+    before = K.LAUNCHES["beta_grad_fused"]
     g_k, b_k = K.beta_grad_fused(*bg_args, grad_scale=scale)
     g_p, b_p = K.beta_grad_fused_plain(*bg_args, grad_scale=scale)
     torch.cuda.synchronize()
-    assert g_k.dtype == dtype
+    assert K.LAUNCHES["beta_grad_fused"] == before + 1
+    assert g_k.dtype == lg.dtype
+    assert torch.equal(torch.isfinite(b_k), torch.isfinite(b_p))
     _close(b_k, b_p, 1e-4, 1e-5)
-    _close(g_k, g_p, 1e-6, 8e-3 if dtype == torch.bfloat16 else 1e-4)
+    assert bool(torch.isfinite(g_k.float()).all())
+    _close(g_k, g_p, 1e-6, 8e-3 if lg.dtype == torch.bfloat16 else 1e-4)
+    return g_k
+
+
+# Edge cases of the persistent kernels (csrc/stats_alpha.cu,
+# csrc/beta_grad.cu): (kind, seed, B, T, S, V, blank, T_b, S_b). 16-byte
+# rows at V = 1000 and 1024; the scalar path at V = 79 and 1030 and on a
+# logits view one element off a 16-byte boundary; one-warp chains at
+# S1 <= 32, strided ones at S1 = 41 and 1031; B = 2048 past the resident
+# grid; T_b = 1 and S_b = 0; an infeasible sample; +-inf padding.
+EDGES = [
+    ("vec-v1000", 11, 2, 50, 40, 1000, 3, (50, 44), (40, 31)),
+    ("vec-v1024", 12, 4, 9, 6, 1024, 0, (9, 9, 7, 6), (6, 4, 6, 0)),
+    ("scalar-v79", 13, 3, 17, 6, 79, 5, (17, 1, 12), (6, 0, 3)),
+    ("scalar-v1030", 14, 2, 6, 5, 1030, 2, (6, 5), (5, 2)),
+    ("misaligned", 15, 2, 8, 10, 1000, 0, (8, 8), (7, 2)),
+    ("s1-1031", 16, 1, 1100, 1030, 8, 2, (1100,), (1030,)),
+    ("b2048", 17, 2048, 4, 2, 16, 0, None, None),
+    ("infeasible", 18, 3, 12, 4, 20, 0, (12, 12, 9), (4, 3, 3)),
+    ("inf-padding", 19, 3, 12, 4, 1000, 0, (12, 7, 5), (4, 2, 1)),
+]
+
+
+def _edge_inputs(device, case, dtype):
+    """(sa_args, bg_args, padding mask [B, T, S1]) of one edge case."""
+    kind, seed, batch, t, s, v, blank, ilen, slen = case
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(batch, t, s + 1, v) * 2).astype(np.float32)
+    labels = rng.randint(0, v - 1, (batch, s))
+    labels = np.where(labels >= blank, labels + 1, labels).astype(np.int32)
+    if ilen is None:                      # lengths 2..4, S_b 0..2
+        ilen = 2 + np.arange(batch) % 3
+        slen = np.minimum(np.arange(batch) % 3, ilen)
+    as_int = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                       device=device)
+    il, sl, lb = as_int(ilen), as_int(slen), as_int(labels)
+    lg = torch.from_numpy(x).to(device=device, dtype=dtype)
+    t_idx = torch.arange(t, device=device)[None, :, None]
+    s_idx = torch.arange(s + 1, device=device)[None, None, :]
+    pad = (t_idx >= il[:, None, None]) | (s_idx > sl[:, None, None])
+    if kind == "misaligned":
+        flat = torch.empty(lg.numel() + 1, dtype=dtype, device=device)
+        flat[1:] = lg.reshape(-1)
+        lg = flat[1:].view(lg.shape)
+        assert lg.is_contiguous() and lg.data_ptr() % 16 != 0
+    if kind == "inf-padding":
+        lg[..., ::2][pad] = float("inf")
+        lg[..., 1::2][pad] = float("-inf")
+    bands = tbands.default_bands(il, sl, t)
+    if kind == "infeasible":            # sample 2 can never emit label S_b
+        bands.max_s[2] = sl[2] - 1
+    ilen32, slen32, bands, lab = fused._prepare(lg, lb, il, sl, bands)
+    a_lo, a_hi, bwin = fused._windows(ilen32, slen32, bands, t, s + 1)
+    sa_args = (lg, lab, a_lo, a_hi, blank)
+    denom, lpb, lpl, alphas = K.stats_alpha_fused_plain(*sa_args)
+    ll = fused._gather_ll(alphas, ilen32, slen32)
+    if kind == "infeasible":
+        assert torch.isinf(ll[2]) and bool(torch.isfinite(ll[:2]).all())
+    lpbb, lplb, aprev, llb, bvirt = fused.beta_grad_operands(
+        lpb, lpl, alphas, ll, slen32, bwin)
+    bg_args = (lg, denom, lpbb, lplb, aprev, ilen32, llb, bvirt, lab, blank)
+    return sa_args, bg_args, pad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", EDGES, ids=lambda c: c[0])
+def test_stats_alpha_kernel_edge_cases(device, case, dtype):
+    sa_args, _, pad = _edge_inputs(device, case, dtype)
+    _hold_stats_alpha(sa_args, ~pad if case[0] == "inf-padding" else None)
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", EDGES, ids=lambda c: c[0])
+def test_beta_grad_kernel_edge_cases(device, case, dtype, scaled):
+    _, bg_args, pad = _edge_inputs(device, case, dtype)
+    grads = _hold_beta_grad(bg_args, scaled)
+    assert bool((grads[pad] == 0).all())       # padding: exactly zero
+    if case[0] == "infeasible":
+        assert bool((grads[2] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -628,3 +730,66 @@ def test_viterbi_and_occupancy_kernels_match_the_oracles(device):
     # Two f32 routes: the alphas (~1e2) round otherwise, and their ulp
     # enters the exponent of every occupancy (1.2e-5 seen on the card).
     _close(occ, mt.occupancy_posteriors(*cpu), 1e-4, 0)
+
+
+# --- the 'reference' backend on the card ----------------------------------------
+
+@pytest.fixture
+def group_of_one(device):
+    from monotonic_rnnt_tpu_torch.parallel import initialize_multihost
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    initialize_multihost(world_size=1, rank=0, backend="gloo")
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def test_reference_backend_launches_no_kernel(device, group_of_one):
+    """Under backend='reference' the paths that choose kernels by
+    use_kernels (the fused-joint losses, the vocab-sharded losses, alignment)
+    run the plain versions on CUDA tensors too, with the same results."""
+    enc, pred, labels, ilen, slen, params = _fused_case(device)
+    t, s1 = enc.shape[1], pred.shape[1]
+    w = torch.tensor([1.0, -0.5, 2.0], device=device)
+    bands = tbands.default_bands(ilen, slen, t)
+    width = mt.suggested_band_width(ilen, slen, bands, t, s1)
+    layout = mt.compute_band_layout(ilen, slen, bands, t, s1, width)
+    logits = _joint(params, enc, pred)
+    band = mt.pack_band(logits, layout)
+
+    def runs():
+        fj = _grads(lambda e, p, pr: mt.rnnt_loss_fused_joint(
+            e, p, labels, ilen, slen, _joint, pr, chunk_t=8), enc, pred,
+            params, w)
+        fjb = _grads(lambda e, p, pr: mt.rnnt_loss_fused_joint_banded(
+            e, p, labels, ilen, slen, _joint_banded, pr, bands=bands,
+            band_width=width, chunk_t=16), enc, pred, params, w)
+        out = {"fused_joint": fj[0], "fused_joint_banded": fjb[0]}
+        for name, fn, x in (
+                ("vocab_sharded", sharding.rnnt_loss_vocab_sharded, logits),
+                ("banded_vocab_sharded",
+                 sharding.rnnt_loss_banded_vocab_sharded, band)):
+            leaf = x.detach().clone().requires_grad_(True)
+            costs = fn(leaf, labels, ilen, slen, bands.min_s, bands.max_s, 0,
+                       group_of_one)
+            (costs * w).sum().backward()
+            out[name], out[name + "_grad"] = costs.detach(), leaf.grad
+        out["viterbi"] = mt.viterbi_alignment(logits, labels, ilen, slen).score
+        out["viterbi_banded"] = mt.viterbi_alignment_banded(
+            band, labels, ilen, slen, bands=bands).score
+        out["occupancy"] = mt.occupancy_posteriors(logits, labels, ilen, slen)
+        out["occupancy_banded"] = mt.occupancy_posteriors_banded(
+            band, labels, ilen, slen, bands=bands)
+        torch.cuda.synchronize()
+        return out
+
+    K.reset_launch_counts()
+    want = runs()
+    assert _launched()                      # the kernels ran on 'auto'
+    with mt.config_override(backend="reference"):
+        K.reset_launch_counts()
+        got = runs()
+        assert _launched() == {}
+    for name in want:
+        _close(got[name], want[name], 1e-4, 1e-4)

@@ -6,6 +6,8 @@ kernels they replace; tests/test_torch_cuda.py holds the CUDA kernels
 against the plain versions on a GPU.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,21 +17,33 @@ import golden
 from monotonic_rnnt_tpu.ops import bands as jbands
 from monotonic_rnnt_tpu.ops import helpers as jhelpers
 from monotonic_rnnt_tpu.ops.pallas import kernels as jk
-from monotonic_rnnt_tpu_torch import convert
+from monotonic_rnnt_tpu_torch import config_override, convert
 from monotonic_rnnt_tpu_torch.ops import bands as tbands
 from monotonic_rnnt_tpu_torch.ops import helpers as thelpers
 from monotonic_rnnt_tpu_torch.ops.cuda import _build, fused
 from monotonic_rnnt_tpu_torch.ops.cuda import kernels as tk
 
-# (seed, B, T, S, V, blank): V not a multiple of 128, blank != 0, repeats.
-SHAPES = [(21, 3, 9, 4, 37, 2), (22, 2, 12, 5, 130, 0)]
+# (seed, B, T, S, V, blank[, (T_b...), (S_b...)]): V not a multiple of 128,
+# blank != 0, repeats; V = 79 and 1030 (the CUDA kernels' scalar path), with
+# T_b = 1 and S_b = 0 samples. Every S1 here is <= 32 (a one-warp beta
+# chain on the card).
+SHAPES = [(21, 3, 9, 4, 37, 2), (22, 2, 12, 5, 130, 0),
+          (23, 3, 7, 3, 79, 5, (7, 1, 5), (3, 0, 2)),
+          (24, 2, 5, 4, 1030, 1, (5, 1), (4, 1))]
+
+
+def _shape_id(shape):
+    return "x".join(map(str, shape[:6])) + "".join(
+        "-" + "_".join(map(str, lens)) for lens in shape[6:])
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16,
                                                         jnp.bfloat16)}
 
 
-def _inputs(seed, batch, t, s, v, blank, dtype):
+def _inputs(seed, batch, t, s, v, blank, *lengths, dtype):
     logits, labels, ilen, slen = golden.repeat_label_case(seed, batch, t, s,
                                                           v, blank_id=blank)
+    if lengths:
+        ilen, slen = (np.asarray(x, np.int32) for x in lengths)
     tdt, jdt = DTYPES[dtype]
     t_in = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
                                           device="cpu", dtype=tdt)
@@ -56,10 +70,10 @@ def _windows(j_in, t_in):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
 def test_stats_alpha_plain_matches_pallas(shape, dtype):
-    seed, batch, t, s, v, blank = shape
-    t_in, j_in = _inputs(seed, batch, t, s, v, blank, dtype)
+    blank = shape[5]
+    t_in, j_in = _inputs(*shape, dtype=dtype)
     j_args, t_args = _windows(j_in, t_in)
     want = jk.stats_alpha_fused(*j_args, blank, interpret=True)
     got = tk.stats_alpha_fused_plain(*t_args, blank)
@@ -84,10 +98,10 @@ def _beta_operands(t_in, blank):
 
 @pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "scaled"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
 def test_beta_grad_plain_matches_pallas(shape, dtype, scaled):
-    seed, batch, t, s, v, blank = shape
-    t_in, j_in = _inputs(seed, batch, t, s, v, blank, dtype)
+    batch, blank = shape[1], shape[5]
+    t_in, j_in = _inputs(*shape, dtype=dtype)
     ops = _beta_operands(t_in, blank)
     scale = torch.linspace(-0.5, 2.0, batch) if scaled else None
     j_ops = [j_in[0]] + [jnp.asarray(o.numpy()) for o in ops[1:]]
@@ -111,7 +125,7 @@ def test_beta_grad_plain_matches_pallas(shape, dtype, scaled):
 
 
 def test_wrappers_take_plain_version_on_cpu_without_counting():
-    t_in, _ = _inputs(*SHAPES[0], "f32")
+    t_in, _ = _inputs(*SHAPES[0], dtype="f32")
     ops = _beta_operands(t_in, SHAPES[0][5])
     before = dict(tk.LAUNCHES)
     got = tk.beta_grad_fused(*ops, SHAPES[0][5])
@@ -119,6 +133,17 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert tk.LAUNCHES == before
+
+
+def test_use_kernels_follows_the_device_and_the_backend():
+    """The paths' one switch: a CUDA tensor and a backend other than
+    'reference'. A stand-in with is_cuda set plays the CUDA tensor."""
+    cpu, card = torch.zeros(2), types.SimpleNamespace(is_cuda=True)
+    for backend in ("auto", "cuda", "reference"):
+        with config_override(backend=backend):
+            assert not tk.use_kernels(cpu)
+            assert tk.use_kernels(card) == (backend != "reference")
+    assert tk.use_kernels(card)          # the override is undone
 
 
 def test_wrappers_raise_off_the_cpu_without_cuda():
