@@ -11,10 +11,14 @@ kernels of csrc/stream.cu (``stream_copy`` in its vmem and dma modes,
 ``stream_copy_blocked``, ``stream_copy_blocked_tbsv``) bit for bit against
 their plain versions and their inputs, at bench.py's sizes ([327680, 1024]
 flat; [32, 200, 51, 1024] blocked, tt=1 f32 and 2 bf16; its t-major
-control) in f32 and bf16, at V=7 and odd blocks, and at every divisor;
-then a ping-pong chain of 24 copies per configuration, 5 interleaved
-trials, median, printed as GB/s = 2*bytes/t beside ``Tensor.copy_`` and the
-3.35 TB/s spec. A dtype's copy ceiling is the best of the flat modes.
+control) in f32 and bf16, at V=7 and odd blocks, at every divisor, at the
+redesigned copies' edge cases (CEIL_EDGES, random bytes) and, for those
+copies, on one f32 tensor past 2^31 bytes; then a ping-pong chain of 24
+copies per configuration after one untimed copy (so that the host's first
+launch is not in the window), 5 interleaved trials, median, printed as
+GB/s = 2*bytes/t beside ``Tensor.copy_`` and the 3.35 TB/s spec, and as
+each rate over ``copy_``'s. A dtype's copy ceiling is the best of the flat
+modes.
 Then it holds each loss kernel wrapper against its plain PyTorch version,
 rows 1-2 (the persistent ``stats_alpha_fused`` and ``beta_grad_fused``)
 also at EDGE_CASES, one launch a call, probing there exact -inf from
@@ -116,7 +120,7 @@ of its output are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 
 Tolerances, each with its reason:
-  * copy kernels vs plain versions and inputs: bit for bit (a copy has no
+  * copy kernels vs plain versions and inputs: byte for byte (a copy has no
     arithmetic);
   * kernel vs plain version, same inputs: stats |d| <= 1e-5 + 1e-6|ref|
     (the kernel's warp reduction sums V in another order than
@@ -2474,23 +2478,102 @@ CEIL_K = 24          # copies per timed chain (bench.py:133)
 CEIL_TRIALS = 5      # interleaved trials per configuration (bench.py:134)
 
 
-def events_ms(fn) -> float:
-    """One CUDA-event timing of fn(), in ms (no warm-up, no repeats)."""
+def chain_ms(fn, x) -> float:
+    """Per-copy ms of a ping-pong chain of CEIL_K copies of x, timed with
+    CUDA events from the end of one untimed copy before them: the card is
+    busy with that copy while the host enqueues the timed ones, so the
+    host's first launch (a wrapper call, tens of µs) falls outside the
+    window, as it does in bench.py's one jitted chain."""
+    a = fn(x)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    for _ in range(CEIL_K):
+        a = fn(a)
     end.record()
     end.synchronize()
-    return start.elapsed_time(end)
+    return start.elapsed_time(end) / CEIL_K
+
+
+# The redesigned copies' edge cases, as tests/test_torch_cuda.py's
+# COPY_EDGES: (kernel, shape, arguments, elements the view starts past a
+# fresh allocation). Register-copy tiles are 8 KB, TMA chunks 16 KB.
+CEIL_EDGES = (
+    ("vmem", (8192, 1024), dict(block_rows=8), 0),   # more tiles than CTAs
+    ("vmem", (64, 256), dict(block_rows=16), 0),     # fewer
+    ("vmem", (3, 1000), dict(block_rows=3), 0),      # one block
+    ("vmem", (2, 16385), dict(block_rows=1), 0),     # tails under 16 bytes
+    ("vmem", (1000, 333), dict(block_rows=40), 1),   # views 4 and 8 bytes off
+    ("vmem", (1000, 333), dict(block_rows=40), 2),
+    ("dma", (8192, 1024), dict(nbuf=4), 0),          # more chunks than CTAs
+    ("dma", (64, 256), dict(nbuf=2), 0),             # fewer
+    ("dma", (1, 64), dict(nbuf=1), 0),               # one chunk
+    ("dma", (2, 16392), dict(nbuf=2), 0),            # tails under one chunk
+    ("tbsv", (6, 8, 5, 7), dict(tt=2), 0),           # fewer t-blocks than CTAs
+    ("tbsv", (1200, 2, 3, 7), dict(tt=1), 0),        # more
+    ("tbsv", (4, 8, 51, 1000), dict(tt=4), 0),       # one t-block
+    ("tbsv", (40, 3, 5, 33), dict(tt=4), 1),         # a view off
+)
+# One f32 copy past 2^31 bytes (2.15e9) for the copies' 64-bit offsets:
+# flat, and as [T, B, S1, V] for the t-blocks.
+CEIL_HUGE = (524800, 1024)
+CEIL_HUGE_TBSV = (200, 32, 82, 1024)
+
+
+def exact_copy(kern, plain, x, kw, what):
+    """kern(x) against plain(x) and x, byte for byte."""
+    got, ref = kern(x, **kw), plain(x, **kw)
+    torch.cuda.synchronize()
+    shape = "x".join(map(str, x.shape))
+    check(torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+          and torch.equal(got.view(torch.uint8), x.view(torch.uint8)),
+          f"{kern.__name__} {kw} [{shape}] {x.dtype} {what}: not an exact "
+          "copy")
+
+
+def ceiling_edges(mt, gen, dtype):
+    """The redesigned copies at CEIL_EDGES, on random bytes (NaN payloads
+    included)."""
+    ST = mt.ST
+    kernels = {"vmem": (ST.stream_copy, ST.stream_copy_plain),
+               "dma": (ST.stream_copy, ST.stream_copy_plain),
+               "tbsv": (ST.stream_copy_blocked_tbsv,
+                        ST.stream_copy_blocked_tbsv_plain)}
+    size = torch.empty((), dtype=dtype).element_size()
+    for kind, shape, kw, offset in CEIL_EDGES:
+        n = int(np.prod(shape))
+        base = torch.randint(0, 256, ((n + offset) * size,), generator=gen,
+                             dtype=torch.uint8, device=DEVICE).view(dtype)
+        x = base[offset:].view(shape)
+        kern, plain = kernels[kind]
+        exact_copy(kern, plain, x, kw if kind == "tbsv" else
+                   dict(kw, mode=kind), f"{offset} elements off")
+    return len(CEIL_EDGES)
+
+
+def ceiling_huge(mt, gen):
+    """Rows 12 and 14 on one f32 tensor past 2^31 bytes, freed after."""
+    ST = mt.ST
+    x = torch.randn(CEIL_HUGE, generator=gen, device=DEVICE)
+    exact_copy(ST.stream_copy, ST.stream_copy_plain, x,
+               dict(mode="vmem", block_rows=CEIL_BLOCK_ROWS), "past 2^31 B")
+    exact_copy(ST.stream_copy, ST.stream_copy_plain, x,
+               dict(mode="dma", nbuf=CEIL_NBUF), "past 2^31 B")
+    exact_copy(ST.stream_copy_blocked_tbsv, ST.stream_copy_blocked_tbsv_plain,
+               x.view(CEIL_HUGE_TBSV), dict(tt=1), "past 2^31 B")
+    nbytes = x.numel() * x.element_size()
+    del x
+    torch.cuda.empty_cache()
+    return nbytes
 
 
 def ceiling_exactness(mt):
-    """Every copy kernel bit for bit against its plain version and its
+    """Every copy kernel byte for byte against its plain version and its
     input: at the bench sizes in f32 and bf16, at small odd shapes (V=7
     through the blocked pair's element-wise path, 2-byte units in the
-    register copy, a slab of a few chunks in the TMA copy), and at every
-    block_rows / nbuf / tt that divides."""
+    register copy, a slab of a few chunks in the TMA copy), at every
+    block_rows / nbuf / tt that divides, at the redesigned copies' edges
+    (CEIL_EDGES) and, for rows 12 and 14, past 2^31 bytes."""
     ST = mt.ST
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     n = 0
@@ -2527,17 +2610,16 @@ def ceiling_exactness(mt):
             cases.append((ST.stream_copy, ST.stream_copy_plain, odd,
                           dict(mode="dma", nbuf=nb)))
         for kern, plain, x, kw in cases:
-            x = x.contiguous()
-            got, ref = kern(x, **kw), plain(x, **kw)
-            torch.cuda.synchronize()
-            shape = "x".join(map(str, x.shape))
-            check(torch.equal(got, ref) and torch.equal(got, x),
-                  f"{kern.__name__} {kw} [{shape}] {dtype}: not an exact copy")
+            exact_copy(kern, plain, x.contiguous(), kw, "")
             n += 1
-        del flat, blocked, cases, got, ref
+        del flat, blocked, cases
         torch.cuda.empty_cache()
-    log(f"copy kernels: {n} calls bit for bit equal to their plain versions "
-        "and their inputs (bench sizes, V=7, odd blocks, every divisor)")
+        n += ceiling_edges(mt, gen, dtype)
+    huge = ceiling_huge(mt, gen)
+    log(f"copy kernels: {n + 3} calls byte for byte equal to their plain "
+        "versions and their inputs (bench sizes, V=7, odd blocks, every "
+        f"divisor, {len(CEIL_EDGES)} edge cases a dtype, rows 12 "
+        f"and 14 on {huge} bytes)")
 
 
 def ceiling_configs(mt, dtype, flat, blocked):
@@ -2567,9 +2649,10 @@ def run_ceiling(mt):
     """Rows 12-14: the copy kernels bit for bit, then the card's copy rates
     as bench.py measures them: a ping-pong chain of CEIL_K copies (the
     caching allocator hands each copy the buffer the one before last
-    freed), CEIL_TRIALS trials a configuration, interleaved, median. The
-    copy ceiling of a dtype is the best median of the hand-written flat
-    modes (vmem, dma). Returns the rates and the three kernels' entries."""
+    freed) after one untimed copy (chain_ms), CEIL_TRIALS trials a
+    configuration, interleaved, median. The copy ceiling of a dtype is the
+    best median of the hand-written flat modes (vmem, dma). Returns the
+    rates and the three kernels' entries."""
     K, ST = mt.K, mt.ST
     t0 = time.perf_counter()
     ceiling_exactness(mt)
@@ -2596,7 +2679,7 @@ def run_ceiling(mt):
     trials = {key: [] for key in configs}
     for _ in range(CEIL_TRIALS):
         for key, cfg in configs.items():
-            trials[key].append(events_ms(lambda: chain(cfg)) / CEIL_K)
+            trials[key].append(chain_ms(*cfg))
     torch.cuda.synchronize()
     launches = launched(K)
     check(set(launches) == {"stream_copy", "stream_copy_blocked",
@@ -2627,6 +2710,12 @@ def run_ceiling(mt):
                         for m in ("vmem", "dma", "blocked", "tbsv", "copy_"))
             + f"; copy ceiling {r['ceiling_GBps']:.1f} GB/s "
             f"({r['ceiling_mode']}, {r['ceiling_GBps'] / spec:.1%} of spec)")
+        r["over_copy_"] = {m: r[m]["GBps"] / r["copy_"]["GBps"]
+                           for m in r if isinstance(r[m], dict)}
+        log(f"copy rates {d} over copy_'s: " + ", ".join(
+            f"{m} {x:.4f}x" for m, x in r["over_copy_"].items()
+            if m != "copy_") + f"; ceiling "
+            f"{r['ceiling_GBps'] / r['copy_']['GBps']:.4f}x")
 
     # Each kernel's entry: its time per copy at the bench size, its byte
     # bound, its plain version (one call) and the copy_ yardstick.
@@ -2643,19 +2732,23 @@ def run_ceiling(mt):
         if plain is not None:
             plain_ms[(d, name)] = cuda_ms(plain, reps=1, warmup=1)
     entries = []
-    spec_rows = (("stream_copy", ("vmem", "dma"), 50, "R=327680,C=1024"),
+    spec_rows = (("stream_copy", ("vmem", "dma"), 50, "R=327680,C=1024",
+                  "redesigned"),
                  ("stream_copy_blocked", ("blocked",), 82,
-                  "B=%d,T=%d,S1=%d,V=%d; tt=1 f32, 2 bf16" % CEIL_BLOCKED),
+                  "B=%d,T=%d,S1=%d,V=%d; tt=1 f32, 2 bf16" % CEIL_BLOCKED,
+                  "ported"),
                  ("stream_copy_blocked_tbsv", ("tbsv",), 114,
                   "T=%d,B=%d,S1=%d,V=%d; tt=1 f32, 2 bf16"
-                  % (T, B, S + 1, 1024)))
-    for kname, modes, line, shape in spec_rows:
+                  % (T, B, S + 1, 1024), "redesigned"))
+    for kname, modes, line, shape, status in spec_rows:
         def numbers(d, mode):
             x = configs[(d, mode)][1]
             return {"ms": per_copy[(d, mode)], "plain_ms": plain_ms[(d, mode)],
                     "bound_ms": bound_ms(2 * x.numel() * x.element_size(),
                                          0)[0],
-                    "library_ms": per_copy[(d, "copy_")]}
+                    "library_ms": per_copy[(d, "copy_")],
+                    "rate_over_copy_":
+                        rates[dtype_name(d)]["over_copy_"][mode]}
         f32, b16 = numbers(torch.float32, modes[0]), numbers(torch.bfloat16,
                                                              modes[0])
         entry = {
@@ -2664,7 +2757,7 @@ def run_ceiling(mt):
             "replaces": f"monotonic_rnnt_tpu/ops/pallas/stream.py:{line}",
             "launches": launches.get(kname, 0), "max_abs_err": 0.0,
             **f32, "bound_by": "bytes", "library_call": "Tensor.copy_",
-            "status": "ported", "dtype": "float32", "shape": shape,
+            "status": status, "dtype": "float32", "shape": shape,
             "bf16": b16, "launches_by_path": {"ceiling":
                                               launches.get(kname, 0)},
             "max_abs_err_by_path": {"ceiling": 0.0}}

@@ -8,32 +8,46 @@
 //
 // What bounds them on an H100: HBM bytes, one read and one write of the
 // tensor (2 * 1.34 GB for the bench's [327680, 1024] f32 array, 0.80 ms at
-// 3.35 TB/s). No arithmetic. The four kernels differ only in access pattern,
-// and that pattern is what each measures:
-//  (a) mrnnt_copy_block_kernel ("vmem"): a register copy, one CTA per
-//      [block_rows, C] block as the Pallas grid cuts the array, 16-byte
-//      vector loads through the read-only path and 16-byte stores where the
-//      block's bytes and both pointers allow (narrower units otherwise), four
-//      loads in flight per thread.
+// 3.35 TB/s). No arithmetic. On the TPU each was a grid of blocks in order;
+// carried over as one CTA a block, that grid ran 1.2 waves (the last one on
+// a mostly idle card) or fewer CTAs than SMs. What the card rewards is
+// order: the bytes in flight should form one narrow front that sweeps the
+// tensor. CTAs of a resident grid that deal the work in a static
+// interleave drift apart and spread the front over tens of MB, and CTAs
+// with contiguous runs spread it wider; both copied slower on the card.
+//  (a) mrnnt_copy_tiles_kernel, the register copy: stream_copy's "vmem" mode
+//      on its [block_rows, C] blocks and stream_copy_blocked_tbsv on its
+//      [tt, B, S1, V] t-blocks (each one contiguous run, the layout
+//      control). The blocks, in order, are cut into tiles of kTileBytes,
+//      one 16-byte unit a thread, and each tile is one CTA: the block
+//      scheduler hands them out in order, which keeps the front narrow, and
+//      the last wave is one 8 KB tile. Four CTAs a SM keep 32 KB of loads
+//      in flight there. A tile that does not start or end 16-aligned copies
+//      its head and tail bytes one by one, and pointers that differ mod 16
+//      take the widest unit in which they agree, as the element-wise path
+//      did.
 //  (b) mrnnt_copy_tma_kernel ("dma", the counterpart of
-//      pltpu.make_async_copy): no thread touches the data. The array is cut
-//      into nbuf slabs and each slab among enough CTAs to fill every SM. One
-//      thread per CTA moves its run of 16 KB chunks through a four-stage
-//      ring in shared memory: cp.async.bulk loads complete on an mbarrier
-//      per stage, cp.async.bulk stores go out in bulk groups, and a stage is
-//      refilled once the store that read it has finished reading, so three
-//      loads stay in flight behind each store.
+//      pltpu.make_async_copy): no thread touches the data. Persistent: one
+//      CTA a SM, whose one thread keeps a ring of kTmaStages stages of
+//      kTmaChunk in shared memory busy. The nbuf slabs are cut into chunks
+//      that the CTAs draw in order from the launch's ticket counter (a
+//      zeroed int64 from the caller; a CTA a chunk would lose the ring).
+//      cp.async.bulk loads complete on an mbarrier per stage, kTmaAhead of
+//      them in flight, and cp.async.bulk stores go out one bulk group each. A stage is refilled once the store that
+//      read it has finished reading, and that store was issued kTmaStages -
+//      kTmaAhead chunks earlier, so a load never queues behind the store
+//      just issued.
+//  Both use plain loads and stores: streaming hints (ld/st.global.cs, an
+//  L2 evict-first policy on the bulk copies) were slower on the card,
+//  although no byte is read twice.
 //  (c) mrnnt_copy_rows_kernel: the access pattern of the port's own row
-//      kernels (mrnnt_stats_kernel, csrc/stats_alpha.cu): one warp per V-row,
-//      16-byte units where a row's bytes and both pointers allow, one element
-//      per lane otherwise. stream_copy_blocked launches it on a [B, T, S1, V]
-//      tensor with grid (T/tt, B): a CTA copies its sample's tt*S1 rows, B
-//      runs per t-block, each one sample's lattice apart.
-//      stream_copy_blocked_tbsv launches it on [T, B, S1, V] with grid
-//      (T/tt): a CTA's tt*B*S1 rows are one contiguous run, the layout
-//      control. That grid has only T/tt CTAs (100 at the bench's T=200,
-//      tt=2, fewer than the 132 SMs), which is part of what it measures.
-// Offsets are 64-bit: the bench's tensors pass 2^31 elements' bytes.
+//      kernels (warp_row_lse's users, csrc/split.cu and csrc/banded.cu):
+//      one warp per V-row, 16-byte units where a row's bytes and both
+//      pointers allow, one element per lane otherwise. stream_copy_blocked
+//      launches it on a [B, T, S1, V] tensor with grid (T/tt, B): a CTA
+//      copies its sample's tt*S1 rows, B runs per t-block, each one sample's
+//      lattice apart.
+// Offsets are 64-bit: tensors may pass 2^31 bytes.
 
 #include <stdint.h>
 
@@ -41,34 +55,46 @@
 
 namespace mrnnt {
 
-constexpr int kBlockThreads = 512;
+constexpr int kCopyThreads = 512;
+constexpr long long kTileBytes = 16LL * kCopyThreads;  // 8 KB
 constexpr int kRowsThreads = 1024;
-constexpr int kTmaStages = 4;
-constexpr int kTmaChunk = 16 * 1024;  // bytes per bulk copy; a multiple of 16
+constexpr int kTmaStages = 8;
+constexpr int kTmaAhead = 4;            // loads in flight
+constexpr int kTmaChunk = 16 * 1024;    // bytes per bulk copy; a multiple of 16
 
 // --- (a) the register copy ----------------------------------------------------
 
+// The CTA copies n bytes from s to d, with s and d congruent mod sizeof(U):
+// the bytes before s's first U boundary and after its last one by single
+// threads, the units between one a thread in turn.
 template <typename U>
-__global__ void __launch_bounds__(kBlockThreads)
-mrnnt_copy_block_kernel(const U* __restrict__ src, U* __restrict__ dst,
-                        long long units_per_block) {
-  const long long base = static_cast<long long>(blockIdx.x) * units_per_block;
-  const U* s = src + base;
-  U* d = dst + base;
-  const long long step = static_cast<long long>(blockDim.x) * kUnroll;
-  for (long long i = threadIdx.x; i < units_per_block; i += step) {
-    U v[kUnroll];
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const long long j = i + static_cast<long long>(k) * blockDim.x;
-      if (j < units_per_block) v[k] = __ldg(s + j);
-    }
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const long long j = i + static_cast<long long>(k) * blockDim.x;
-      if (j < units_per_block) d[j] = v[k];
-    }
-  }
+__device__ __forceinline__ void copy_span(const char* __restrict__ s,
+                                          char* __restrict__ d, long long n) {
+  constexpr int kU = sizeof(U);
+  const long long head = min(
+      n, static_cast<long long>((kU - reinterpret_cast<uintptr_t>(s) % kU) % kU));
+  const long long units = (n - head) / kU;
+  const long long tail = n - head - units * kU;
+  if (threadIdx.x < head) d[threadIdx.x] = s[threadIdx.x];
+  if (threadIdx.x < tail) d[n - tail + threadIdx.x] = s[n - tail + threadIdx.x];
+  const U* su = reinterpret_cast<const U*>(s + head);
+  U* du = reinterpret_cast<U*>(d + head);
+  for (long long i = threadIdx.x; i < units; i += kCopyThreads)
+    du[i] = __ldg(su + i);
+}
+
+// n_blocks contiguous blocks of block_bytes, each cut into tiles_per_block
+// tiles of kTileBytes (the last one shorter); CTA t copies tile t, and the
+// grid is the launch's tiles.
+template <typename U>
+__global__ void __launch_bounds__(kCopyThreads)
+mrnnt_copy_tiles_kernel(const char* __restrict__ src, char* __restrict__ dst,
+                        long long block_bytes, long long tiles_per_block) {
+  const long long t = blockIdx.x;
+  const long long b = t / tiles_per_block;
+  const long long lo = (t - b * tiles_per_block) * kTileBytes;
+  const long long off = b * block_bytes + lo;
+  copy_span<U>(src + off, dst + off, min(kTileBytes, block_bytes - lo));
 }
 
 // --- (b) the TMA bulk copy ----------------------------------------------------
@@ -111,7 +137,7 @@ __device__ __forceinline__ void bulk_load(unsigned dst_smem, const char* src,
       : "memory");
 }
 
-// Shared -> global in the current bulk group, then commit the group.
+// Shared -> global as one bulk group.
 __device__ __forceinline__ void bulk_store(char* dst, unsigned src_smem,
                                            unsigned bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::
@@ -121,53 +147,68 @@ __device__ __forceinline__ void bulk_store(char* dst, unsigned src_smem,
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Grid (ctas_per_slab, nbuf); one warp per CTA, of which lane 0 drives the
-// ring. slab_bytes and both pointers are multiples of 16.
+// At most N bulk groups of this thread may still be reading shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// One warp per CTA, of which lane 0 drives the ring. slab_bytes and both
+// pointers are multiples of 16; the grid is at most `chunks` CTAs, which
+// draw the chunks from *tickets (0 at launch).
 __global__ void mrnnt_copy_tma_kernel(const char* __restrict__ src,
                                       char* __restrict__ dst,
-                                      long long slab_bytes) {
+                                      long long slab_bytes,
+                                      long long chunks_per_slab,
+                                      long long chunks,
+                                      unsigned long long* __restrict__ tickets) {
   extern __shared__ __align__(128) unsigned char ring[];
   __shared__ __align__(8) unsigned long long full[kTmaStages];
   if (threadIdx.x != 0) return;
-
-  const long long n_chunks = (slab_bytes + kTmaChunk - 1) / kTmaChunk;
-  const long long per_cta = (n_chunks + gridDim.x - 1) / gridDim.x;
-  const long long c0 = static_cast<long long>(blockIdx.x) * per_cta;
-  const long long c1 = min(n_chunks, c0 + per_cta);
-  if (c0 >= c1) return;
-  const long long n = c1 - c0;
-  const char* s = src + static_cast<long long>(blockIdx.y) * slab_bytes;
-  char* d = dst + static_cast<long long>(blockIdx.y) * slab_bytes;
 
   for (int st = 0; st < kTmaStages; ++st) mbar_init(smem_u32(&full[st]));
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 
-  // Chunk c0 + i sits in stage i % kTmaStages; its load is that stage's
-  // (i / kTmaStages)-th completion, so it is waited on with that parity.
+  // The i-th chunk this CTA loads sits in stage i % kTmaStages; its load is
+  // that stage's (i / kTmaStages)-th completion, so it is waited on with
+  // that parity. Its ticket, drawn one load ahead, picks the chunk; off[]
+  // and bytes[] keep where each stage's chunk goes.
   const unsigned ring0 = smem_u32(ring);
-  auto chunk_off = [&](long long i) { return (c0 + i) * kTmaChunk; };
-  auto chunk_bytes = [&](long long i) {
-    return static_cast<unsigned>(min(static_cast<long long>(kTmaChunk),
-                                     slab_bytes - chunk_off(i)));
+  long long off[kTmaStages];
+  unsigned bytes[kTmaStages];
+  auto draw = [tickets] {
+    return static_cast<long long>(atomicAdd(tickets, 1ULL));
   };
-  auto load = [&](long long i) {
-    const int st = static_cast<int>(i % kTmaStages);
-    bulk_load(ring0 + st * kTmaChunk, s + chunk_off(i), chunk_bytes(i),
+  long long ticket = draw();
+  long long loaded = 0;
+  auto load = [&]() {
+    if (ticket >= chunks) return false;
+    const long long slab = ticket / chunks_per_slab;
+    const long long lo = (ticket - slab * chunks_per_slab) * kTmaChunk;
+    const int st = static_cast<int>(loaded % kTmaStages);
+    off[st] = slab * slab_bytes + lo;
+    bytes[st] = static_cast<unsigned>(
+        min(static_cast<long long>(kTmaChunk), slab_bytes - lo));
+    ticket = draw();
+    bulk_load(ring0 + st * kTmaChunk, src + off[st], bytes[st],
               smem_u32(&full[st]));
+    ++loaded;
+    return true;
   };
 
-  for (long long i = 0; i < n && i < kTmaStages; ++i) load(i);
-  for (long long i = 0; i < n; ++i) {
+  bool more = true;
+  while (more && loaded < kTmaAhead) more = load();
+  for (long long i = 0; i < loaded; ++i) {
     const int st = static_cast<int>(i % kTmaStages);
     mbar_wait(smem_u32(&full[st]),
               static_cast<unsigned>((i / kTmaStages) & 1));
-    bulk_store(d + chunk_off(i), ring0 + st * kTmaChunk, chunk_bytes(i));
-    // Refill the stage of chunk i-1 once its store has read it (at most the
-    // store just issued may still be reading).
-    if (i >= 1 && i - 1 + kTmaStages < n) {
-      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      load(i - 1 + kTmaStages);
+    bulk_store(dst + off[st], ring0 + st * kTmaChunk, bytes[st]);
+    // Load i + kTmaAhead reuses the stage of load i + kTmaAhead -
+    // kTmaStages, whose store has kTmaStages - kTmaAhead stores after it.
+    if (more) {
+      bulk_wait_read<kTmaStages - kTmaAhead>();
+      more = load();
     }
   }
   // The stores must have finished reading the ring before the CTA exits,
@@ -211,23 +252,54 @@ mrnnt_copy_rows_kernel(const U* __restrict__ src, U* __restrict__ dst,
 
 // --- launchers ----------------------------------------------------------------
 
-// The widest unit (16, 8, 4, 2 or 1 bytes) that divides n and both pointers.
-inline int unit_bytes(const void* src, const void* dst, long long n) {
-  const unsigned long long bits =
-      reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst) |
-      static_cast<unsigned long long>(n);
+// The widest unit (16, 8, 4, 2 or 1 bytes) whose low bits are 0 in `bits`.
+inline int widest_unit(unsigned long long bits) {
   for (int u = 16; u > 1; u /= 2)
     if ((bits & (u - 1)) == 0) return u;
   return 1;
 }
 
+// The widest unit that divides n and both pointers.
+inline int unit_bytes(const void* src, const void* dst, long long n) {
+  return widest_unit(reinterpret_cast<uintptr_t>(src) |
+                     reinterpret_cast<uintptr_t>(dst) |
+                     static_cast<unsigned long long>(n));
+}
+
 template <typename U>
-int launch_block(const void* src, void* dst, int n_blocks,
+int launch_tiles(const void* src, void* dst, long long n_blocks,
                  long long block_bytes, cudaStream_t stream) {
-  mrnnt_copy_block_kernel<U><<<n_blocks, kBlockThreads, 0, stream>>>(
-      static_cast<const U*>(src), static_cast<U*>(dst),
-      block_bytes / static_cast<long long>(sizeof(U)));
+  const long long per_block = (block_bytes + kTileBytes - 1) / kTileBytes;
+  const long long tiles = n_blocks * per_block;
+  if (tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  mrnnt_copy_tiles_kernel<U>
+      <<<static_cast<unsigned>(tiles), kCopyThreads, 0, stream>>>(
+          static_cast<const char*>(src), static_cast<char*>(dst), block_bytes,
+          per_block);
   return static_cast<int>(cudaGetLastError());
+}
+
+// n_blocks contiguous blocks of block_bytes, by the register copy in the
+// widest unit in which src and dst agree mod 16.
+int copy_blocks(const void* src, void* dst, long long n_blocks,
+                long long block_bytes, cudaStream_t stream) {
+  if (n_blocks == 0 || block_bytes == 0) return 0;
+  switch (widest_unit(reinterpret_cast<uintptr_t>(src) ^
+                      reinterpret_cast<uintptr_t>(dst))) {
+    case 16:
+      return launch_tiles<uint4>(src, dst, n_blocks, block_bytes, stream);
+    case 8:
+      return launch_tiles<uint2>(src, dst, n_blocks, block_bytes, stream);
+    case 4:
+      return launch_tiles<unsigned>(src, dst, n_blocks, block_bytes, stream);
+    case 2:
+      return launch_tiles<unsigned short>(src, dst, n_blocks, block_bytes,
+                                          stream);
+    default:
+      return launch_tiles<unsigned char>(src, dst, n_blocks, block_bytes,
+                                         stream);
+  }
 }
 
 template <typename U>
@@ -271,57 +343,35 @@ int dispatch_rows(const void* src, void* dst, dim3 grid, long long x_stride,
 
 }  // namespace mrnnt
 
-// stream_copy(mode="vmem"): n_blocks CTAs of block_bytes each.
+// stream_copy(mode="vmem"): n_blocks blocks of block_bytes each.
 extern "C" int mrnnt_stream_copy_vmem(const void* src, void* dst, int n_blocks,
                                       long long block_bytes, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_blocks == 0 || block_bytes == 0) return 0;
-  switch (mrnnt::unit_bytes(src, dst, block_bytes)) {
-    case 16:
-      return mrnnt::launch_block<uint4>(src, dst, n_blocks, block_bytes, st);
-    case 8:
-      return mrnnt::launch_block<uint2>(src, dst, n_blocks, block_bytes, st);
-    case 4:
-      return mrnnt::launch_block<unsigned>(src, dst, n_blocks, block_bytes,
-                                           st);
-    case 2:
-      return mrnnt::launch_block<unsigned short>(src, dst, n_blocks,
-                                                 block_bytes, st);
-    default:
-      return mrnnt::launch_block<unsigned char>(src, dst, n_blocks,
-                                                block_bytes, st);
-  }
+  return mrnnt::copy_blocks(src, dst, n_blocks, block_bytes,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // stream_copy(mode="dma"): nbuf slabs of slab_bytes each (a multiple of 16,
-// both pointers 16-aligned; the wrapper checks).
-extern "C" int mrnnt_stream_copy_dma(const void* src, void* dst, int nbuf,
+// both pointers 16-aligned; the wrapper checks). tickets: one int64 zero of
+// this launch's own.
+extern "C" int mrnnt_stream_copy_dma(const void* src, void* dst,
+                                     void* tickets, int nbuf,
                                      long long slab_bytes, void* stream) {
   using namespace mrnnt;
   if (nbuf == 0 || slab_bytes == 0) return 0;
-  if (unit_bytes(src, dst, slab_bytes) != 16 || nbuf > 65535)
+  if (unit_bytes(src, dst, slab_bytes) != 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kTmaStages * kTmaChunk;
-  cudaError_t err = cudaFuncSetAttribute(
-      mrnnt_copy_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, mrnnt_copy_tma_kernel, kWarp, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  // As many CTAs as can be resident at once, shared among the slabs: a
-  // second wave would leave most SMs idle while it ran.
-  const long long chunks = (slab_bytes + kTmaChunk - 1) / kTmaChunk;
-  long long per_slab = static_cast<long long>(sms) * per_sm / nbuf;
-  per_slab = per_slab < 1 ? 1 : (per_slab > chunks ? chunks : per_slab);
-  const dim3 grid(static_cast<unsigned>(per_slab), static_cast<unsigned>(nbuf));
-  mrnnt_copy_tma_kernel<<<grid, kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(src), static_cast<char*>(dst), slab_bytes);
+  const size_t smem = static_cast<size_t>(kTmaStages) * kTmaChunk;
+  int ctas = 0;
+  if (const int err = resident_ctas(mrnnt_copy_tma_kernel, kWarp, smem, &ctas))
+    return err;
+  // As many CTAs as can be resident at once, drawing the chunks in order.
+  const long long per_slab = (slab_bytes + kTmaChunk - 1) / kTmaChunk;
+  const long long chunks = per_slab * nbuf;
+  if (chunks < ctas) ctas = static_cast<int>(chunks);
+  mrnnt_copy_tma_kernel<<<ctas, kWarp, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const char*>(src), static_cast<char*>(dst), slab_bytes,
+      per_slab, chunks, static_cast<unsigned long long*>(tickets));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -339,16 +389,15 @@ extern "C" int mrnnt_stream_copy_blocked(const void* src, void* dst, int batch,
       static_cast<cudaStream_t>(stream));
 }
 
-// stream_copy_blocked_tbsv: [T, B, S1, V], grid (T/tt), tt*B*S1 contiguous
-// rows a CTA.
+// stream_copy_blocked_tbsv: [T, B, S1, V], T/tt contiguous t-blocks of
+// tt*B*S1*V elements, in t order by the register copy.
 extern "C" int mrnnt_stream_copy_blocked_tbsv(const void* src, void* dst,
                                               int t_max, int batch, int s1,
                                               int v, int itemsize, int tt,
                                               void* stream) {
   if (batch == 0 || t_max == 0 || s1 == 0 || v == 0) return 0;
-  const long long run = static_cast<long long>(tt) * batch * s1;
-  const dim3 grid(static_cast<unsigned>(t_max / tt), 1u);
-  return mrnnt::dispatch_rows(src, dst, grid, run, 0, run,
-                              static_cast<long long>(v) * itemsize, itemsize,
-                              static_cast<cudaStream_t>(stream));
+  const long long block_bytes =
+      static_cast<long long>(tt) * batch * s1 * v * itemsize;
+  return mrnnt::copy_blocks(src, dst, t_max / tt, block_bytes,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -6,17 +6,24 @@ achievable HBM copy rate, the yardstick a loss kernel's time is held
 against. All three launch kernels of csrc/stream.cu:
 
 * ``stream_copy`` (TPU kernel at stream.py:50), mode ``"vmem"``: a register
-  copy, one CTA per [block_rows, C] block, 16-byte loads and stores where
-  the block allows (``mrnnt_copy_block_kernel``); mode ``"dma"``: TMA bulk
-  copies through a ring in shared memory, the array cut into ``nbuf`` slabs
+  copy (``mrnnt_copy_tiles_kernel``): the [block_rows, C] blocks cut into
+  8 KB tiles, one CTA a tile, which the block scheduler hands out in order;
+  16-byte loads and stores where both pointers agree mod 16 (narrower units
+  otherwise, and single bytes at a tile's unaligned head and tail); mode
+  ``"dma"``: TMA bulk copies of 16 KB chunks of the ``nbuf`` slabs through a
+  ring in shared memory, one persistent CTA a SM, the chunks drawn in order
+  from a zeroed int64 ticket counter of the call's own
   (``mrnnt_copy_tma_kernel``). On the TPU "vmem" staged blocks through VMEM
   and "dma" copied HBM to HBM; Hopper has no HBM-to-HBM copy engine a
   kernel can drive, so "dma" is the copy in which no thread touches the
   data;
 * ``stream_copy_blocked`` (stream.py:82): the port's row kernels' access
   pattern on [B, T, S1, V], one warp per V-row, a CTA per (t-block, sample);
-* ``stream_copy_blocked_tbsv`` (stream.py:114): the same on [T, B, S1, V],
-  where a CTA's rows are one contiguous run (the layout control).
+* ``stream_copy_blocked_tbsv`` (stream.py:114): [T, B, S1, V], whose
+  [tt, B, S1, V] t-blocks are each one contiguous run (the layout control),
+  by the register copy of ``"vmem"`` on the t-blocks in t order. It does
+  not share ``stream_copy_blocked``'s kernel, so the pair compares layout
+  and kernel together.
 
 The copy moves bytes, so any dtype goes. Each keeps its Pallas function's
 name, arguments (without ``interpret``) and ValueErrors; an unknown mode
@@ -25,7 +32,7 @@ raises on a slab that is not a whole number of 16-byte units on 16-byte
 aligned tensors (TMA bulk copies move 16-byte multiples). Each wrapper
 takes its plain version for CPU tensors, launches its kernel or raises for
 CUDA tensors, and adds one to ``kernels.LAUNCHES[<name>]`` when it has
-launched. The plain versions copy block by block as the kernels' grids cut
+launched. The plain versions copy block by block as the Pallas grids cut
 the tensor.
 """
 
@@ -87,9 +94,10 @@ def stream_copy(x, mode: str = "vmem", block_rows: int = 512,
                 nbuf: int = 8) -> torch.Tensor:
     """Copy a [R, C] tensor at the card's best copy rate (see the module doc).
 
-    mode "vmem": R % block_rows == 0, one CTA per block of block_rows rows.
-    mode "dma": R % nbuf == 0, the rows cut into nbuf slabs of TMA bulk
-    copies. Returns a new tensor equal to x bit for bit.
+    mode "vmem": R % block_rows == 0, the blocks of block_rows rows cut into
+    the register copy's tiles. mode "dma": R % nbuf == 0, the rows cut into
+    nbuf slabs of TMA bulk copies. Returns a new tensor equal to x bit for
+    bit.
     """
     step = _check_flat(x, mode, block_rows, nbuf)
     if x.device.type == "cpu":
@@ -103,8 +111,9 @@ def stream_copy(x, mode: str = "vmem", block_rows: int = 512,
                 "dma mode moves 16-byte units: each slab's bytes "
                 f"({block_bytes}) and the tensor's address must be multiples "
                 "of 16")
-        _call("mrnnt_stream_copy_dma", x.device, _ptr(x), _ptr(out), n_blocks,
-              block_bytes)
+        tickets = torch.zeros(1, dtype=torch.int64, device=x.device)
+        _call("mrnnt_stream_copy_dma", x.device, _ptr(x), _ptr(out),
+              _ptr(tickets), n_blocks, block_bytes)
     else:
         _call("mrnnt_stream_copy_vmem", x.device, _ptr(x), _ptr(out),
               n_blocks, block_bytes)
@@ -153,9 +162,10 @@ def stream_copy_blocked_tbsv_plain(x, tt: int = 1) -> torch.Tensor:
 def stream_copy_blocked_tbsv(x, tt: int = 1) -> torch.Tensor:
     """Copy a [T, B, S1, V] tensor in [tt, B, S1, V] blocks, each contiguous.
 
-    The same warp-per-row copy as stream_copy_blocked with the same bytes a
-    t-block, but one contiguous run per CTA: the layout control. Returns a
-    new tensor equal to x bit for bit.
+    The same bytes a t-block as stream_copy_blocked, each t-block one
+    contiguous run (the layout control), copied in t order by the register
+    copy of stream_copy's "vmem" mode. Returns a new tensor equal to x bit
+    for bit.
     """
     _check_blocked(x, tt, "[T, B, S1, V]")
     if x.device.type == "cpu":

@@ -689,6 +689,81 @@ def test_dma_mode_refuses_what_tma_cannot_move(device):
         ST.stream_copy(x, mode="dma", nbuf=2)
 
 
+def test_dma_mode_refuses_a_misaligned_view(device):
+    x = torch.zeros(1 + 8 * 64, device=device)[1:].view(8, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        ST.stream_copy(x, mode="dma", nbuf=2)
+
+
+# The redesigned copies (stream_copy's two modes, stream_copy_blocked_tbsv):
+# (id, kernel, shape, arguments, elements the view starts past a fresh
+# allocation). The register copy's tiles are 8 KB, one CTA each, of which
+# the card holds 528 at once; TMA chunks are 16 KB, drawn by 132 CTAs.
+COPY_EDGES = [
+    ("vmem-more-tiles-than-ctas", "vmem", (8192, 1024), dict(block_rows=8), 0),
+    ("vmem-fewer-tiles-than-ctas", "vmem", (64, 256), dict(block_rows=16), 0),
+    ("vmem-one-block", "vmem", (3, 1000), dict(block_rows=3), 0),
+    ("vmem-tails-under-16-bytes", "vmem", (2, 16385), dict(block_rows=1), 0),
+    ("vmem-view-4-bytes-off", "vmem", (1000, 333), dict(block_rows=40), 1),
+    ("vmem-view-8-bytes-off", "vmem", (1000, 333), dict(block_rows=40), 2),
+    ("dma-more-chunks-than-ctas", "dma", (8192, 1024), dict(nbuf=4), 0),
+    ("dma-fewer-chunks-than-ctas", "dma", (64, 256), dict(nbuf=2), 0),
+    ("dma-one-chunk", "dma", (1, 64), dict(nbuf=1), 0),
+    ("dma-tails-under-one-chunk", "dma", (2, 16392), dict(nbuf=2), 0),
+    ("tbsv-fewer-t-blocks-than-ctas", "tbsv", (6, 8, 5, 7), dict(tt=2), 0),
+    ("tbsv-more-t-blocks-than-ctas", "tbsv", (1200, 2, 3, 7), dict(tt=1), 0),
+    ("tbsv-one-t-block", "tbsv", (4, 8, 51, 1000), dict(tt=4), 0),
+    ("tbsv-view-off", "tbsv", (40, 3, 5, 33), dict(tt=4), 1),
+]
+_COPIES = {"vmem": (ST.stream_copy, ST.stream_copy_plain, "stream_copy"),
+           "dma": (ST.stream_copy, ST.stream_copy_plain, "stream_copy"),
+           "tbsv": (ST.stream_copy_blocked_tbsv,
+                    ST.stream_copy_blocked_tbsv_plain,
+                    "stream_copy_blocked_tbsv")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", COPY_EDGES, ids=lambda c: c[0])
+def test_copy_kernels_are_exact_at_edges(device, case, dtype):
+    _, kind, shape, kw, offset = case
+    n = int(np.prod(shape))
+    gen = torch.Generator(device=device).manual_seed(n)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    # Random bytes: every bit pattern of the dtype, NaN payloads included.
+    base = torch.randint(0, 256, ((n + offset) * itemsize,), generator=gen,
+                         dtype=torch.uint8, device=device).view(dtype)
+    x = base[offset:].view(shape)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+    kernel, plain, name = _COPIES[kind]
+    if kind != "tbsv":
+        kw = dict(kw, mode=kind)
+    before = K.LAUNCHES[name]
+    got = kernel(x, **kw)
+    want = plain(x, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(got.view(torch.uint8), x.view(torch.uint8))
+
+
+def test_copies_on_two_streams_are_exact(device):
+    # Each dma copy draws its chunks from a ticket counter of its own, so
+    # copies on two streams may overlap, the register copies among them.
+    x = _random_bits((4096, 1024), torch.float32, device, 11)
+    torch.cuda.synchronize()
+    copies = [lambda: ST.stream_copy(x, "vmem", block_rows=64),
+              lambda: ST.stream_copy(x, "dma", nbuf=4),
+              lambda: ST.stream_copy_blocked_tbsv(x.view(64, 4, 16, 1024))]
+    streams = [torch.cuda.Stream(device), torch.cuda.Stream(device)]
+    outs = []
+    for i in range(12):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(copies[i % 3]())
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out.view(x.shape), x)
+
+
 # --- the packed layout, the binding and alignment on the card ---------------------
 
 def test_packed_binding_equals_the_padded_loss(device):
