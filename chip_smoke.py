@@ -43,7 +43,12 @@ oracle, and against the padded loss on the full [2, 1600, 201, 1024]
 lattice through ``unpack_band``; checks the banded goldens, five SGD steps,
 and the banded loss at the benchmark lattice (+-8 band, variable T_b and
 S_b) against the padded restricted result; and times each kernel beside its
-byte bound, its plain version and a PyTorch yardstick.
+byte bound, its plain version and a PyTorch yardstick, the scans also in ns
+per dependent step and queued back to back (``queued_ms``: each call's host
+prelude then overlaps the kernel before it), and ``fwdbwd_scan_banded``
+once more with the second
+sample at T_b = T/2 (its beta chain then reads the virtual row on half its
+steps), held against its plain version there too.
 
 The split phase holds the split pipeline's four kernels (softmax_stats,
 fwdbwd_scan, alpha_scan, beta_scan) against their plain versions at
@@ -54,7 +59,8 @@ against the deferred route and the oracle, holds each kernel call that path
 made against its plain version on the path's own operands, checks the
 goldens through it, and, on the banded case's full [2, 1600, 201, 1024]
 lattice, holds the scans at T=1600 and the split route against the
-deferred one.
+deferred one. The split scans' times are also printed in ns per dependent
+step, from one call and queued.
 
 The fused-joint phase runs ``rnnt_loss_fused_joint`` at
 benchmarks/memory_bench.py's case (B=4, T'=1024, S=63, V=8192, H=512,
@@ -267,6 +273,22 @@ def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Per-call ms of `reps` calls of fn() queued back to back between two
+    CUDA events, after one untimed call: each call's host prelude overlaps
+    the kernel before it, so a kernel that outlasts its prelude is timed
+    alone (cuda_ms times one call from an idle card, prelude included)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def kernel_ms(launch, scratch, reps: int = TIMING_REPS,
@@ -1165,6 +1187,27 @@ def phase_banded_timing(mt, case, weights, errs, launches):
                 "library_ms": cuda_ms(lib) if lib else None,
                 "bound": bound}
         out["grad_pass"].update(live_rows=live, rows=n_b * n_t * n_w)
+        for name in ("fwdbwd_scan_banded", "alpha_scan_banded"):
+            out[name]["ns_per_step"] = out[name]["ms"] * 1e6 / n_t
+            out[name]["queued_ms"] = queued_ms(timed[name][0])
+            out[name]["queued_ns_per_step"] = (out[name]["queued_ms"] * 1e6
+                                               / n_t)
+        # Row 8 again with the second sample at T/2, so that its beta chain
+        # reads the virtual row on half its steps; held against the plain
+        # version on these operands too.
+        short = (scan[:6] + (torch.tensor([n_t, n_t // 2], dtype=torch.int32,
+                                          device=DEVICE),) + scan[7:])
+        got, ref = BK.fwdbwd_scan_banded(*short), BK.fwdbwd_scan_banded_plain(
+            *short)
+        err = max(assert_close(g, r, 1e-4, 1e-5, f"banded {dtype} T_b = "
+                               f"[{n_t}, {n_t // 2}] {n}")
+                  for n, g, r in zip(("alphas", "betas"), got, ref))
+        errs[dtype]["fwdbwd_scan_banded"] = max(
+            errs[dtype]["fwdbwd_scan_banded"], err)
+        ms = cuda_ms(lambda: BK.fwdbwd_scan_banded(*short))
+        out["fwdbwd_scan_banded"]["short_second_sample"] = {
+            "input_lengths": [n_t, n_t // 2], "ms": ms,
+            "ns_per_step": ms * 1e6 / n_t, "max_abs_err": err}
         lg_leaf = leaf(x, dtype)
         full = case["logits"].to(dtype)
         full_leaf = leaf(full, dtype)
@@ -1192,6 +1235,15 @@ def phase_banded_timing(mt, case, weights, errs, launches):
             f"{r['plain_ms']:.4f}, library {r['library_ms']})"
             for n, r in out.items())
             + f"; live rows {live}/{n_b * n_t * n_w}; " + json.dumps(e2e))
+        log(f"banded scans {dtype}, ns per dependent step (T={n_t}), one "
+            "call / queued: " + ", ".join(
+                f"{n} {out[n]['ns_per_step']:.1f} / "
+                f"{out[n]['queued_ns_per_step']:.1f}"
+                for n in ("fwdbwd_scan_banded", "alpha_scan_banded"))
+            + f"; fwdbwd_scan_banded with T_b = [{n_t}, {n_t // 2}] "
+            + "%.4f ms, %.1f ns" % tuple(
+                out["fwdbwd_scan_banded"]["short_second_sample"][k]
+                for k in ("ms", "ns_per_step")))
         del ops, lg_leaf, full, full_leaf
         torch.cuda.empty_cache()
 
@@ -1211,7 +1263,9 @@ def phase_banded_timing(mt, case, weights, errs, launches):
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
             "library_ms": f32["library_ms"],
-            "status": "ported", "dtype": "float32",
+            "status": ("redesigned" if name == "fwdbwd_scan_banded" else
+                       "ported"),
+            "dtype": "float32",
             "shape": "B=%d,T=%d,W=%d,V=%d" % tuple(case["logits_band"].shape),
             "bf16": {"max_abs_err": errs[torch.bfloat16][name],
                      "ms": b16["ms"], "plain_ms": b16["plain_ms"],
@@ -1222,6 +1276,11 @@ def phase_banded_timing(mt, case, weights, errs, launches):
             entry["library_note"] = "no single PyTorch call computes a scan"
         if "live_rows" in f32:
             entry.update(live_rows=f32["live_rows"], rows=f32["rows"])
+        for key in ("ns_per_step", "queued_ms", "queued_ns_per_step",
+                    "short_second_sample"):
+            if key in f32:
+                entry[key] = f32[key]
+                entry["bf16"][key] = b16[key]
         kernels.append(entry)
     e2e = {str(d).removeprefix("torch."): rows[d][1] for d in rows}
     return kernels, e2e
@@ -1460,6 +1519,11 @@ def phase_split_timing(mt, main_inputs, weights):
                                     else 3),
                 "library_ms": cuda_ms(lib) if lib else None,
                 "bound": bound}
+            if scan_plain:                 # T dependent steps a chain
+                out[name]["ns_per_step"] = out[name]["ms"] * 1e6 / n_t
+                out[name]["queued_ms"] = queued_ms(kern)
+                out[name]["queued_ns_per_step"] = (out[name]["queued_ms"]
+                                                   * 1e6 / n_t)
         lg_leaf = leaf(lg, dtype)
 
         def fwd_bwd():
@@ -1479,6 +1543,10 @@ def phase_split_timing(mt, main_inputs, weights):
             f"{n} {r['ms']:.4f} ms (bound {r['bound'][0]:.4f}, plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']})"
             for n, r in out.items()) + "; " + json.dumps(e2e))
+        log(f"split scans {dtype}, ns per dependent step (T={n_t}), one "
+            "call / queued: " + ", ".join(
+                f"{n} {r['ns_per_step']:.1f} / {r['queued_ns_per_step']:.1f}"
+                for n, r in out.items() if "ns_per_step" in r))
         del ops, scan, lg_leaf
         torch.cuda.empty_cache()
     return rows
@@ -1538,6 +1606,9 @@ def split_kernel_entries(errs, launches, rows):
         }
         if f32["library_ms"] is None:
             entry["library_note"] = "no single PyTorch call computes a scan"
+            for key in ("ns_per_step", "queued_ms", "queued_ns_per_step"):
+                entry[key] = f32[key]
+                entry["bf16"][key] = b16[key]
         if name == "beta_scan":
             entry["path_note"] = ("the fused-joint backward's per-chunk beta "
                                   "recurrence; the split route runs "
@@ -2497,7 +2568,8 @@ def chain_ms(fn, x) -> float:
 
 # The redesigned copies' edge cases, as tests/test_torch_cuda.py's
 # COPY_EDGES: (kernel, shape, arguments, elements the view starts past a
-# fresh allocation). Register-copy tiles are 8 KB, TMA chunks 16 KB.
+# fresh allocation). Register-copy tiles are 8 KB, TMA chunks and the
+# blocked copy's pieces 16 KB.
 CEIL_EDGES = (
     ("vmem", (8192, 1024), dict(block_rows=8), 0),   # more tiles than CTAs
     ("vmem", (64, 256), dict(block_rows=16), 0),     # fewer
@@ -2513,11 +2585,19 @@ CEIL_EDGES = (
     ("tbsv", (1200, 2, 3, 7), dict(tt=1), 0),        # more
     ("tbsv", (4, 8, 51, 1000), dict(tt=4), 0),       # one t-block
     ("tbsv", (40, 3, 5, 33), dict(tt=4), 1),         # a view off
+    ("blocked", (1, 12, 51, 1024), dict(tt=2), 0),   # B = 1
+    ("blocked", (3, 9, 5, 33), dict(tt=3), 0),       # rows not 16-byte units
+    ("blocked", (1, 1, 1, 8), dict(tt=1), 0),        # one row
+    ("blocked", (2, 4, 5, 128), dict(tt=2), 0),      # fewer pieces than CTAs
+    ("blocked", (8, 200, 51, 256), dict(tt=2), 0),   # more
+    ("blocked", (2, 8, 51, 1000), dict(tt=2), 1),    # a view off
 )
 # One f32 copy past 2^31 bytes (2.15e9) for the copies' 64-bit offsets:
-# flat, and as [T, B, S1, V] for the t-blocks.
+# flat, as [T, B, S1, V] for the t-blocks and as [B, T, S1, V] for the
+# blocked copy.
 CEIL_HUGE = (524800, 1024)
 CEIL_HUGE_TBSV = (200, 32, 82, 1024)
+CEIL_HUGE_BLOCKED = (32, 200, 82, 1024)
 
 
 def exact_copy(kern, plain, x, kw, what):
@@ -2538,7 +2618,9 @@ def ceiling_edges(mt, gen, dtype):
     kernels = {"vmem": (ST.stream_copy, ST.stream_copy_plain),
                "dma": (ST.stream_copy, ST.stream_copy_plain),
                "tbsv": (ST.stream_copy_blocked_tbsv,
-                        ST.stream_copy_blocked_tbsv_plain)}
+                        ST.stream_copy_blocked_tbsv_plain),
+               "blocked": (ST.stream_copy_blocked,
+                           ST.stream_copy_blocked_plain)}
     size = torch.empty((), dtype=dtype).element_size()
     for kind, shape, kw, offset in CEIL_EDGES:
         n = int(np.prod(shape))
@@ -2546,13 +2628,13 @@ def ceiling_edges(mt, gen, dtype):
                              dtype=torch.uint8, device=DEVICE).view(dtype)
         x = base[offset:].view(shape)
         kern, plain = kernels[kind]
-        exact_copy(kern, plain, x, kw if kind == "tbsv" else
-                   dict(kw, mode=kind), f"{offset} elements off")
+        exact_copy(kern, plain, x, dict(kw, mode=kind) if kind in
+                   ("vmem", "dma") else kw, f"{offset} elements off")
     return len(CEIL_EDGES)
 
 
 def ceiling_huge(mt, gen):
-    """Rows 12 and 14 on one f32 tensor past 2^31 bytes, freed after."""
+    """Rows 12-14 on one f32 tensor past 2^31 bytes, freed after."""
     ST = mt.ST
     x = torch.randn(CEIL_HUGE, generator=gen, device=DEVICE)
     exact_copy(ST.stream_copy, ST.stream_copy_plain, x,
@@ -2561,6 +2643,8 @@ def ceiling_huge(mt, gen):
                dict(mode="dma", nbuf=CEIL_NBUF), "past 2^31 B")
     exact_copy(ST.stream_copy_blocked_tbsv, ST.stream_copy_blocked_tbsv_plain,
                x.view(CEIL_HUGE_TBSV), dict(tt=1), "past 2^31 B")
+    exact_copy(ST.stream_copy_blocked, ST.stream_copy_blocked_plain,
+               x.view(CEIL_HUGE_BLOCKED), dict(tt=1), "past 2^31 B")
     nbytes = x.numel() * x.element_size()
     del x
     torch.cuda.empty_cache()
@@ -2573,7 +2657,7 @@ def ceiling_exactness(mt):
     through the blocked pair's element-wise path, 2-byte units in the
     register copy, a slab of a few chunks in the TMA copy), at every
     block_rows / nbuf / tt that divides, at the redesigned copies' edges
-    (CEIL_EDGES) and, for rows 12 and 14, past 2^31 bytes."""
+    (CEIL_EDGES) and past 2^31 bytes."""
     ST = mt.ST
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     n = 0
@@ -2616,10 +2700,10 @@ def ceiling_exactness(mt):
         torch.cuda.empty_cache()
         n += ceiling_edges(mt, gen, dtype)
     huge = ceiling_huge(mt, gen)
-    log(f"copy kernels: {n + 3} calls byte for byte equal to their plain "
+    log(f"copy kernels: {n + 4} calls byte for byte equal to their plain "
         "versions and their inputs (bench sizes, V=7, odd blocks, every "
-        f"divisor, {len(CEIL_EDGES)} edge cases a dtype, rows 12 "
-        f"and 14 on {huge} bytes)")
+        f"divisor, {len(CEIL_EDGES)} edge cases a dtype, rows 12-14 on "
+        f"{huge} bytes)")
 
 
 def ceiling_configs(mt, dtype, flat, blocked):
@@ -2736,7 +2820,7 @@ def run_ceiling(mt):
                   "redesigned"),
                  ("stream_copy_blocked", ("blocked",), 82,
                   "B=%d,T=%d,S1=%d,V=%d; tt=1 f32, 2 bf16" % CEIL_BLOCKED,
-                  "ported"),
+                  "redesigned"),
                  ("stream_copy_blocked_tbsv", ("tbsv",), 114,
                   "T=%d,B=%d,S1=%d,V=%d; tt=1 f32, 2 bf16"
                   % (T, B, S + 1, 1024), "redesigned"))

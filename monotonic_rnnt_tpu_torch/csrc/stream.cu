@@ -40,13 +40,19 @@
 //  Both use plain loads and stores: streaming hints (ld/st.global.cs, an
 //  L2 evict-first policy on the bulk copies) were slower on the card,
 //  although no byte is read twice.
-//  (c) mrnnt_copy_rows_kernel: the access pattern of the port's own row
-//      kernels (warp_row_lse's users, csrc/split.cu and csrc/banded.cu):
-//      one warp per V-row, 16-byte units where a row's bytes and both
-//      pointers allow, one element per lane otherwise. stream_copy_blocked
-//      launches it on a [B, T, S1, V] tensor with grid (T/tt, B): a CTA
-//      copies its sample's tt*S1 rows, B runs per t-block, each one sample's
-//      lattice apart.
+//  (c) mrnnt_copy_rows_kernel, stream_copy_blocked on [B, T, S1, V]: the
+//      order in which rows 1-2 (csrc/stats_alpha.cu, csrc/beta_grad.cu) and
+//      the Pallas grid (T/tt,) stream the logits, t-major across samples:
+//      tile k is sample k % B's tt*S1 rows of t-block k / B, one
+//      contiguous run, so a t-block is B runs one sample's lattice apart.
+//      Persistent: as many CTAs of kRowsThreads as are resident at once
+//      draw tickets in order from the launch's counter (a zeroed int64 from
+//      the caller), one ticket ahead; ticket i is piece i % P of tile i / P,
+//      a tile cut into P pieces of kPieceBytes (a few V-rows), which the
+//      CTA sweeps one unit a thread a round: 16-byte units where every row
+//      starts 16-aligned, one element otherwise. Pieces this size keep the
+//      counter's atomics few (one a 16 KB) and the bytes in flight one
+//      front; a warp per V-row drawing its own rows ran slower on the card.
 // Offsets are 64-bit: tensors may pass 2^31 bytes.
 
 #include <stdint.h>
@@ -57,7 +63,8 @@ namespace mrnnt {
 
 constexpr int kCopyThreads = 512;
 constexpr long long kTileBytes = 16LL * kCopyThreads;  // 8 KB
-constexpr int kRowsThreads = 1024;
+constexpr int kRowsThreads = 256;
+constexpr int kPieceBytes = 16 * 1024;  // a ticket of the blocked copy
 constexpr int kTmaStages = 8;
 constexpr int kTmaAhead = 4;            // loads in flight
 constexpr int kTmaChunk = 16 * 1024;    // bytes per bulk copy; a multiple of 16
@@ -216,37 +223,38 @@ __global__ void mrnnt_copy_tma_kernel(const char* __restrict__ src,
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// --- (c) the warp-per-row copy ------------------------------------------------
+// --- (c) the t-major blocked copy --------------------------------------------
 
-// CTA (x, y) copies rows_per_cta rows of units_per_row units from row
-// y * y_stride + x * x_stride on.
+// n_tickets tickets of piece_units units: ticket k * pieces + p is piece p
+// of tile k, the tile_units units of sample k % batch's t-block k / batch.
 template <typename U>
 __global__ void __launch_bounds__(kRowsThreads)
 mrnnt_copy_rows_kernel(const U* __restrict__ src, U* __restrict__ dst,
-                       long long x_stride, long long y_stride,
-                       int rows_per_cta, int units_per_row) {
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int warps = blockDim.x / kWarp;
-  const long long row0 = static_cast<long long>(blockIdx.y) * y_stride +
-                         static_cast<long long>(blockIdx.x) * x_stride;
-  for (int r = warp; r < rows_per_cta; r += warps) {
-    const long long off = (row0 + r) * units_per_row;
-    const U* s = src + off;
-    U* d = dst + off;
-    for (int i = lane; i < units_per_row; i += kWarp * kUnroll) {
-      U v[kUnroll];
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        const int j = i + k * kWarp;
-        if (j < units_per_row) v[k] = __ldg(s + j);
-      }
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        const int j = i + k * kWarp;
-        if (j < units_per_row) d[j] = v[k];
-      }
-    }
+                       unsigned n_tickets, int batch, int t_max, int s1,
+                       int tt, int units_per_row, int piece_units,
+                       unsigned pieces,
+                       unsigned long long* __restrict__ tickets) {
+  __shared__ unsigned drawn[2];
+  const long long tile_rows = static_cast<long long>(tt) * s1;
+  const long long tile_units = tile_rows * units_per_row;
+  if (threadIdx.x == 0)
+    drawn[0] = static_cast<unsigned>(atomicAdd(tickets, 1ULL));
+  __syncthreads();
+  for (int i = 0;; i ^= 1) {
+    const unsigned ticket = drawn[i];
+    if (ticket >= n_tickets) break;
+    if (threadIdx.x == 0)   // the next ticket, while this piece is copied
+      drawn[i ^ 1] = static_cast<unsigned>(atomicAdd(tickets, 1ULL));
+    const unsigned k = ticket / pieces, p = ticket - k * pieces;
+    const unsigned tb = k / batch, b = k - tb * batch;
+    const long long off = (static_cast<long long>(b) * t_max * s1 +
+                           static_cast<long long>(tb) * tile_rows) *
+                          units_per_row;
+    const long long lo = static_cast<long long>(p) * piece_units;
+    const long long hi = min(lo + piece_units, tile_units);
+    for (long long u = lo + threadIdx.x; u < hi; u += kRowsThreads)
+      dst[off + u] = __ldg(src + off + u);
+    __syncthreads();   // drawn[i ^ 1] is written; drawn[i] is free
   }
 }
 
@@ -303,41 +311,49 @@ int copy_blocks(const void* src, void* dst, long long n_blocks,
 }
 
 template <typename U>
-int launch_rows(const void* src, void* dst, dim3 grid, long long x_stride,
-                long long y_stride, int rows_per_cta, long long row_bytes,
+int launch_rows(const void* src, void* dst, void* tickets, int batch,
+                int t_max, int s1, int tt, long long row_bytes,
                 cudaStream_t stream) {
-  mrnnt_copy_rows_kernel<U><<<grid, kRowsThreads, 0, stream>>>(
-      static_cast<const U*>(src), static_cast<U*>(dst), x_stride, y_stride,
-      rows_per_cta,
-      static_cast<int>(row_bytes / static_cast<long long>(sizeof(U))));
+  int ctas = 0;
+  if (const int err = resident_ctas(mrnnt_copy_rows_kernel<U>, kRowsThreads,
+                                    0, &ctas))
+    return err;
+  const long long units_per_row = row_bytes / static_cast<long long>(sizeof(U));
+  const int piece_units = kPieceBytes / static_cast<int>(sizeof(U));
+  const long long tile_units = static_cast<long long>(tt) * s1 * units_per_row;
+  const long long pieces = (tile_units + piece_units - 1) / piece_units;
+  const long long n = static_cast<long long>(batch) * (t_max / tt) * pieces;
+  if (n > 0x7fffffffLL || units_per_row > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (n < ctas) ctas = static_cast<int>(n);   // as many CTAs as are resident
+  mrnnt_copy_rows_kernel<U><<<ctas, kRowsThreads, 0, stream>>>(
+      static_cast<const U*>(src), static_cast<U*>(dst),
+      static_cast<unsigned>(n), batch, t_max, s1, tt,
+      static_cast<int>(units_per_row), piece_units,
+      static_cast<unsigned>(pieces), static_cast<unsigned long long*>(tickets));
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_rows(const void* src, void* dst, dim3 grid, long long x_stride,
-                  long long y_stride, long long rows_per_cta,
-                  long long row_bytes, int itemsize, cudaStream_t stream) {
-  if (rows_per_cta > 0x7fffffffLL || row_bytes > 0x7fffffffLL ||
-      grid.y > 65535u)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int rows = static_cast<int>(rows_per_cta);
+int dispatch_rows(const void* src, void* dst, void* tickets, int batch,
+                  int t_max, int s1, int tt, long long row_bytes, int itemsize,
+                  cudaStream_t stream) {
   // 16-byte units where every row starts 16-aligned, else one element.
-  const int u = unit_bytes(src, dst, row_bytes) == 16 ? 16 : itemsize;
-  switch (u) {
+  switch (unit_bytes(src, dst, row_bytes) == 16 ? 16 : itemsize) {
     case 16:
-      return launch_rows<uint4>(src, dst, grid, x_stride, y_stride, rows,
+      return launch_rows<uint4>(src, dst, tickets, batch, t_max, s1, tt,
                                 row_bytes, stream);
     case 8:
-      return launch_rows<uint2>(src, dst, grid, x_stride, y_stride, rows,
+      return launch_rows<uint2>(src, dst, tickets, batch, t_max, s1, tt,
                                 row_bytes, stream);
     case 4:
-      return launch_rows<unsigned>(src, dst, grid, x_stride, y_stride, rows,
+      return launch_rows<unsigned>(src, dst, tickets, batch, t_max, s1, tt,
                                    row_bytes, stream);
     case 2:
-      return launch_rows<unsigned short>(src, dst, grid, x_stride, y_stride,
-                                         rows, row_bytes, stream);
+      return launch_rows<unsigned short>(src, dst, tickets, batch, t_max, s1,
+                                         tt, row_bytes, stream);
     default:
-      return launch_rows<unsigned char>(src, dst, grid, x_stride, y_stride,
-                                        rows, row_bytes, stream);
+      return launch_rows<unsigned char>(src, dst, tickets, batch, t_max, s1,
+                                        tt, row_bytes, stream);
   }
 }
 
@@ -375,18 +391,16 @@ extern "C" int mrnnt_stream_copy_dma(const void* src, void* dst,
   return static_cast<int>(cudaGetLastError());
 }
 
-// stream_copy_blocked: [B, T, S1, V], grid (T/tt, B), tt*S1 rows a CTA.
-extern "C" int mrnnt_stream_copy_blocked(const void* src, void* dst, int batch,
-                                         int t_max, int s1, int v,
-                                         int itemsize, int tt, void* stream) {
+// stream_copy_blocked: [B, T, S1, V] in the t-major row order of (c).
+// tickets: one int64 zero of this launch's own.
+extern "C" int mrnnt_stream_copy_blocked(const void* src, void* dst,
+                                         void* tickets, int batch, int t_max,
+                                         int s1, int v, int itemsize, int tt,
+                                         void* stream) {
   if (batch == 0 || t_max == 0 || s1 == 0 || v == 0) return 0;
-  const dim3 grid(static_cast<unsigned>(t_max / tt),
-                  static_cast<unsigned>(batch));
-  return mrnnt::dispatch_rows(
-      src, dst, grid, static_cast<long long>(tt) * s1,
-      static_cast<long long>(t_max) * s1, static_cast<long long>(tt) * s1,
-      static_cast<long long>(v) * itemsize, itemsize,
-      static_cast<cudaStream_t>(stream));
+  return mrnnt::dispatch_rows(src, dst, tickets, batch, t_max, s1, tt,
+                              static_cast<long long>(v) * itemsize, itemsize,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // stream_copy_blocked_tbsv: [T, B, S1, V], T/tt contiguous t-blocks of
@@ -401,3 +415,5 @@ extern "C" int mrnnt_stream_copy_blocked_tbsv(const void* src, void* dst,
   return mrnnt::copy_blocks(src, dst, t_max / tt, block_bytes,
                             static_cast<cudaStream_t>(stream));
 }
+
+

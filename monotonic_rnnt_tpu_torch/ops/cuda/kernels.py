@@ -87,7 +87,7 @@ _ENTRIES = {
     "mrnnt_fwdbwd_scan": ("split", [_P] * 6 + [_I] * 3 + [_P] * 3),
     "mrnnt_stream_copy_vmem": ("stream", [_P, _P, _I, _L, _P]),
     "mrnnt_stream_copy_dma": ("stream", [_P, _P, _P, _I, _L, _P]),
-    "mrnnt_stream_copy_blocked": ("stream", [_P, _P] + [_I] * 6 + [_P]),
+    "mrnnt_stream_copy_blocked": ("stream", [_P] * 3 + [_I] * 6 + [_P]),
     "mrnnt_stream_copy_blocked_tbsv": ("stream", [_P, _P] + [_I] * 6 + [_P]),
 }
 

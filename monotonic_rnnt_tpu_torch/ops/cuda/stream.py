@@ -17,8 +17,12 @@ against. All three launch kernels of csrc/stream.cu:
   and "dma" copied HBM to HBM; Hopper has no HBM-to-HBM copy engine a
   kernel can drive, so "dma" is the copy in which no thread touches the
   data;
-* ``stream_copy_blocked`` (stream.py:82): the port's row kernels' access
-  pattern on [B, T, S1, V], one warp per V-row, a CTA per (t-block, sample);
+* ``stream_copy_blocked`` (stream.py:82): the order in which the DP-fused
+  kernels (rows 1-2) stream the logits, on [B, T, S1, V]: one sample's
+  tt*S1 rows of a t-block after another, t-major across samples, a warp
+  per V-row; persistent warps draw pieces of that row sequence in order
+  from a zeroed int64 ticket counter of the call's own
+  (``mrnnt_copy_rows_kernel``);
 * ``stream_copy_blocked_tbsv`` (stream.py:114): [T, B, S1, V], whose
   [tt, B, S1, V] t-blocks are each one contiguous run (the layout control),
   by the register copy of ``"vmem"`` on the t-blocks in t order. It does
@@ -133,19 +137,20 @@ def stream_copy_blocked_plain(x, tt: int = 1) -> torch.Tensor:
 
 
 def stream_copy_blocked(x, tt: int = 1) -> torch.Tensor:
-    """Copy a [B, T, S1, V] tensor with the row kernels' access pattern.
+    """Copy a [B, T, S1, V] tensor in the DP-fused kernels' order.
 
-    Grid (T/tt, B): each CTA copies one sample's tt*S1 rows, one warp per
-    V-row, so a t-block is B runs one sample's lattice apart. Returns a new
-    tensor equal to x bit for bit.
+    Tile k is sample k % B's tt*S1 rows of t-block k // B, so a t-block is B
+    runs one sample's lattice apart; warps copy the tiles' rows in that
+    order, one warp per V-row. Returns a new tensor equal to x bit for bit.
     """
     _check_blocked(x, tt, "[B, T, S1, V]")
     if x.device.type == "cpu":
         return stream_copy_blocked_plain(x, tt)
     out = _cuda_operand(x)
     batch, t_max, s1, v = x.shape
-    _call("mrnnt_stream_copy_blocked", x.device, _ptr(x), _ptr(out), batch,
-          t_max, s1, v, x.element_size(), tt)
+    tickets = torch.zeros(1, dtype=torch.int64, device=x.device)
+    _call("mrnnt_stream_copy_blocked", x.device, _ptr(x), _ptr(out),
+          _ptr(tickets), batch, t_max, s1, v, x.element_size(), tt)
     LAUNCHES["stream_copy_blocked"] += 1
     return out
 

@@ -286,23 +286,32 @@ def test_softmax_stats_banded_plain_matches_pallas(case, dtype, with_beta):
                                    atol=1e-6, err_msg=name)
 
 
-def _scan_operands(seed, batch, t_max, w):
+def _scan_operands(seed, batch, t_max, w, t_short=None):
     """Random finite streams and 0/1 shifts that switch along t (so a shift
-    read in the wrong direction fails), a short second sample."""
+    read in the wrong direction fails), a short second sample (T_b =
+    t_short where given, else T - 5)."""
     rng = np.random.RandomState(seed)
     mk = lambda: (rng.randn(batch, t_max, w) - 1.0).astype(np.float32)
     streams = [mk() for _ in range(4)]
     d = rng.randint(0, 2, (batch, t_max)).astype(np.int32)
     dn = rng.randint(0, 2, (batch, t_max)).astype(np.int32)
     assert d.min() == 0 and d.max() == 1 and dn.min() == 0 and dn.max() == 1
-    ilen = np.array([t_max] + [t_max - 5] * (batch - 1), np.int32)
+    short = t_max - 5 if t_short is None else t_short
+    ilen = np.array([t_max] + [short] * (batch - 1), np.int32)
     bvirt = np.where(rng.rand(batch, t_max, w) < 0.2, 0.0,
                      -np.inf).astype(np.float32)
     return streams, d, dn, ilen, bvirt
 
 
-@pytest.mark.parametrize("t_max,w", [(32, 8), (20, 16), (12, 40)])
-def test_alpha_scan_banded_plain_matches_pallas(t_max, w):
+# W on both sides of the CUDA scans' one-warp chain (W <= 32); the last case
+# has a second sample of T_b = 6, whose virtual row feeds 58 beta steps.
+SCAN_CASES = [pytest.param(*c, id=f"{c[0]}-{c[1]}") for c in
+              ((32, 8, None), (20, 16, None), (12, 40, None), (40, 32, None),
+               (40, 33, None), (64, 16, 6))]
+
+
+@pytest.mark.parametrize("t_max,w,t_short", SCAN_CASES)
+def test_alpha_scan_banded_plain_matches_pallas(t_max, w, t_short):
     (lpb, lpl, _, _), d, _, _, _ = _scan_operands(t_max + w, 2, t_max, w)
     want = jk.alpha_scan_banded(jnp.asarray(lpb), jnp.asarray(lpl),
                                 jnp.asarray(d)[..., None], interpret=True,
@@ -312,9 +321,10 @@ def test_alpha_scan_banded_plain_matches_pallas(t_max, w):
     _close(got, want, 1e-5, 1e-5)
 
 
-@pytest.mark.parametrize("t_max,w", [(32, 8), (20, 16), (12, 40)])
-def test_fwdbwd_scan_banded_plain_matches_pallas(t_max, w):
-    streams, d, dn, ilen, bvirt = _scan_operands(t_max * w, 2, t_max, w)
+@pytest.mark.parametrize("t_max,w,t_short", SCAN_CASES)
+def test_fwdbwd_scan_banded_plain_matches_pallas(t_max, w, t_short):
+    streams, d, dn, ilen, bvirt = _scan_operands(t_max * w, 2, t_max, w,
+                                                 t_short)
     j_args = [jnp.asarray(a) for a in streams]
     want = jk.fwdbwd_scan_banded(
         j_args[0], j_args[1], jnp.asarray(d)[..., None], j_args[2], j_args[3],

@@ -320,18 +320,39 @@ def test_softmax_stats_banded_kernel_matches_plain(device, case, dtype,
         _close(g, w, 1e-5, 1e-6)
 
 
-def _scan_args(device, seed, batch, t_max, w):
-    """Random streams, 0/1 shifts that switch along t, a short sample."""
+def _scan_args(device, seed, batch, t_max, w, shift=None, t_short=None):
+    """Random streams, 0/1 shifts that switch along t (all `shift` where
+    given), a short sample (T_b = t_short where given, else T - 5)."""
     rng = np.random.RandomState(seed)
     f = lambda a: torch.from_numpy(a).to(device)
     streams = [f((rng.randn(batch, t_max, w) - 1).astype(np.float32))
                for _ in range(4)]
-    d, dn = (f(rng.randint(0, 2, (batch, t_max)).astype(np.int32))
+    d, dn = (f(rng.randint(0, 2, (batch, t_max)).astype(np.int32)
+               if shift is None else np.full((batch, t_max), shift, np.int32))
              for _ in range(2))
-    ilen = f(np.array([t_max] + [max(1, t_max - 5)] * (batch - 1), np.int32))
+    short = max(1, t_max - 5) if t_short is None else t_short
+    ilen = f(np.array([t_max] + [short] * (batch - 1), np.int32))
     bvirt = f(np.where(rng.rand(batch, t_max, w) < 0.2, 0.0,
                        -np.inf).astype(np.float32))
     return (streams[0], streams[1], d, streams[2], streams[3], dn, ilen, bvirt)
+
+
+def _hold_scans(args):
+    """Both scan kernels against the plain versions, one launch each, and
+    the alpha halves equal bit for bit."""
+    before = {n: K.LAUNCHES[n] for n in ("fwdbwd_scan_banded",
+                                         "alpha_scan_banded")}
+    alphas, betas = BK.fwdbwd_scan_banded(*args)
+    a_only = BK.alpha_scan_banded(*args[:3])
+    want_a, want_b = BK.fwdbwd_scan_banded_plain(*args)
+    torch.cuda.synchronize()
+    assert {n: K.LAUNCHES[n] - b for n, b in before.items()} == {
+        "fwdbwd_scan_banded": 1, "alpha_scan_banded": 1}
+    # Another exp/log1p rounding, carried through T log-space steps.
+    for got, want in ((alphas, want_a), (a_only, want_a), (betas, want_b)):
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+        _close(got, want, 1e-4, 1e-5)
+    assert torch.equal(alphas, a_only)
 
 
 SCANS = [(2, 300, 16), (3, 40, 1), (2, 33, 40), (1, 70, 1100)]
@@ -339,16 +360,36 @@ SCANS = [(2, 300, 16), (3, 40, 1), (2, 33, 40), (1, 70, 1100)]
 
 @pytest.mark.parametrize("shape", SCANS, ids=lambda s: "x".join(map(str, s)))
 def test_banded_scan_kernels_match_plain(device, shape):
-    args = _scan_args(device, sum(shape), *shape)
-    alphas, betas = BK.fwdbwd_scan_banded(*args)
-    a_only = BK.alpha_scan_banded(*args[:3])
-    want_a, want_b = BK.fwdbwd_scan_banded_plain(*args)
-    torch.cuda.synchronize()
-    # Another exp/log1p rounding, carried through T log-space steps.
-    for got, want in ((alphas, want_a), (a_only, want_a), (betas, want_b)):
-        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
-        _close(got, want, 1e-4, 1e-5)
-    assert torch.equal(alphas, a_only)
+    _hold_scans(_scan_args(device, sum(shape), *shape))
+
+
+# The scans' design edges in csrc/banded.cu: (id, B, T, W, shift, T_b of the
+# short samples). W <= 32 runs a warp a chain with operands kScanRing = 16
+# steps ahead; W > 32 a block a chain through two stages of
+# 32768 // (4 * (3W + 3)) steps (80 at W = 33, 66 at W = 40).
+SCAN_EDGES = [
+    ("w1", 3, 50, 1, None, None), ("w2", 3, 50, 2, None, None),
+    ("w31", 2, 50, 31, None, None), ("w32", 2, 50, 32, None, None),
+    ("w33", 2, 50, 33, None, None),
+    ("t1-w16", 2, 1, 16, None, 1), ("t1-w40", 2, 1, 40, None, 1),
+    ("ring-minus-1", 2, 15, 16, None, None), ("ring", 2, 16, 16, None, None),
+    ("ring-plus-1", 2, 17, 16, None, None),
+    ("stage-minus-1", 2, 79, 33, None, None), ("stage", 2, 80, 33, None, None),
+    ("stage-plus-1", 2, 81, 33, None, None),
+    ("two-stages-plus-1", 2, 133, 40, None, None),
+    ("d-all-0-w16", 2, 60, 16, 0, None), ("d-all-1-w16", 2, 60, 16, 1, None),
+    ("d-all-0-w40", 2, 60, 40, 0, None), ("d-all-1-w40", 2, 60, 40, 1, None),
+    ("short-sample-w16", 3, 300, 16, None, 7),
+    ("short-sample-w40", 3, 300, 40, None, 7),
+    ("b64", 64, 100, 16, None, None),
+]
+
+
+@pytest.mark.parametrize("case", SCAN_EDGES, ids=lambda c: c[0])
+def test_banded_scan_kernels_at_chain_edges(device, case):
+    _, batch, t_max, w, shift, t_short = case
+    _hold_scans(_scan_args(device, batch * t_max + w, batch, t_max, w,
+                           shift=shift, t_short=t_short))
 
 
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
@@ -695,10 +736,12 @@ def test_dma_mode_refuses_a_misaligned_view(device):
         ST.stream_copy(x, mode="dma", nbuf=2)
 
 
-# The redesigned copies (stream_copy's two modes, stream_copy_blocked_tbsv):
-# (id, kernel, shape, arguments, elements the view starts past a fresh
-# allocation). The register copy's tiles are 8 KB, one CTA each, of which
-# the card holds 528 at once; TMA chunks are 16 KB, drawn by 132 CTAs.
+# The redesigned copies (stream_copy's two modes, stream_copy_blocked and
+# stream_copy_blocked_tbsv): (id, kernel, shape, arguments, elements the
+# view starts past a fresh allocation). The register copy's tiles are 8 KB,
+# one CTA each, of which the card holds 528 at once; TMA chunks are 16 KB,
+# drawn by 132 CTAs; the blocked copy's tickets are 16 KB pieces of its
+# (t-block, sample) tiles, drawn by 1056 CTAs.
 COPY_EDGES = [
     ("vmem-more-tiles-than-ctas", "vmem", (8192, 1024), dict(block_rows=8), 0),
     ("vmem-fewer-tiles-than-ctas", "vmem", (64, 256), dict(block_rows=16), 0),
@@ -714,12 +757,22 @@ COPY_EDGES = [
     ("tbsv-more-t-blocks-than-ctas", "tbsv", (1200, 2, 3, 7), dict(tt=1), 0),
     ("tbsv-one-t-block", "tbsv", (4, 8, 51, 1000), dict(tt=4), 0),
     ("tbsv-view-off", "tbsv", (40, 3, 5, 33), dict(tt=4), 1),
+    ("blocked-b1", "blocked", (1, 12, 51, 1024), dict(tt=2), 0),
+    ("blocked-tt3-rows-not-16-bytes", "blocked", (3, 9, 5, 33), dict(tt=3), 0),
+    ("blocked-one-row", "blocked", (1, 1, 1, 8), dict(tt=1), 0),
+    ("blocked-fewer-tickets-than-ctas", "blocked", (2, 4, 5, 128),
+     dict(tt=2), 0),
+    ("blocked-more-tickets-than-ctas", "blocked", (8, 200, 51, 256),
+     dict(tt=2), 0),
+    ("blocked-view-off", "blocked", (2, 8, 51, 1000), dict(tt=2), 1),
 ]
 _COPIES = {"vmem": (ST.stream_copy, ST.stream_copy_plain, "stream_copy"),
            "dma": (ST.stream_copy, ST.stream_copy_plain, "stream_copy"),
            "tbsv": (ST.stream_copy_blocked_tbsv,
                     ST.stream_copy_blocked_tbsv_plain,
-                    "stream_copy_blocked_tbsv")}
+                    "stream_copy_blocked_tbsv"),
+           "blocked": (ST.stream_copy_blocked, ST.stream_copy_blocked_plain,
+                       "stream_copy_blocked")}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -735,7 +788,7 @@ def test_copy_kernels_are_exact_at_edges(device, case, dtype):
     x = base[offset:].view(shape)
     assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
     kernel, plain, name = _COPIES[kind]
-    if kind != "tbsv":
+    if kind in ("vmem", "dma"):
         kw = dict(kw, mode=kind)
     before = K.LAUNCHES[name]
     got = kernel(x, **kw)
@@ -747,18 +800,20 @@ def test_copy_kernels_are_exact_at_edges(device, case, dtype):
 
 
 def test_copies_on_two_streams_are_exact(device):
-    # Each dma copy draws its chunks from a ticket counter of its own, so
-    # copies on two streams may overlap, the register copies among them.
+    # Each dma and blocked copy draws its work from a ticket counter of its
+    # own, so copies on two streams may overlap, the register copies among
+    # them.
     x = _random_bits((4096, 1024), torch.float32, device, 11)
     torch.cuda.synchronize()
     copies = [lambda: ST.stream_copy(x, "vmem", block_rows=64),
               lambda: ST.stream_copy(x, "dma", nbuf=4),
-              lambda: ST.stream_copy_blocked_tbsv(x.view(64, 4, 16, 1024))]
+              lambda: ST.stream_copy_blocked_tbsv(x.view(64, 4, 16, 1024)),
+              lambda: ST.stream_copy_blocked(x.view(4, 64, 16, 1024), tt=2)]
     streams = [torch.cuda.Stream(device), torch.cuda.Stream(device)]
     outs = []
-    for i in range(12):
+    for i in range(4 * len(copies)):   # each kind twice on either stream
         with torch.cuda.stream(streams[i % 2]):
-            outs.append(copies[i % 3]())
+            outs.append(copies[(i // 2) % len(copies)]())
     torch.cuda.synchronize()
     for out in outs:
         assert torch.equal(out.view(x.shape), x)
