@@ -24,7 +24,10 @@ rows 1-2 (the persistent ``stats_alpha_fused`` and ``beta_grad_fused``)
 also at EDGE_CASES, one launch a call, probing there exact -inf from
 LSE(-inf, -inf), +inf cost with a zero gradient on an infeasible lattice, an
 exact zero gradient on +-inf padding, and bf16 summed in f32 and written in
-bf16; then it drives the padded loss's main path (forward, cost-only and backward at the
+bf16, and at the benchmark lattice in f32 and bf16 rows 1, 3 and 7
+(``stats_alpha_fused``, ``softmax_stats`` and ``softmax_stats_banded`` on a
+band of W = S1 whose windows mask nothing) for stats equal bit for bit (they
+share one row reduction); then it drives the padded loss's main path (forward, cost-only and backward at the
 benchmark lattice B=32, T=200, S=50, V=1000, in float32 and bfloat16)
 against the plain-torch oracle, checks the golden values of the
 reference's worked example, takes five SGD steps, and times the kernels
@@ -36,7 +39,12 @@ the fwd+bwd time, and at the blocked ceiling and the spec).
 The banded phase then builds the banded acceptance case (B=2, T=1600,
 S=200, V=1024, alignment band +-20; benchmarks/banded_bench.py) with the
 port's own functions and, in float32 and bfloat16: holds the four banded
-kernels against their plain versions on the case's operands; drives
+kernels against their plain versions on the case's operands, and
+``softmax_stats`` against ``softmax_stats_banded`` bit for bit on the band's
+rows where the windows add 0; in float32 prints the stats drift
+(``band_stats_drift``: how many of row 7's denoms equal torch.logsumexp's,
+and which alphas and betas move when the scan reads them instead of the
+oracle's); drives
 ``monotonic_rnnt_loss_banded`` (a training step with per-sample weights, then
 a cost-only call, launch counts read after each part) against the banded
 oracle, and against the padded loss on the full [2, 1600, 201, 1024]
@@ -45,7 +53,8 @@ and the banded loss at the benchmark lattice (+-8 band, variable T_b and
 S_b) against the padded restricted result; and times each kernel beside its
 byte bound, its plain version and a PyTorch yardstick, the scans also in ns
 per dependent step and queued back to back (``queued_ms``: each call's host
-prelude then overlaps the kernel before it), and ``fwdbwd_scan_banded``
+prelude then overlaps the kernel before it; the stats kernels of rows 3, 7
+and 10 are queued too), and ``fwdbwd_scan_banded``
 once more with the second
 sample at T_b = T/2 (its beta chain then reads the virtual row on half its
 steps), held against its plain version there too.
@@ -130,7 +139,8 @@ Tolerances, each with its reason:
     arithmetic);
   * kernel vs plain version, same inputs: stats |d| <= 1e-5 + 1e-6|ref|
     (the kernel's warp reduction sums V in another order than
-    torch.logsumexp); alphas and betas |d| <= 1e-4 + 1e-5|ref| (that
+    torch.logsumexp); the stats kernels among themselves bit for bit (one
+    reduction, in one order for every kernel and load width); alphas and betas |d| <= 1e-4 + 1e-5|ref| (that
     rounding carried through T log-space steps of magnitude up to ~1e3);
     f32 grads |d| <= 1e-6 + 1e-4|ref|; bf16 grads |d| <= 1e-6 + 8e-3|ref|
     (one bf16 ulp: both sides round an f32 value whose last bits may differ);
@@ -226,6 +236,8 @@ F32_FLOPS_PER_S = 67e12
 
 
 LOG_PREFIX = ""   # a rank of the sharded phase prefixes its lines
+# Rows 1 and 7 reduce their rows with rows 3 and 10's stats reduction.
+SHARED_REDUCTION = "reduction shared with rows 3 and 10 (PR 9)"
 
 
 def log(msg: str) -> None:
@@ -256,6 +268,19 @@ def assert_close(got, ref, atol: float, rtol: float, what: str) -> float:
         raise CheckFailed(f"{what}: max |d| {err:.3g}; first bad index {idx}: "
                           f"got {float(got[idx])!r} ref {float(ref[idx])!r}")
     return err
+
+
+def worst_share(got, ref, atol: float, rtol: float) -> float:
+    """The largest |got - ref| / (atol + rtol|ref|): 1 is at the tolerance."""
+    got, ref = got.detach().double(), ref.detach().double()
+    diff = torch.where(got == ref, 0.0, (got - ref).abs())
+    return float((diff / (atol + rtol * ref.abs())).max())
+
+
+def ulps(x):
+    """The f32 spacing at |x|."""
+    x = x.float().abs()
+    return torch.nextafter(x, torch.full_like(x, float("inf"))) - x
 
 
 def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
@@ -602,7 +627,37 @@ def phase_kernels(mt, main_inputs):
         lg, lab, il, sl = main_inputs
         ops = kernel_operands(mt, lg.to(dtype), lab, il, sl, 0)
         errs[dtype] = compare_kernels(mt, *ops, f"benchmark {dtype}")
+        stats_bit_equality(mt, ops[0][0], ops[0][1], 0, f"benchmark {dtype}")
     return errs
+
+
+def stats_bit_equality(mt, logits, lab, blank, what):
+    """Rows 1, 3 and 7 on the same rows: stats_alpha_fused, softmax_stats,
+    and softmax_stats_banded on a band of W = S1 whose windows mask nothing
+    give denom, lp_blank and lp_label equal bit for bit (softmax_stats' raw
+    lp_label where the id is valid). They share one reduction."""
+    K, SK, BK = mt.K, mt.SK, mt.BK
+    batch, t_max, s1, _ = logits.shape
+    zeros = torch.zeros((batch, t_max), dtype=torch.int32, device=DEVICE)
+    full = torch.full_like(zeros, s1)
+    row1 = K.stats_alpha_fused(logits, lab, zeros, full - 1, blank)
+    row3 = SK.softmax_stats(logits, lab, blank)
+    lab3 = lab[:, None, :].expand(-1, t_max, -1).contiguous()
+    row7 = BK.softmax_stats_banded(logits, lab3,
+                                   (zeros, full, zeros, full - 1), blank)
+    valid = (lab >= 0)[:, None, :].expand(-1, t_max, -1)
+    for name, ref, others in (
+            ("denom", row1[0], (row3[0], row7[0])),
+            ("lp_blank", row1[1], (row3[1], row7[1], row7[3])),
+            ("lp_label", row1[2], (row7[2], row7[4])),
+            ("lp_label (valid ids)", row1[2][valid], (row3[2][valid],))):
+        for i, got in enumerate(others):
+            check(torch.equal(got, ref), f"{what}: {name} of the stats "
+                  f"kernels differ (pair {i}) from stats_alpha_fused's")
+    torch.cuda.synchronize()
+    log(f"stats bit for bit {what} [{batch},{t_max},{s1},{logits.shape[3]}]"
+        ": stats_alpha_fused == softmax_stats == softmax_stats_banded (W = "
+        "S1) on denom, lp_blank, lp_label")
 
 
 def phase_main(mt, main_inputs, weights, dtype):
@@ -896,6 +951,8 @@ def phase_timing(mt, main_inputs, weights, errs, main_launches):
         if "live_rows" in f32:
             entry["live_rows"] = f32["live_rows"]
             entry["rows"] = f32["rows"]
+        if name == "stats_alpha_fused":
+            entry["note"] = SHARED_REDUCTION
         kernels.append(entry)
     e2e = {str(d).removeprefix("torch."): rows[d][2] for d in rows}
     return kernels, e2e
@@ -974,6 +1031,22 @@ def compare_banded_kernels(mt, ops, what):
             + [assert_close(g, r, 1e-5, 1e-6, f"{what} stats {i} beta="
                             f"{with_beta}") for i, (g, r) in
                enumerate(zip(got, ref))])
+    # Rows 3 and 7 on the band's rows: equal bits where the windows add 0.
+    x, lab_band, (ra_lo, ra_hi, _, _), blank = ops["stats"]
+    row3 = mt.SK.softmax_stats(x, lab_band, blank)
+    row7 = BK.softmax_stats_banded(*ops["stats"], with_beta=False)
+    w_idx = torch.arange(x.shape[2], device=x.device)
+    in_a = (w_idx >= ra_lo[..., None]) & (w_idx <= ra_hi[..., None])
+    in_l = ((w_idx >= ra_lo[..., None] - 1) & (w_idx <= ra_hi[..., None] - 1)
+            & (lab_band >= 0))
+    for name, got, ref in (("denom", row3[0], row7[0]),
+                           ("lp_blank", row3[1][in_a], row7[1][in_a]),
+                           ("lp_label", row3[2][in_l], row7[2][in_l])):
+        check(torch.equal(got, ref), f"{what}: softmax_stats and "
+              f"softmax_stats_banded {name} differ on the band's rows")
+    log(f"{what}: softmax_stats == softmax_stats_banded bit for bit on the "
+        f"band's rows (denom; lp_blank on {int(in_a.sum())}, lp_label on "
+        f"{int(in_l.sum())} unmasked cells)")
     got = BK.fwdbwd_scan_banded(*ops["scan"])
     ref = BK.fwdbwd_scan_banded_plain(*ops["scan"])
     errs["fwdbwd_scan_banded"] = max(
@@ -1042,12 +1115,57 @@ def phase_banded_main(mt, case, weights, dtype):
     (ref * weights).sum().backward()
     bf16 = dtype == torch.bfloat16
     e_c = assert_close(costs, ref, 1e-4, 1e-5, f"banded {dtype} costs")
-    e_g = assert_close(grads, xr.grad, 1e-6, 1.6e-2 if bf16 else 1e-3,
+    g_tol = (1e-6, 1.6e-2 if bf16 else 1e-3)
+    e_g = assert_close(grads, xr.grad, *g_tol,
                        f"banded {dtype} grads vs oracle")
     log(f"banded main path {dtype}: launches fwd {after_fwd}, +bwd "
         f"{after_bwd}, +cost-only {launches}; vs banded oracle costs max|d| "
-        f"{e_c:.3g}, grads max|d| {e_g:.3g}; costs {costs.tolist()}")
+        f"{e_c:.3g}, grads max|d| {e_g:.3g} (at "
+        f"{worst_share(grads, xr.grad, *g_tol):.3g} of the tolerance); costs "
+        f"{costs.tolist()}")
     return launches, costs, grads
+
+
+def band_stats_drift(mt, ops):
+    """Where the f32 banded gradients part from the oracle's: row 7's denom
+    beside torch.logsumexp's on the rows inside the alpha window (the share
+    equal bit for bit; each one's mean and largest error against the
+    float64 value, in f32 ulps), and the alphas and betas that the banded
+    scan kernel computes from row 7's stats and from the oracle's (cells
+    that differ, by how many ulps of alpha, and alpha's largest ulp)."""
+    BK = mt.BK
+    x = ops["stats"][0]
+    got = BK.softmax_stats_banded(*ops["stats"])
+    ref = BK.softmax_stats_banded_plain(*ops["stats"])
+    live = torch.isfinite(ref[1])
+    truth = -torch.logsumexp(x[live].double(), dim=-1)
+    spacing = ulps(truth).double()
+
+    def err(d):
+        e = (d[live].double() - truth) / spacing
+        return f"mean {float(e.mean()):+.4f}, max {float(e.abs().max()):.3f}"
+
+    scan = ops["scan"]
+    mine = BK.fwdbwd_scan_banded(got[1], got[2], scan[2], got[3], got[4],
+                                 *scan[5:])
+    oracle = BK.fwdbwd_scan_banded(*scan)
+    parts = []
+    for name, a, b in zip(("alphas", "betas"), mine, oracle):
+        fin = torch.isfinite(b)
+        diff = (a != b) & fin
+        n_ulp = ((a - b).abs()[diff] / ulps(b[diff])).max() if bool(
+            diff.any()) else torch.tensor(0.0)
+        parts.append(f"{name} differ in {int(diff.sum())} of {int(fin.sum())}"
+                     f" cells, by <= {float(n_ulp):.3g} ulp")
+    a_max = float(oracle[0][torch.isfinite(oracle[0])].abs().max())
+    equal = float((got[0][live] == ref[0][live]).float().mean())
+    torch.cuda.synchronize()
+    log(f"banded f32 stats drift: softmax_stats_banded denom == "
+        f"torch.logsumexp's on {equal:.4f} of {int(live.sum())} rows in the "
+        f"alpha window; vs float64 "
+        f"(ulps): kernel {err(got[0])}, logsumexp {err(ref[0])}; scan on "
+        f"its stats vs the oracle's: {'; '.join(parts)}; |alpha| <= "
+        f"{a_max:.5g} (ulp {float(ulps(torch.tensor(a_max))):.3g})")
 
 
 def phase_banded_vs_padded(mt, case, weights, dtype, costs, grads):
@@ -1187,6 +1305,8 @@ def phase_banded_timing(mt, case, weights, errs, launches):
                 "library_ms": cuda_ms(lib) if lib else None,
                 "bound": bound}
         out["grad_pass"].update(live_rows=live, rows=n_b * n_t * n_w)
+        out["softmax_stats_banded"]["queued_ms"] = queued_ms(
+            timed["softmax_stats_banded"][0])
         for name in ("fwdbwd_scan_banded", "alpha_scan_banded"):
             out[name]["ns_per_step"] = out[name]["ms"] * 1e6 / n_t
             out[name]["queued_ms"] = queued_ms(timed[name][0])
@@ -1265,6 +1385,8 @@ def phase_banded_timing(mt, case, weights, errs, launches):
             "library_ms": f32["library_ms"],
             "status": ("redesigned" if name == "fwdbwd_scan_banded" else
                        "ported"),
+            **({"note": SHARED_REDUCTION}
+               if name == "softmax_stats_banded" else {}),
             "dtype": "float32",
             "shape": "B=%d,T=%d,W=%d,V=%d" % tuple(case["logits_band"].shape),
             "bf16": {"max_abs_err": errs[torch.bfloat16][name],
@@ -1299,8 +1421,11 @@ def run_banded(mt, golden, main_inputs, weights, restricted):
     band_w = torch.tensor([-0.5, 2.0], device=DEVICE)   # one negative
     errs, launches, costs_by_dtype = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        errs[dtype] = compare_banded_kernels(
-            mt, banded_operands(mt, case, band_w, dtype), f"banded {dtype}")
+        ops = banded_operands(mt, case, band_w, dtype)
+        errs[dtype] = compare_banded_kernels(mt, ops, f"banded {dtype}")
+        if dtype == torch.float32:
+            band_stats_drift(mt, ops)
+        del ops
         launched_d, costs, grads = phase_banded_main(mt, case, band_w, dtype)
         costs_by_dtype[str(dtype)] = costs
         if dtype == torch.float32:
@@ -1519,9 +1644,10 @@ def phase_split_timing(mt, main_inputs, weights):
                                     else 3),
                 "library_ms": cuda_ms(lib) if lib else None,
                 "bound": bound}
+            if scan_plain or name == "softmax_stats":
+                out[name]["queued_ms"] = queued_ms(kern)
             if scan_plain:                 # T dependent steps a chain
                 out[name]["ns_per_step"] = out[name]["ms"] * 1e6 / n_t
-                out[name]["queued_ms"] = queued_ms(kern)
                 out[name]["queued_ns_per_step"] = (out[name]["queued_ms"]
                                                    * 1e6 / n_t)
         lg_leaf = leaf(lg, dtype)
@@ -1597,18 +1723,21 @@ def split_kernel_entries(errs, launches, rows):
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
             "library_ms": f32["library_ms"],
-            "status": "ported", "dtype": "float32",
+            "status": ("redesigned, PR 9" if name == "softmax_stats" else
+                       "ported"),
+            "dtype": "float32",
             "shape": "B=%d,T=%d,S1=%d,V=%d" % (B, T, S + 1, V),
             "bf16": {"max_abs_err": errs[torch.bfloat16][name],
                      "ms": b16["ms"], "plain_ms": b16["plain_ms"],
                      "bound_ms": b16["bound"][0],
                      "library_ms": b16["library_ms"]},
         }
-        if f32["library_ms"] is None:
-            entry["library_note"] = "no single PyTorch call computes a scan"
-            for key in ("ns_per_step", "queued_ms", "queued_ns_per_step"):
+        for key in ("ns_per_step", "queued_ms", "queued_ns_per_step"):
+            if key in f32:
                 entry[key] = f32[key]
                 entry["bf16"][key] = b16[key]
+        if f32["library_ms"] is None:
+            entry["library_note"] = "no single PyTorch call computes a scan"
         if name == "beta_scan":
             entry["path_note"] = ("the fused-joint backward's per-chunk beta "
                                   "recurrence; the split route runs "
@@ -2457,6 +2586,7 @@ def phase_partial_timing(mt):
             "ms": cuda_ms(lambda: SK.softmax_stats_partial(x)),
             "plain_ms": cuda_ms(lambda: SK.softmax_stats_partial_plain(x),
                                 reps=1, warmup=1),
+            "queued_ms": queued_ms(lambda: SK.softmax_stats_partial(x)),
             "library_ms": cuda_ms(lambda: torch.logsumexp(x, dim=-1)),
             "bound": bound_ms(x.numel() * x.element_size() + 2 * rows * 4,
                               4 * x.numel())}
@@ -2525,10 +2655,11 @@ def run_sharded(mt, banded_case, costs):
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
         "library_ms": f32["library_ms"], "library_call": "torch.logsumexp",
-        "status": "ported", "dtype": "float32",
+        "status": "redesigned, PR 9", "dtype": "float32",
         "shape": "B=%d,T=%d,S1=%d,V_local=%d" % (B // 2, T, S + 1, V // 2),
+        "queued_ms": f32["queued_ms"],
         "bf16": {"ms": b16["ms"], "plain_ms": b16["plain_ms"],
-                 "bound_ms": b16["bound"][0],
+                 "queued_ms": b16["queued_ms"], "bound_ms": b16["bound"][0],
                  "library_ms": b16["library_ms"]},
     }
     log(f"sharded phase: inputs saved in {t_saved:.1f} s, whole phase "

@@ -21,8 +21,9 @@
 // samples.
 //
 // Design.
-//  * Stats: one warp per (b,t,w) row, the online log-sum-exp of
-//    common.cuh (as mrnnt_stats_kernel); lane 0 gathers x[blank] and
+//  * Stats: one warp per (b,t,w) row, reduced by common.cuh's walk_rows
+//    (the stats reduction of every stats kernel, so a row's stats equal
+//    the split and fused routes' bit for bit); lane 0 reads x[blank] and
 //    x[lab_band[row]] and adds the 0/-inf window masks. The alpha emit mask
 //    is the alpha window shifted by one slot (bounds minus 1): the emit into
 //    w reads lp_label at w-1.
@@ -53,42 +54,58 @@
 
 namespace mrnnt {
 
+// softmax_stats_banded's rows: lane 0 reads x[blank] and x[lab_band[row]]
+// and writes the stats with the window masks added.
 template <typename T>
-__global__ void mrnnt_stats_banded_kernel(
+struct BandedStatsRows {
+  DirectReads<T> d;
+  const int* lab_band;
+  const int *ra_lo, *ra_hi, *rb_lo, *rb_hi;
+  int w;
+  float *denom, *lpba, *lpla, *lpbb, *lplb;
+
+  __device__ __forceinline__ void begin(long long, long long) {}
+  __device__ __forceinline__ void pre(long long row) {
+    d.load(row, lab_band[row]);
+  }
+  __device__ __forceinline__ void start(long long row) { d.take(row); }
+  __device__ __forceinline__ void fin(long long row, float m, float s) {
+    const float dn = -(m + logf(s));
+    const long long bt = row / w;
+    const int wi = static_cast<int>(row % w);
+    // The -1 sentinel gives lp_label = -inf before the mask is added.
+    const float lpb = d.xb + dn;
+    const float lpl = d.lab >= 0 ? d.xl + dn : MRNNT_NEG_INF;
+    const int alo = ra_lo[bt], ahi = ra_hi[bt];
+    denom[row] = dn;
+    lpba[row] = lpb + window_mask(wi, alo, ahi);
+    lpla[row] = lpl + window_mask(wi, alo - 1, ahi - 1);
+    if (lpbb != nullptr) {
+      const float bm = window_mask(wi, rb_lo[bt], rb_hi[bt]);
+      lpbb[row] = lpb + bm;
+      lplb[row] = lpl + bm;
+    }
+  }
+};
+
+// A warp a row (blocks of 8 rows; a half-warp a row on short rows, when
+// the upper half of the grid has none).
+template <typename T, int kBytes, int kG>
+__global__ void __launch_bounds__(kRowThreads) mrnnt_stats_banded_kernel(
     const T* __restrict__ logits, const int* __restrict__ lab_band,
     const int* __restrict__ ra_lo, const int* __restrict__ ra_hi,
     const int* __restrict__ rb_lo, const int* __restrict__ rb_hi,
     long long rows, int w, int v, int blank, float* __restrict__ denom,
     float* __restrict__ lpba, float* __restrict__ lpla,
     float* __restrict__ lpbb, float* __restrict__ lplb) {
-  const int lane = threadIdx.x % kWarp;
-  const long long row =
+  BandedStatsRows<T> r{{logits, v, blank}, lab_band, ra_lo, ra_hi, rb_lo,
+                       rb_hi, w, denom, lpba, lpla, lpbb, lplb};
+  const long long warp =
       static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) +
       threadIdx.x / kWarp;
-  if (row >= rows) return;
-  const T* x = logits + row * static_cast<long long>(v);
-  float m, s;
-  warp_row_lse(x, v, lane, m, s);
-  if (lane != 0) return;
-
-  const float d = -(m + logf(s));
-  const long long bt = row / w;
-  const int wi = static_cast<int>(row % w);
-  const int lab = lab_band[row];
-  // Ids outside [0, V) select nothing (0.0), as the Pallas compare-select;
-  // the -1 sentinel gives lp_label = -inf before the mask is added.
-  const float xl = (lab >= 0 && lab < v) ? to_f32(x[lab]) : 0.f;
-  const float lpb = to_f32(x[blank]) + d;
-  const float lpl = lab >= 0 ? xl + d : MRNNT_NEG_INF;
-  const int alo = ra_lo[bt], ahi = ra_hi[bt];
-  denom[row] = d;
-  lpba[row] = lpb + window_mask(wi, alo, ahi);
-  lpla[row] = lpl + window_mask(wi, alo - 1, ahi - 1);
-  if (lpbb != nullptr) {
-    const float bm = window_mask(wi, rb_lo[bt], rb_hi[bt]);
-    lpbb[row] = lpb + bm;
-    lplb[row] = lpl + bm;
-  }
+  walk_rows<T, kBytes, kG>(logits, v, 0, warp,
+                       static_cast<long long>(gridDim.x) * (blockDim.x / kWarp),
+                       rows, r);
 }
 
 // --- W <= 32: a warp a chain -------------------------------------------------
@@ -467,16 +484,17 @@ extern "C" int mrnnt_stats_banded(const void* logits, int is_bf16,
   const long long rows = static_cast<long long>(batch) * t_max * w;
   unsigned blocks;
   if (const int err = row_blocks(rows, &blocks)) return err;
+  if (blocks == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    mrnnt_stats_banded_kernel<__nv_bfloat16><<<blocks, kRowThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(logits), lab_band, ra_lo, ra_hi,
-        rb_lo, rb_hi, rows, w, v, blank, denom, lpba, lpla, lpbb, lplb);
-  else
-    mrnnt_stats_banded_kernel<float><<<blocks, kRowThreads, 0, st>>>(
-        static_cast<const float*>(logits), lab_band, ra_lo, ra_hi, rb_lo,
-        rb_hi, rows, w, v, blank, denom, lpba, lpla, lpbb, lplb);
-  return static_cast<int>(cudaGetLastError());
+  return with_row_type(is_bf16, logits, v, [&](auto rt) {
+    using R = decltype(rt);
+    using T = typename R::type;
+    mrnnt_stats_banded_kernel<T, R::bytes, R::lanes>
+        <<<blocks, kRowThreads, 0, st>>>(
+            static_cast<const T*>(logits), lab_band, ra_lo, ra_hi, rb_lo,
+            rb_hi, rows, w, v, blank, denom, lpba, lpla, lpbb, lplb);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" int mrnnt_alpha_banded(const float* lpb, const float* lpl,

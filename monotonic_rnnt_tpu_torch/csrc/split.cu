@@ -21,15 +21,26 @@
 // What bounds them on an H100. The stats kernels: HBM bytes, one read of the
 // logits (1.31 GB f32 / 0.65 GB bf16 at B=32, T=200, S=50, V=1000: ~0.39 /
 // 0.20 ms at 3.35 TB/s; a rank's [16,200,51,500] shard on a 2x2 mesh: 0.097
-// / 0.049 ms). The scans: latency, not bytes. Their traffic is O(B*T*S1)
-// f32 (a few us of HBM time) but each walks T dependent steps.
+// / 0.049 ms), as long as a value costs few enough instructions: at the
+// bf16 byte rate the card issues ~20 lane-instructions a value. The online
+// log-sum-exp these kernels had (5 expf for 4 values and 10 more a lane in
+// the shuffle tree, ~25-30 instructions a value) was bound by its
+// arithmetic at ~2x the bytes' time; the stats reduction now takes ~10 (one
+// expf, its argument, the accumulating FFMA, the bf16 unpack, half a max).
+// The scans: latency, not bytes. Their traffic is O(B*T*S1) f32 (a few us
+// of HBM time) but each walks T dependent steps.
 //
 // Design.
-//  * Stats: one warp per (b,t,s) row, the online log-sum-exp of common.cuh
-//    (as the other stats kernels). Lane 0 gathers x[blank] and x[label];
+//  * Stats: a persistent grid (the CTAs resident at once) whose warps walk
+//    the (b,t,s) rows in order, a warp a row (a half-warp on short rows),
+//    reduced by common.cuh's walk_rows (the stats reduction of every stats
+//    kernel): loads as wide as the rows' alignment allows, the warp's next
+//    2 KB round (its next row's, at V = 1000 bf16) in flight while one is
+//    reduced in registers. Lane 0 reads x[blank] and x[label] directly,
+//    through the lines the round brought in;
 //    labels are addressed with a b- and a t-stride (t-stride 0 for [B,S1]).
-//    The partial kernel writes the row's (m, se) and gathers nothing. An all
-//    -inf row gives m = -inf and se = 0, where the TPU kernel's
+//    The partial kernel writes the row's (m, se) and reads nothing else. An
+//    all -inf row gives m = -inf and se = 0, where the TPU kernel's
 //    exp(-inf - -inf) gives se = NaN: the shards' combine then needs no
 //    guard against a shard whose row is all -inf.
 //  * Scans: the TPU kernel packs alpha and t-reversed beta into one row of
@@ -56,49 +67,116 @@
 
 namespace mrnnt {
 
+// softmax_stats' rows: lane 0 reads x[blank] and x[label] and writes denom,
+// lp_blank and lp_label_raw. A label's (b, t, s) is carried from row to row
+// of the warp's walk by adding the stride's, so no row pays a division.
 template <typename T>
-__global__ void mrnnt_softmax_stats_kernel(
+struct SplitStatsRows {
+  DirectReads<T> d;
+  const int* labels;
+  long long lab_b_stride, lab_t_stride;
+  int t_max, s1;
+  float* denom;
+  float* lp_blank;
+  float* lp_label;
+  long long b = 0, db = 0;  // (b, t, s) of the row pre() takes next,
+  int t = 0, s = 0;         // and (db, dt, ds) of the walk's stride
+  int dt = 0, ds = 0;
+
+  __device__ __forceinline__ void split(long long r, long long& rb, int& rt,
+                                        int& rs) const {
+    const long long bt = r / s1;
+    rs = static_cast<int>(r - bt * s1);
+    rb = bt / t_max;
+    rt = static_cast<int>(bt - rb * t_max);
+  }
+  __device__ __forceinline__ void begin(long long row, long long stride) {
+    split(row, b, t, s);
+    split(stride, db, dt, ds);
+  }
+  __device__ __forceinline__ void pre(long long row) {
+    d.load(row, labels[b * lab_b_stride + t * lab_t_stride + s]);
+    s += ds;
+    const int carry = s >= s1;
+    if (carry) s -= s1;
+    t += dt + carry;  // < 2 * t_max
+    if (t >= t_max) {
+      t -= t_max;
+      ++b;
+    }
+    b += db;
+  }
+  __device__ __forceinline__ void start(long long row) { d.take(row); }
+  __device__ __forceinline__ void fin(long long row, float m, float s_) {
+    // An all -inf row gives denom = +inf, as logsumexp's -inf.
+    const float dn = -(m + logf(s_));
+    denom[row] = dn;
+    lp_blank[row] = d.xb + dn;
+    lp_label[row] = d.xl + dn;
+  }
+};
+
+// softmax_stats_partial's rows: (m, s) as they are.
+struct PartialRows {
+  float* m_out;
+  float* se_out;
+
+  __device__ __forceinline__ void begin(long long, long long) {}
+  __device__ __forceinline__ void pre(long long) {}
+  __device__ __forceinline__ void start(long long) {}
+  __device__ __forceinline__ void fin(long long row, float m, float s) {
+    m_out[row] = m;
+    se_out[row] = s;
+  }
+};
+
+// The grid's warps walk the rows in order: warp w takes rows w, w + warps,
+// ... (or, on short rows, a half-warp each of rows 2w and 2w + 1, ...),
+// each with its next round in flight (common.cuh's walk_rows).
+struct GridWalk {
+  long long warp, warps;  // this warp, and the grid's warps (the stride)
+};
+
+__device__ __forceinline__ GridWalk grid_walk() {
+  return {static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) +
+              threadIdx.x / kWarp,
+          static_cast<long long>(gridDim.x) * (blockDim.x / kWarp)};
+}
+
+template <typename T, int kBytes, int kG>
+__global__ void __launch_bounds__(kRowThreads) mrnnt_softmax_stats_kernel(
     const T* __restrict__ logits, const int* __restrict__ labels,
     long long lab_b_stride, long long lab_t_stride, long long rows,
     int t_max, int s1, int v, int blank, float* __restrict__ denom,
     float* __restrict__ lp_blank, float* __restrict__ lp_label) {
-  const int lane = threadIdx.x % kWarp;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) +
-      threadIdx.x / kWarp;
-  if (row >= rows) return;
-  const T* x = logits + row * static_cast<long long>(v);
-  float m, s;
-  warp_row_lse(x, v, lane, m, s);
-  if (lane != 0) return;
-
-  // An all -inf row gives denom = +inf, as logsumexp's -inf.
-  const float d = -(m + logf(s));
-  const long long bt = row / s1;
-  const int lab = labels[(bt / t_max) * lab_b_stride +
-                         (bt % t_max) * lab_t_stride +
-                         static_cast<int>(row % s1)];
-  // Ids outside [0, V) select nothing (0.0), as the compare-select sum.
-  const float xl = (lab >= 0 && lab < v) ? to_f32(x[lab]) : 0.f;
-  denom[row] = d;
-  lp_blank[row] = to_f32(x[blank]) + d;
-  lp_label[row] = xl + d;
+  SplitStatsRows<T> r{{logits, v, blank}, labels, lab_b_stride,
+                      lab_t_stride, t_max, s1, denom, lp_blank, lp_label};
+  const GridWalk g = grid_walk();
+  walk_rows<T, kBytes, kG>(logits, v, 0, g.warp, g.warps, rows, r);
 }
 
-template <typename T>
-__global__ void mrnnt_softmax_stats_partial_kernel(
-    const T* __restrict__ logits, long long rows, int v,
-    float* __restrict__ m_out, float* __restrict__ se_out) {
-  const int lane = threadIdx.x % kWarp;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) +
-      threadIdx.x / kWarp;
-  if (row >= rows) return;
-  float m, s;
-  warp_row_lse(logits + row * static_cast<long long>(v), v, lane, m, s);
-  if (lane != 0) return;
-  m_out[row] = m;
-  se_out[row] = s;
+template <typename T, int kBytes, int kG>
+__global__ void __launch_bounds__(kRowThreads)
+    mrnnt_softmax_stats_partial_kernel(const T* __restrict__ logits,
+                                       long long rows, int v,
+                                       float* __restrict__ m_out,
+                                       float* __restrict__ se_out) {
+  PartialRows r{m_out, se_out};
+  const GridWalk g = grid_walk();
+  walk_rows<T, kBytes, kG>(logits, v, 0, g.warp, g.warps, rows, r);
+}
+
+// A persistent grid for `kernel`: the CTAs resident at once, or fewer when
+// the rows need fewer blocks of kRowThreads.
+template <typename K>
+int stats_grid(K kernel, long long rows, unsigned* blocks) {
+  if (const int err = row_blocks(rows, blocks)) return err;
+  int ctas = 0;
+  if (const int err = resident_ctas(kernel, kRowThreads, 0, &ctas))
+    return err;
+  if (static_cast<long long>(ctas) < *blocks)
+    *blocks = static_cast<unsigned>(ctas);
+  return 0;
 }
 
 // Operand bytes one chunk stages in shared memory (three [tc, S1] streams).
@@ -289,21 +367,23 @@ extern "C" int mrnnt_softmax_stats(const void* logits, int is_bf16,
                                    float* lp_label, void* stream) {
   using namespace mrnnt;
   const long long rows = static_cast<long long>(batch) * t_max * s1;
-  unsigned blocks;
-  if (const int err = row_blocks(rows, &blocks)) return err;
+  if (rows == 0) return 0;
   const long long t_stride = labels_per_t ? s1 : 0;
   const long long b_stride =
       labels_per_t ? static_cast<long long>(t_max) * s1 : s1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    mrnnt_softmax_stats_kernel<__nv_bfloat16><<<blocks, kRowThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(logits), labels, b_stride, t_stride,
-        rows, t_max, s1, v, blank, denom, lp_blank, lp_label);
-  else
-    mrnnt_softmax_stats_kernel<float><<<blocks, kRowThreads, 0, st>>>(
-        static_cast<const float*>(logits), labels, b_stride, t_stride, rows,
+  return with_row_type(is_bf16, logits, v, [&](auto rt) {
+    using R = decltype(rt);
+    using T = typename R::type;
+    const auto kernel =
+        mrnnt_softmax_stats_kernel<T, R::bytes, R::lanes>;
+    unsigned blocks;
+    if (const int err = stats_grid(kernel, rows, &blocks)) return err;
+    kernel<<<blocks, kRowThreads, 0, st>>>(
+        static_cast<const T*>(logits), labels, b_stride, t_stride, rows,
         t_max, s1, v, blank, denom, lp_blank, lp_label);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" int mrnnt_softmax_stats_partial(const void* logits, int is_bf16,
@@ -312,17 +392,19 @@ extern "C" int mrnnt_softmax_stats_partial(const void* logits, int is_bf16,
                                            void* stream) {
   using namespace mrnnt;
   const long long rows = static_cast<long long>(batch) * t_max * s1;
-  unsigned blocks;
-  if (const int err = row_blocks(rows, &blocks)) return err;
+  if (rows == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    mrnnt_softmax_stats_partial_kernel<__nv_bfloat16>
-        <<<blocks, kRowThreads, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(logits), rows, v, m, se);
-  else
-    mrnnt_softmax_stats_partial_kernel<float><<<blocks, kRowThreads, 0, st>>>(
-        static_cast<const float*>(logits), rows, v, m, se);
-  return static_cast<int>(cudaGetLastError());
+  return with_row_type(is_bf16, logits, v, [&](auto rt) {
+    using R = decltype(rt);
+    using T = typename R::type;
+    const auto kernel =
+        mrnnt_softmax_stats_partial_kernel<T, R::bytes, R::lanes>;
+    unsigned blocks;
+    if (const int err = stats_grid(kernel, rows, &blocks)) return err;
+    kernel<<<blocks, kRowThreads, 0, st>>>(static_cast<const T*>(logits),
+                                           rows, v, m, se);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" int mrnnt_alpha_scan(const float* lpb, const float* lpl,

@@ -18,17 +18,16 @@
 // global counters, which the wrapper zeroes with B*T ready flags in one
 // int32 scratch:
 //  * stats tiles (counter 1, tickets 0..B*T-1): one (b,t) lattice row block
-//    of S1 rows, in ascending t, t-major across samples. A warp a row: an
-//    online max/sum-exp over V in f32. Where rows_are_16b holds, the warp
-//    reads its rows 16 bytes a lane into registers, one 2 KB piece ahead,
-//    and reduces each piece from a 2 KB shared stage with warp_row_lse's
-//    own rounds (lse_rounds, warp_lse_combine), so the
-//    stats equal bit for bit those of warp_row_lse, which the split and
-//    banded routes' stats kernels use; otherwise warp_row_lse reads one
-//    scalar a lane. Lane 0 takes x[blank] and x[label[s]] directly (an id
-//    outside [0, V) selects 0.0, and -1 gives lp_label = -inf,
-//    kernels.py:573). Once its S1 rows are written the tile sets
-//    ready[b,t] (release). Tiles never wait.
+//    of S1 rows, in ascending t, t-major across samples. A warp a row,
+//    reduced by common.cuh's walk_rows (the stats reduction that the split
+//    and banded routes' stats kernels share, so their stats are equal bit
+//    for bit): loads as wide as the rows' alignment allows (16 bytes a lane
+//    at V = 1000), one 2 KB round a warp in registers (the next round's
+//    loads go out before the row's shuffle trees), one expf a value. Lane 0 reads x[blank]
+//    and x[label[s]] directly, through the cache lines the round just
+//    brought in (an id outside [0, V) selects 0.0, and -1 gives
+//    lp_label = -inf, kernels.py:573). Once its S1 rows are written the
+//    tile sets ready[b,t] (release). Tiles never wait.
 //  * alpha chains (counter 0, tickets 0..B-1), taken first: one CTA walks
 //    sample b's alpha row up t in shared memory. Warp 0 acquires the ready
 //    flags of the next `win` rows at once; the CTA reads the rows that are
@@ -65,93 +64,53 @@ struct StatsAlphaArgs {
 };
 
 // Floats of a chain's shared memory (two alpha rows, a window of win rows
-// of lp_blank and lp_label, win lo/hi pairs), rounded up to 16 bytes; the
-// warps' row stages follow it on the 16-byte path.
+// of lp_blank and lp_label, win lo/hi pairs), rounded up to 16 bytes.
 inline __host__ __device__ int chain_floats(int s1, int win) {
   return ((2 + 2 * win) * s1 + 2 * win + 3) / 4 * 4;
 }
 
-// Lane 0's outputs of one row from its (m, s) and its two direct reads.
-__device__ __forceinline__ void write_stats(const StatsAlphaArgs& a,
-                                            long long row, float m, float sm,
-                                            float xb, float xl, int lab) {
-  // An all -inf row gives denom = +inf, as logsumexp's -inf; the -1
-  // sentinel gives lp_label = -inf (kernels.py:573).
-  const float d = -(m + logf(sm));
-  a.denom[row] = d;
-  a.lp_blank[row] = xb + d;
-  a.lp_label[row] = lab >= 0 ? xl + d : MRNNT_NEG_INF;
-}
+// A stats tile's rows: lane 0 reads x[blank] and x[label[s]] and writes
+// denom, lp_blank and lp_label. An all -inf row gives denom = +inf, as
+// logsumexp's -inf; the -1 sentinel gives lp_label = -inf (kernels.py:573).
+template <typename T>
+struct TileRows {
+  DirectReads<T> d;
+  const StatsAlphaArgs* a;
+  const int* labels;  // sample b's [S1] ids
+  long long row0;
 
-// Stats of the S1 rows of lattice row (b, t) = ticket k, a warp a row, then
-// ready[b,t]. sh: the kernel's dynamic shared memory.
-template <typename T, bool kVec>
-__device__ void stats_tile(const StatsAlphaArgs& a, int k, float* sh) {
+  __device__ __forceinline__ void begin(long long, long long) {}
+  __device__ __forceinline__ void pre(long long row) {
+    d.load(row, labels[row - row0]);
+  }
+  __device__ __forceinline__ void start(long long row) { d.take(row); }
+  __device__ __forceinline__ void fin(long long row, float m, float sm) {
+    const float dn = -(m + logf(sm));
+    a->denom[row] = dn;
+    a->lp_blank[row] = d.xb + dn;
+    a->lp_label[row] = d.lab >= 0 ? d.xl + dn : MRNNT_NEG_INF;
+  }
+};
+
+// Stats of the S1 rows of lattice row (b, t) = ticket k, warp w taking rows
+// w, w + 8, ... (half-warps rows 2w + h, 2w + 16 + h, ... on short rows)
+// with common.cuh's walk_rows, then ready[b,t].
+template <typename T, int kBytes, int kG>
+__device__ void stats_tile(const StatsAlphaArgs& a, int k) {
   const int t = k / a.batch, b = k % a.batch;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const long long row0 = (static_cast<long long>(b) * a.t_max + t) * a.s1;
   const T* logits = static_cast<const T*>(a.logits);
-  if constexpr (kVec) {
-    // The warp's rows in pieces of kStageValues<T> (V = 1000: one piece
-    // bf16, two f32), read 16 bytes a lane into registers one piece ahead:
-    // piece q + 1 is in flight while piece q, stored to the warp's shared
-    // stage, is reduced in warp_row_lse's order.
-    constexpr int kS = kStageValues<T>;
-    T* stage = reinterpret_cast<T*>(sh + chain_floats(a.s1, a.win)) +
-               warp * kS;
-    const int pieces = (a.v + kS - 1) / kS;
-    const int items = (a.s1 - warp + kWarps - 1) / kWarps * pieces;
-    const auto src = [&](int q) {
-      return logits + (row0 + warp + q / pieces * kWarps) * a.v +
-             q % pieces * kS;
-    };
-    const auto count = [&](int q) { return min(kS, a.v - q % pieces * kS); };
-    typename Vec16<T>::type raw[kStageVecs<T>];
-    if (items > 0) load_stage<T>(raw, src(0), count(0), lane);
-    float m = MRNNT_NEG_INF, sm = 0.f, xb = 0.f, xl = 0.f;
-    for (int q = 0; q < items; ++q) {
-      const int s = warp + q / pieces * kWarps, b0 = q % pieces * kS;
-      const int n = count(q);
-      store_stage<T>(raw, stage, n, lane);
-      __syncwarp();
-      if (q + 1 < items) load_stage<T>(raw, src(q + 1), count(q + 1), lane);
-      const int lab = a.labels[b * a.s1 + s];
-      lse_rounds(stage, n, lane, m, sm);
-      if (lane == 0) {
-        // The direct reads, from the piece that holds them; an id outside
-        // [0, V) selects nothing (0.0), as kernels.py's select.
-        if (a.blank >= b0 && a.blank < b0 + n) xb = to_f32(stage[a.blank - b0]);
-        if (lab >= b0 && lab < b0 + n) xl = to_f32(stage[lab - b0]);
-      }
-      __syncwarp();  // the stage is read before the next piece lands in it
-      if (q % pieces == pieces - 1) {
-        warp_lse_combine(m, sm);
-        if (lane == 0) write_stats(a, row0 + s, m, sm, xb, xl, lab);
-        m = MRNNT_NEG_INF;
-        sm = xb = xl = 0.f;
-      }
-    }
-  } else {
-    for (int s = warp; s < a.s1; s += kWarps) {
-      const long long row = row0 + s;
-      const T* x = logits + row * a.v;
-      float m, sm;
-      warp_row_lse(x, a.v, lane, m, sm);
-      if (lane == 0) {
-        const int lab = a.labels[b * a.s1 + s];
-        // An id outside [0, V) selects nothing (0.0), as kernels.py's select.
-        const float xl = (lab >= 0 && lab < a.v) ? to_f32(x[lab]) : 0.f;
-        write_stats(a, row, m, sm, to_f32(x[a.blank]), xl, lab);
-      }
-    }
-  }
+  TileRows<T> rows{{logits, a.v, a.blank}, &a, a.labels + b * a.s1, row0};
+  // One round buffer: two spill under the kernel's 64 registers.
+  walk_rows<T, kBytes, kG, false>(logits, a.v, row0, threadIdx.x / kWarp,
+                                  kWarps, row0 + a.s1, rows);
   __syncthreads();
   if (threadIdx.x == 0)
     publish_flag(a.sync + static_cast<long long>(b) * a.t_max + t, 1);
 }
 
 // Sample b's alpha chain, run by the whole CTA. ctrl: one shared int.
-template <typename T, bool kVec>
+template <typename T, int kBytes, int kG>
 __device__ void alpha_chain(const StatsAlphaArgs& a, int b, float* sh,
                             int* ctrl) {
   const int tid = threadIdx.x, s1 = a.s1, t_max = a.t_max, win = a.win;
@@ -192,7 +151,7 @@ __device__ void alpha_chain(const StatsAlphaArgs& a, int b, float* sh,
     __syncthreads();
     const int c = *ctrl;
     if (c < 0) {
-      stats_tile<T, kVec>(a, -1 - c, sh);
+      stats_tile<T, kBytes, kG>(a, -1 - c);
       continue;
     }
     const int rows = c - t;
@@ -231,7 +190,7 @@ __device__ void alpha_chain(const StatsAlphaArgs& a, int b, float* sh,
 }
 
 // At most 64 registers a thread: four CTAs an SM.
-template <typename T, bool kVec>
+template <typename T, int kBytes, int kG>
 __global__ void __launch_bounds__(kThreads, 4)
     mrnnt_stats_alpha_kernel(StatsAlphaArgs a) {
   extern __shared__ float sh[];
@@ -244,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     const int c = ticket;
     __syncthreads();
     if (c >= a.batch) break;
-    alpha_chain<T, kVec>(a, c, sh, &ctrl);
+    alpha_chain<T, kBytes, kG>(a, c, sh, &ctrl);
   }
   for (;;) {
     if (threadIdx.x == 0) ticket = atomicAdd(counters + 1, 1);
@@ -252,16 +211,14 @@ __global__ void __launch_bounds__(kThreads, 4)
     const int k = ticket;
     __syncthreads();
     if (k >= tiles) break;
-    stats_tile<T, kVec>(a, k, sh);
+    stats_tile<T, kBytes, kG>(a, k);
   }
 }
 
-template <typename T, bool kVec>
+template <typename T, int kBytes, int kG>
 int launch_stats_alpha(const StatsAlphaArgs& a, cudaStream_t stream) {
-  const auto kernel = mrnnt_stats_alpha_kernel<T, kVec>;
-  const size_t smem =
-      chain_floats(a.s1, a.win) * sizeof(float) +
-      (kVec ? static_cast<size_t>(kWarps) * kStageValues<T> * sizeof(T) : 0);
+  const auto kernel = mrnnt_stats_alpha_kernel<T, kBytes, kG>;
+  const size_t smem = chain_floats(a.s1, a.win) * sizeof(float);
   int ctas = 0;
   if (const int err = resident_ctas(kernel, kThreads, smem, &ctas)) return err;
   const long long tickets = static_cast<long long>(a.batch) * (a.t_max + 1);
@@ -290,10 +247,8 @@ extern "C" int mrnnt_stats_alpha(const void* logits, int is_bf16,
   const StatsAlphaArgs a{logits, labels_ext, a_lo, a_hi, batch, t_max, s1, v,
                          blank, win, denom, lp_blank, lp_label, alphas, sync};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = rows_are_16b(logits, logits, v, is_bf16 ? 2 : 4);
-  if (is_bf16)
-    return vec ? launch_stats_alpha<__nv_bfloat16, true>(a, st)
-               : launch_stats_alpha<__nv_bfloat16, false>(a, st);
-  return vec ? launch_stats_alpha<float, true>(a, st)
-             : launch_stats_alpha<float, false>(a, st);
+  return with_row_type(is_bf16, logits, v, [&](auto rt) {
+    using R = decltype(rt);
+    return launch_stats_alpha<typename R::type, R::bytes, R::lanes>(a, st);
+  });
 }

@@ -74,8 +74,10 @@ def softmax_stats_banded(logits_band, lab_band, rel_bounds: Bounds,
     _check(lab_band, "lab_band", torch.int32, (batch, t_max, w), dev)
     for name, t in zip(("ra_lo", "ra_hi", "rb_lo", "rb_hi"), rel_bounds):
         _check(t, name, torch.int32, (batch, t_max), dev)
-    out = tuple(torch.empty((batch, t_max, w), dtype=torch.float32, device=dev)
-                for _ in range(5 if with_beta else 3))
+    # One allocation for the outputs: the host prelude is part of a call
+    # that the kernel makes short.
+    out = torch.empty((5 if with_beta else 3, batch, t_max, w),
+                      dtype=torch.float32, device=dev).unbind(0)
     betas_out = out[3:] if with_beta else (None, None)
     _call("mrnnt_stats_banded", dev, _ptr(logits_band),
           int(logits_band.dtype == torch.bfloat16), _ptr(lab_band),

@@ -63,8 +63,10 @@ def softmax_stats(logits, labels_ext, blank_id: int):
     per_t = labels_ext.dim() == 3
     _check(labels_ext, "labels_ext", torch.int32,
            (batch, t_max, s1) if per_t else (batch, s1), dev)
-    out = tuple(torch.empty((batch, t_max, s1), dtype=torch.float32,
-                            device=dev) for _ in range(3))
+    # One allocation for the three outputs: the host prelude is part of a
+    # call that the kernel makes short.
+    out = torch.empty((3, batch, t_max, s1), dtype=torch.float32,
+                      device=dev).unbind(0)
     _call("mrnnt_softmax_stats", dev, _ptr(logits),
           int(logits.dtype == torch.bfloat16), _ptr(labels_ext), int(per_t),
           batch, t_max, s1, v, blank_id, *(_ptr(t) for t in out))
@@ -96,8 +98,8 @@ def softmax_stats_partial(logits) -> Pair:
         return softmax_stats_partial_plain(logits)
     batch, t_max, s1, v = _check_logits(logits, None)
     dev = logits.device
-    m, se = (torch.empty((batch, t_max, s1), dtype=torch.float32, device=dev)
-             for _ in range(2))
+    m, se = torch.empty((2, batch, t_max, s1), dtype=torch.float32,
+                        device=dev).unbind(0)
     _call("mrnnt_softmax_stats_partial", dev, _ptr(logits),
           int(logits.dtype == torch.bfloat16), batch, t_max, s1, v, _ptr(m),
           _ptr(se))

@@ -1,7 +1,11 @@
 """The port's CUDA kernels on a GPU: each against its plain version, and the
 padded (DP-fused and split) and banded losses and the fused-joint losses
 through them against the plain-torch oracles; the copy-ceiling kernels bit
-for bit; the packed binding and Viterbi alignment through the kernels.
+for bit; the packed binding and Viterbi alignment through the kernels; the
+stats kernels (rows 1, 3, 7, 10) against each other bit for bit and against
+``stats_model`` (tests/torch_stats_model.py), a torch model of their shared
+reduction's order, which tests/test_torch_split.py holds against the JAX
+package on the CPU.
 
 Every test here is marked ``cuda`` and skips where no GPU is present. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -23,6 +27,7 @@ from monotonic_rnnt_tpu_torch.ops.cuda import banded_kernels as BK
 from monotonic_rnnt_tpu_torch.ops.cuda import fused
 from monotonic_rnnt_tpu_torch.ops.cuda import kernels as K
 from monotonic_rnnt_tpu_torch.ops.cuda import split_kernels as SK
+from torch_stats_model import NEG_INF, special_rows, stats_model
 from monotonic_rnnt_tpu_torch.ops.cuda import stream as ST
 from monotonic_rnnt_tpu_torch.interop import torch_binding as binding
 from monotonic_rnnt_tpu_torch.parallel import sharding
@@ -465,22 +470,53 @@ def test_banded_golden_alignment_losses_on_gpu(device):
 
 # --- the split pipeline ----------------------------------------------------------
 
+# --- the stats reduction's order (csrc/common.cuh), as a torch model ------------
+
+def _equal(got, want):
+    """Bit for bit, NaN equal to NaN."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+# V = 1 and 7 (one lane holds the row; 4-byte f32 and 2-byte bf16 loads),
+# 250 (8-byte f32, 4-byte bf16; half-warps), 500 (8-byte bf16 rows of 1000
+# bytes, a rank's shard, half-warps; a whole warp f32), 1000 (two rounds
+# f32, one bf16), 1024 and 8192 (16-byte).
+STATS_V = [1, 7, 250, 500, 1000, 1024, 8192]
+
+
+def _stats_inputs(device, v, dtype, seed=0):
+    rng = np.random.RandomState(seed + v)
+    x = torch.from_numpy((rng.randn(2, 4, 5, v) * 2).astype(np.float32))
+    inf_row = special_rows(x)
+    lab = torch.from_numpy(rng.randint(0, v, (2, 5)).astype(np.int32))
+    lab[:, 1] = 10 * v                         # an id past V selects nothing
+    lab[0, 3] = -1
+    return x.to(device=device, dtype=dtype), lab.to(device), inf_row
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("labels_3d", [False, True], ids=["BS1", "BTS1"])
-def test_softmax_stats_kernel_matches_plain(device, labels_3d, dtype):
-    (lg, lab, *_), _ = _inputs(device, *SHAPES[1], dtype)
-    lab = lab.clone()
-    lab[:, 1] = 10 * lg.shape[3]               # an id past V selects nothing
+@pytest.mark.parametrize("v", STATS_V)
+def test_softmax_stats_kernel_matches_plain(device, v, labels_3d, dtype):
+    lg, lab, inf_row = _stats_inputs(device, v, dtype)
+    blank = v // 3
     if labels_3d:
         lab = lab[:, None, :].expand(-1, lg.shape[1], -1).contiguous()
         lab[:, ::2, 2] = -1                    # ids that vary with t
     before = K.LAUNCHES["softmax_stats"]
-    got = SK.softmax_stats(lg, lab, 0)
-    want = SK.softmax_stats_plain(lg, lab, 0)
+    got = SK.softmax_stats(lg, lab, blank)
+    want = SK.softmax_stats_plain(lg, lab, blank)
     torch.cuda.synchronize()
     assert K.LAUNCHES["softmax_stats"] == before + 1
+    # The +inf row: NaN in the kernel, -inf in torch.logsumexp.
+    assert bool(torch.isnan(got[0][inf_row]))
+    assert want[0][inf_row] == NEG_INF
+    keep = torch.ones(lg.shape[:3], dtype=torch.bool, device=device)
+    keep[inf_row] = False
     for g, w in zip(got, want):   # another V summation order than logsumexp
-        _close(g, w, 1e-5, 1e-6)
+        _close(g[keep], w[keep], 1e-5, 1e-6)
+    m, s = stats_model(lg)                     # the kernel's own order
+    _close(got[0], -(m + torch.log(s)), 1e-6, 1e-6)
 
 
 def _split_scan_args(device, seed, batch, t_max, s1):
@@ -636,21 +672,64 @@ def test_fused_joint_banded_through_kernels_matches_materialised(device):
 # --- the vocab-sharded losses' kernels -----------------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("v_local", [1, 250, 4096])
+@pytest.mark.parametrize("v_local", sorted(STATS_V + [4096]))
 def test_softmax_stats_partial_kernel_matches_plain(device, v_local, dtype):
     rng = np.random.RandomState(v_local)
     x = torch.from_numpy((rng.randn(3, 7, 5, v_local) * 3).astype(
         np.float32)).to(device=device, dtype=dtype)
     x[0, 2, 3] = float("-inf")                 # an all -inf row
     x[1, :, 1, ::2] = float("-inf")
+    special_rows(x)                            # -inf, NaN and +inf rows
     before = K.LAUNCHES["softmax_stats_partial"]
     m, se = SK.softmax_stats_partial(x)
     m_p, se_p = SK.softmax_stats_partial_plain(x)
     torch.cuda.synchronize()
     assert K.LAUNCHES["softmax_stats_partial"] == before + 1
     assert m[0, 2, 3] == float("-inf") and se[0, 2, 3] == 0
-    assert torch.equal(m, m_p)                 # a max: exact in any order
+    _equal(m, m_p)                             # a max: exact in any order
     _close(se, se_p, 1e-5, 1e-6)               # another summation order
+    m_o, s_o = stats_model(x)                  # the kernel's own order
+    _equal(m.cpu(), m_o)
+    _close(se, s_o, 0.0, 1e-6)                 # a few ulps: the card's expf
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [7, 250, 500, 1000, 1024])
+def test_stats_kernels_agree_bit_for_bit(device, v, dtype, offset):
+    """Rows 1, 3 and 7 (stats_alpha_fused, softmax_stats and
+    softmax_stats_banded on a band of W = S1 whose windows mask nothing)
+    give the same stats bits on the same rows, at every load width: the
+    misaligned view (one element off) takes 4-byte f32 or 2-byte bf16
+    loads, and equals the aligned tensor's stats too."""
+    lg, lab, _ = _stats_inputs(device, v, dtype, seed=3)
+    aligned = lg
+    if offset:
+        flat = torch.empty(lg.numel() + 1, dtype=dtype, device=device)
+        flat[1:] = lg.reshape(-1)
+        lg = flat[1:].view(lg.shape)
+    batch, t_max, s1, _ = lg.shape
+    blank = (v - 1) // 2
+    lab[:, 1] = -1                     # the sentinel; other ids in [0, V)
+    lab[lab >= v] = 0
+    zeros = torch.zeros((batch, t_max), dtype=torch.int32, device=device)
+    full = torch.full_like(zeros, s1)
+    sa = K.stats_alpha_fused(lg, lab, zeros, full - 1, blank)
+    sp = SK.softmax_stats(lg, lab, blank)
+    lab3 = lab[:, None, :].expand(-1, t_max, -1).contiguous()
+    bd = BK.softmax_stats_banded(lg, lab3, (zeros, full, zeros, full - 1),
+                                 blank)
+    torch.cuda.synchronize()
+    valid = (lab >= 0)[:, None, :].expand(-1, t_max, -1)
+    for other in (sp[0], bd[0]):
+        _equal(other, sa[0])                   # denom
+    for other in (sp[1], bd[1], bd[3]):
+        _equal(other, sa[1])                   # lp_blank
+    for other in (bd[2], bd[4]):
+        _equal(other, sa[2])                   # lp_label, -inf at -1
+    _equal(sp[2][valid], sa[2][valid])
+    if offset:
+        _equal(SK.softmax_stats(aligned, lab, blank)[0], sp[0])
 
 
 @pytest.mark.parametrize("labels_3d", [False, True], ids=["BS1", "BTW"])

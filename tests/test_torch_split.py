@@ -1,7 +1,10 @@
 """The port's split pipeline against the JAX package's.
 
 The four kernels' plain versions (softmax_stats, alpha_scan, beta_scan,
-fwdbwd_scan) against the Pallas kernels in interpret mode, and the split
+fwdbwd_scan) against the Pallas kernels in interpret mode; a torch model of
+the CUDA stats reduction's order (tests/torch_stats_model.py's stats_model)
+against softmax_stats and softmax_stats_partial in interpret mode and the
+plain versions, with its -inf, NaN and +inf rules; and the split
 route (``pipeline='split'``) against ``rnnt_loss_pallas`` under the same
 pipeline and against the oracle, on CPU tensors, where the port's wrappers
 take their plain versions. Tolerances: costs and statistics 1e-5 relative,
@@ -29,6 +32,7 @@ from monotonic_rnnt_tpu_torch.ops import loss as tloss
 from monotonic_rnnt_tpu_torch.ops.cuda import fused
 from monotonic_rnnt_tpu_torch.ops.cuda import split_kernels as SK
 from monotonic_rnnt_tpu_torch.utils import config
+from torch_stats_model import special_rows, stats_model
 
 WEIGHTS = np.array([1.0, -0.5, 2.0], np.float32)   # one negative cotangent
 
@@ -84,6 +88,68 @@ def test_softmax_stats_ids_just_past_v_select_nothing():
     assert np.all(np.asarray(lpl_pallas)[..., 2:] == -np.inf)
     np.testing.assert_allclose(lpl[..., :2].numpy(),
                                np.asarray(lpl_pallas)[..., :2], rtol=1e-5)
+
+
+# --- the CUDA stats reduction's order ------------------------------------------------
+
+# One lane's row (1, 7), half-warp rows (130; 500 bf16), a partial first
+# round (500 f32), one round (1000 bf16), two rounds (1000 f32) and a
+# partial second (1030 bf16).
+MODEL_V = [1, 7, 130, 500, 1000, 1030]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("v", MODEL_V)
+def test_stats_model_matches_pallas_and_plain(v, dtype):
+    rng = np.random.RandomState(v)
+    x = (rng.randn(2, 3, 4, v) * 2).astype(np.float32)
+    lab = rng.randint(0, v, (2, 4)).astype(np.int32)
+    lab[:, 1] = -1
+    blank = v // 2
+    x_t = _t(x).to(getattr(torch, dtype))    # rounds as astype does
+    x_j = jnp.asarray(x).astype(dtype)
+    m, s = stats_model(x_t)
+    denom = -(m + torch.log(s))
+    want = PK.softmax_stats(x_j, jnp.asarray(lab), blank, interpret=True)
+    np.testing.assert_allclose(denom.numpy(), np.asarray(want[0]), rtol=1e-5,
+                               atol=1e-5)
+    plain = SK.softmax_stats_plain(x_t, _t(lab), blank)
+    np.testing.assert_allclose(denom.numpy(), plain[0].numpy(), rtol=1e-6,
+                               atol=1e-5)
+    m_j, se_j = PK.softmax_stats_partial(x_j, interpret=True)
+    m_p, se_p = SK.softmax_stats_partial_plain(x_t)
+    np.testing.assert_array_equal(m.numpy(), m_p.numpy())   # the exact max
+    np.testing.assert_array_equal(m.numpy(), np.asarray(m_j))
+    np.testing.assert_allclose(s.numpy(), se_p.numpy(), rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(se_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("v", MODEL_V)
+def test_stats_model_rules_match_plain(v, dtype):
+    """An all -inf row gives m = -inf, s = 0 (denom +inf, as logsumexp); a
+    NaN gives m and s NaN, as torch.amax and the plain sum; a +inf gives
+    s NaN (inf - inf), where logsumexp gives -inf."""
+    x = torch.from_numpy(
+        (np.random.RandomState(v).randn(2, 3, 4, v) * 2).astype(np.float32))
+    inf_row = special_rows(x)
+    x = x.to(getattr(torch, dtype))
+    m, s = stats_model(x)
+    m_p, se_p = SK.softmax_stats_partial_plain(x)
+    np.testing.assert_array_equal(m.numpy(), m_p.numpy())   # NaN equal
+    np.testing.assert_allclose(s.numpy(), se_p.numpy(), rtol=1e-6, atol=1e-5)
+    assert m[0, 1, 0] == -np.inf and s[0, 1, 0] == 0
+    assert bool(torch.isnan(m[1, 0, 1])) and bool(torch.isnan(s[1, 0, 1]))
+    assert m[inf_row] == np.inf and bool(torch.isnan(s[inf_row]))
+    denom = -(m + torch.log(s))
+    want = SK.softmax_stats_plain(x, torch.zeros((2, 4), dtype=torch.int32),
+                                  0)[0]
+    assert want[inf_row] == -np.inf and bool(torch.isnan(denom[inf_row]))
+    keep = torch.ones(x.shape[:3], dtype=torch.bool)
+    keep[inf_row] = False
+    np.testing.assert_allclose(denom[keep].numpy(), want[keep].numpy(),
+                               rtol=1e-6, atol=1e-5)
 
 
 # --- the scans ---------------------------------------------------------------------
