@@ -54,7 +54,7 @@ S_b) against the padded restricted result; and times each kernel beside its
 byte bound, its plain version and a PyTorch yardstick, the scans also in ns
 per dependent step and queued back to back (``queued_ms``: each call's host
 prelude then overlaps the kernel before it; the stats kernels of rows 3, 7
-and 10 are queued too), and ``fwdbwd_scan_banded``
+and 10 and grad_pass are queued too), and ``fwdbwd_scan_banded``
 once more with the second
 sample at T_b = T/2 (its beta chain then reads the virtual row on half its
 steps), held against its plain version there too.
@@ -83,8 +83,10 @@ operands of its kernel calls for the last T-chunk and an interior one (and
 of its one alpha scan over all of T), and each of those calls is held
 against its plain version: softmax_stats on the chunk's logits (2-D labels
 on the full lattice, per-t [B, Tc, W] labels on the band), the chunk's beta
-scan fed the next chunk's carry as its virtual row, and grad_pass. Then it
-times both training steps and their scans.
+scan fed the next chunk's carry as its virtual row, and grad_pass. The
+interior chunk's beta scan and grad_pass are timed there, one call and
+queued (grad_pass beside torch.softmax on the same logits, its bound from
+the chunk's live rows). Then it times both training steps and their scans.
 
 The sharded phase (``run_sharded``) saves what its ranks read to a
 temporary directory (the parent's single-process costs, the banded case's
@@ -313,6 +315,27 @@ def queued_ms(fn, reps: int = TIMING_REPS) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Per-call ms of `reps` calls of fn() captured in one CUDA graph and
+    replayed between two CUDA events, after one untimed replay: the
+    kernels alone, without the host prelude that queued_ms overlaps."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -1304,7 +1327,8 @@ def phase_banded_timing(mt, case, weights, errs, launches):
                 "plain_ms": cuda_ms(plain, reps=1, warmup=0),
                 "library_ms": cuda_ms(lib) if lib else None,
                 "bound": bound}
-        out["grad_pass"].update(live_rows=live, rows=n_b * n_t * n_w)
+        out["grad_pass"].update(live_rows=live, rows=n_b * n_t * n_w,
+                                queued_ms=queued_ms(timed["grad_pass"][0]))
         out["softmax_stats_banded"]["queued_ms"] = queued_ms(
             timed["softmax_stats_banded"][0])
         for name in ("fwdbwd_scan_banded", "alpha_scan_banded"):
@@ -1383,8 +1407,8 @@ def phase_banded_timing(mt, case, weights, errs, launches):
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
             "library_ms": f32["library_ms"],
-            "status": ("redesigned" if name == "fwdbwd_scan_banded" else
-                       "ported"),
+            "status": ("redesigned" if name in ("fwdbwd_scan_banded",
+                                                "grad_pass") else "ported"),
             **({"note": SHARED_REDUCTION}
                if name == "softmax_stats_banded" else {}),
             "dtype": "float32",
@@ -1650,6 +1674,10 @@ def phase_split_timing(mt, main_inputs, weights):
                 out[name]["ns_per_step"] = out[name]["ms"] * 1e6 / n_t
                 out[name]["queued_ns_per_step"] = (out[name]["queued_ms"]
                                                    * 1e6 / n_t)
+            if name == "beta_scan":
+                out[name]["kernel_queued_ms"] = graph_ms(kern)
+                out[name]["kernel_queued_ns_per_step"] = (
+                    out[name]["kernel_queued_ms"] * 1e6 / n_t)
         lg_leaf = leaf(lg, dtype)
 
         def fwd_bwd():
@@ -1723,8 +1751,8 @@ def split_kernel_entries(errs, launches, rows):
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
             "library_ms": f32["library_ms"],
-            "status": ("redesigned, PR 9" if name == "softmax_stats" else
-                       "ported"),
+            "status": ("redesigned" if name in ("softmax_stats", "beta_scan")
+                       else "ported"),
             "dtype": "float32",
             "shape": "B=%d,T=%d,S1=%d,V=%d" % (B, T, S + 1, V),
             "bf16": {"max_abs_err": errs[torch.bfloat16][name],
@@ -1732,7 +1760,8 @@ def split_kernel_entries(errs, launches, rows):
                      "bound_ms": b16["bound"][0],
                      "library_ms": b16["library_ms"]},
         }
-        for key in ("ns_per_step", "queued_ms", "queued_ns_per_step"):
+        for key in ("ns_per_step", "queued_ms", "queued_ns_per_step",
+                    "kernel_queued_ms", "kernel_queued_ns_per_step"):
             if key in f32:
                 entry[key] = f32[key]
                 entry["bf16"][key] = b16[key]
@@ -1924,14 +1953,43 @@ def fused_path_kernels(mt, module, beta_name, n_chunks, step, what):
     pairs = plain_pairs(mt)
     _, a_args, _ = cap.calls[alpha_name][0]
     _, b_args, _ = cap.calls[beta_name][1]
+    _, g_args, g_kw = cap.calls["grad_pass"][1]
     key = what.replace("-", "_").replace(" ", "_")
+    beta = lambda: pairs[beta_name][0](*b_args)
     scan_ms = {f"{key}_{alpha_name}_ms": cuda_ms(
                    lambda: pairs[alpha_name][0](*a_args)),
-               f"{key}_{beta_name}_chunk_ms": cuda_ms(
-                   lambda: pairs[beta_name][0](*b_args))}
-    del cap, a_args, b_args
+               f"{key}_{beta_name}_chunk_ms": cuda_ms(beta),
+               f"{key}_{beta_name}_chunk_queued_ms": queued_ms(beta),
+               f"{key}_{beta_name}_chunk_kernel_queued_ms": graph_ms(beta)}
+    for q in ("queued", "kernel_queued"):
+        scan_ms[f"{key}_{beta_name}_chunk_{q}_ns_per_step"] = (
+            scan_ms[f"{key}_{beta_name}_chunk_{q}_ms"] * 1e6
+            / b_args[0].shape[1])
+    scan_ms[f"{key}_{beta_name}_chunk_shape"] = list(b_args[0].shape)
+    scan_ms[f"{key}_grad_pass_chunk"] = grad_chunk_timing(mt, g_args, g_kw)
+    del cap, a_args, b_args, g_args
     torch.cuda.empty_cache()
     return errs, scan_ms
+
+
+def grad_chunk_timing(mt, args, kw):
+    """grad_pass on one chunk of a fused-joint path, as the path called it:
+    one call and queued, beside torch.softmax on the same logits, with its
+    bound from the chunk's live rows (read) and all its rows (written)."""
+    x, occ, cb, cl = args[0], args[2], args[3], args[4]
+    kern = lambda: mt.K.grad_pass(*args, **kw)
+    live = int(((occ != 0) | (cb != 0) | (cl != 0)).sum())
+    rows, v = occ.numel(), x.shape[3]
+    out_isz = torch.empty((), dtype=kw.get("out_dtype", torch.float32)
+                          ).element_size()
+    bound = bound_ms(live * v * x.element_size() + rows * v * out_isz
+                     + 5 * rows * 4, 6 * live * v)
+    return {"shape": list(x.shape), "dtype": dtype_name(x.dtype),
+            "live_rows": live, "rows": rows, "ms": cuda_ms(kern),
+            "queued_ms": queued_ms(kern),
+            "library_ms": cuda_ms(lambda: torch.softmax(x, dim=-1)),
+            "library_queued_ms": queued_ms(lambda: torch.softmax(x, dim=-1)),
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def phase_fused_joint(mt, weights):
@@ -3006,11 +3064,15 @@ def add_ceiling(entries, rates):
         e["share_of_ceiling"] = e["ceiling_bound_ms"] / e["ms"]
         if e.get("kernel_ms"):   # the kernel alone, without the host prelude
             e["kernel_share_of_ceiling"] = e["ceiling_bound_ms"] / e["kernel_ms"]
+        if e.get("queued_ms"):   # queued back to back, the prelude overlapped
+            e["queued_share_of_ceiling"] = e["ceiling_bound_ms"] / e["queued_ms"]
 
     for e in entries:
         one(e, "float32")
-        if isinstance(e.get("bf16"), dict):
-            one(e["bf16"], "bfloat16")
+        for key in ("bf16", "fused_joint_chunk"):
+            if isinstance(e.get(key), dict):
+                one(e[key], "bfloat16" if key == "bf16"
+                    else e[key].get("dtype", "float32"))
 
 
 def add_roofline(e2e, rates, nbytes_f32):
@@ -3507,6 +3569,13 @@ def main() -> int:
                                      **align_launches},
             {**fused_errs, **sharded_errs})
     by_path([partial_entry], "tp_padded", sharded_launches, sharded_errs)
+    chunk_entries = {e["name"]: e for e in band_kernels + split_kernels}
+    chunk_entries["grad_pass"]["fused_joint_chunk"] = fused_e2e[
+        "fused_joint_grad_pass_chunk"]
+    chunk_entries["beta_scan"]["fused_joint_chunk"] = {
+        k: fused_e2e[f"fused_joint_beta_scan_chunk_{k}"]
+        for k in ("shape", "ms", "queued_ms", "queued_ns_per_step",
+                  "kernel_queued_ms", "kernel_queued_ns_per_step")}
     kernels += band_kernels + split_kernels + [partial_entry] + stream_entries
     add_ceiling(kernels, rates)
     check(len(kernels) == 14, f"the kernels JSON lists {len(kernels)} of 14")

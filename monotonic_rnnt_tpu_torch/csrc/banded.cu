@@ -112,7 +112,6 @@ __global__ void __launch_bounds__(kRowThreads) mrnnt_stats_banded_kernel(
 
 // Steps whose operands a warp chain has in flight ahead of the step.
 constexpr int kScanRing = 16;
-constexpr unsigned kFull = 0xffffffffu;
 
 // The warp chains walk T in groups of kScanRing steps, fully unrolled, so
 // that ring slot k is a register. Loads read clamped, always valid
@@ -125,18 +124,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // one step's log_sum_exp and the next step's shuffles: the alpha chain's
 // store compiles to a predicated store; the beta chain's, written the same
 // way, became a branch around its address arithmetic, so it is written as
-// one predicated PTX store (store_if).
-
-// *p = v where pred holds, as one predicated store.
-__device__ __forceinline__ void store_if(float* p, float v, bool pred) {
-  asm volatile(
-      "{\n"
-      ".reg .pred q;\n"
-      "setp.ne.b32 q, %2, 0;\n"
-      "@q st.global.f32 [%0], %1;\n"
-      "}\n" ::"l"(p),
-      "f"(v), "r"(static_cast<int>(pred)));
-}
+// one predicated PTX store (common.cuh's store_if).
 
 // alpha(t, w) = LSE(aligned[w] + lpb[t,w], aligned[w-1] + lpl[t,w-1]),
 // aligned = d[t] ? alpha(t-1, w+1) : alpha(t-1, w); alpha(-1, w) = [w == 0].

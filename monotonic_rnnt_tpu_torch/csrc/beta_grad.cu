@@ -30,11 +30,13 @@
 //  * gradient tiles (counter 1, tickets 0..B*T-1): one (b,t) lattice row
 //    block of S1 x V, in descending t, t-major across samples, so that every
 //    chain's frontier is consumed evenly. A tile acquire-spins until
-//    done[b] covers t, then streams its S1 rows as grad_pass does:
-//    dz = p*(occ - [v==blank] cb - [v==label] cl), p = exp(x + denom), 0 by
-//    a select where that coefficient is 0; a row whose three coefficients
-//    are 0 is written without being read. Loads and stores are 16 bytes a
-//    lane (float4, or 8 bf16) where rows_are_16b holds, scalar otherwise.
+//    done[b] covers t, then writes its S1 rows, a warp a row, with
+//    common.cuh's grad_row, the gradient row that grad_pass (csrc/
+//    grad_pass.cu) runs too: dz = p*(occ - [v==blank] cb - [v==label] cl),
+//    p = exp(x + denom), 0 by a select where that coefficient is 0; a row
+//    whose three coefficients are 0 is written without being read
+//    (zero_row). Loads and stores are 16 bytes a lane (float4, or 8 bf16)
+//    where rows_are_16b holds, scalar otherwise.
 //
 // Why it cannot deadlock, at any B and any occupancy, with no cooperative
 // launch: a CTA takes tile tickets only after counter 0 has passed B, so
@@ -148,72 +150,6 @@ __device__ void beta_chain(const BetaGradArgs& a, int b, float* sh,
   cp_async_wait<0>();
 }
 
-template <typename T, bool kVec>
-__device__ __forceinline__ void grad_row(const T* __restrict__ x,
-                                         T* __restrict__ g, int v, int lane,
-                                         float d, float o, float c_b,
-                                         float c_l, int blank, int lab) {
-  // grad_pass's arithmetic (csrc/grad_pass.cu), element for element.
-  const auto cell = [&](float xv, int vi) {
-    const float p = expf(xv + d);
-    const float coef = o - (vi == blank ? c_b : 0.f) - (vi == lab ? c_l : 0.f);
-    return coef == 0.f ? 0.f : p * coef;
-  };
-  if constexpr (kVec) {
-    using V = Vec16<T>;
-    constexpr int kN = V::n;
-    const typename V::type* xv = reinterpret_cast<const typename V::type*>(x);
-    typename V::type* gv = reinterpret_cast<typename V::type*>(g);
-    constexpr int kU = kVecUnroll<T>;
-    const int nv = v / kN;
-    for (int i0 = lane; i0 < nv; i0 += kWarp * kU) {
-      typename V::type raw[kU];
-#pragma unroll
-      for (int k = 0; k < kU; ++k)
-        if (i0 + k * kWarp < nv) raw[k] = __ldcs(xv + i0 + k * kWarp);
-#pragma unroll
-      for (int k = 0; k < kU; ++k) {
-        const int i = i0 + k * kWarp;
-        if (i < nv) {
-          float f[kN];
-          V::unpack(raw[k], f);
-#pragma unroll
-          for (int j = 0; j < kN; ++j) f[j] = cell(f[j], i * kN + j);
-          __stcs(gv + i, V::pack(f));
-        }
-      }
-    }
-  } else {
-    for (int v0 = lane; v0 < v; v0 += kWarp * kUnroll) {
-      float xs[kUnroll];
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        const int vi = v0 + k * kWarp;
-        xs[k] = vi < v ? to_f32(x[vi]) : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        const int vi = v0 + k * kWarp;
-        if (vi < v) g[vi] = from_f32<T>(cell(xs[k], vi));
-      }
-    }
-  }
-}
-
-template <typename T, bool kVec>
-__device__ __forceinline__ void zero_row(T* __restrict__ g, int v, int lane) {
-  if constexpr (kVec) {
-    using V = Vec16<T>;
-    float f[V::n] = {};
-    const typename V::type z = V::pack(f);
-    typename V::type* gv = reinterpret_cast<typename V::type*>(g);
-    for (int i = lane; i < v / V::n; i += kWarp) __stcs(gv + i, z);
-  } else {
-    const T zero = from_f32<T>(0.f);
-    for (int vi = lane; vi < v; vi += kWarp) g[vi] = zero;
-  }
-}
-
 // The S1 gradient rows of lattice row (b, t), a warp a row.
 template <typename T, bool kVec>
 __device__ void grad_tile(const BetaGradArgs& a, int b, int t) {
@@ -234,8 +170,8 @@ __device__ void grad_tile(const BetaGradArgs& a, int b, int t) {
       zero_row<T, kVec>(g, a.v, lane);
       continue;
     }
-    grad_row<T, kVec>(logits + row * a.v, g, a.v, lane, a.denom[row], o, c_b,
-                      c_l, a.blank, a.labels[b * a.s1 + s]);
+    grad_row<T, T, kVec>(logits + row * a.v, g, a.v, lane, a.denom[row], o,
+                         c_b, c_l, a.blank, a.labels[b * a.s1 + s]);
   }
 }
 

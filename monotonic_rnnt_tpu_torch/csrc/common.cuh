@@ -43,6 +43,22 @@ __device__ __forceinline__ float window_mask(int w, int lo, int hi) {
   return (w >= lo && w <= hi) ? 0.f : MRNNT_NEG_INF;
 }
 
+// The warp chains' shuffle mask: every lane of the warp.
+constexpr unsigned kFull = 0xffffffffu;
+
+// *p = v where pred holds, as one predicated store: the warp chains'
+// stores, which a compiler-made branch around the address arithmetic would
+// put between one step's log_sum_exp and the next step's shuffles.
+__device__ __forceinline__ void store_if(float* p, float v, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %2, 0;\n"
+      "@q st.global.f32 [%0], %1;\n"
+      "}\n" ::"l"(p),
+      "f"(v), "r"(static_cast<int>(pred)));
+}
+
 // 16 bytes of T as one load: float4 (4 floats) or uint4 (8 bf16), unpacked
 // to and packed from f32. bf16 packs round to nearest even, as astype.
 template <typename T>
@@ -94,6 +110,89 @@ inline bool rows_are_16b(const void* a, const void* b, long long v,
 // (8 float4 or 4 x 8 bf16), so that a row of V = 1000 is one round of loads.
 template <typename T>
 constexpr int kVecUnroll = 32 / Vec16<T>::n;
+
+// --- The gradient row: one (b,t,s) row of dz over V ---------------------------
+//
+// Every gradient the port writes comes from grad_row below: beta_grad.cu's
+// tiles (beta_grad_fused) and grad_pass.cu (grad_pass, for the banded,
+// split, fused-joint and sharded routes). A warp writes one row:
+//   dz = p * (occ - [v==blank] c_b - [v==lab] c_l),  p = exp(x + d),
+// and 0 by a select (never p*0) where that coefficient is 0, so +-inf
+// padding gives no NaN (kernels.py:1317-1319); bf16 output rounds to
+// nearest even, as astype. An id outside [0, V) matches no column. With
+// kVec the lanes move 16 bytes a load and a store (float4, or 8 bf16), 32
+// values in flight a lane, streamed past L1 (__ldcs/__stcs); the caller
+// takes kVec only where rows_are_16b holds and the two types are equal.
+// Otherwise each lane moves one value a load, kUnroll in flight.
+template <typename TIn, typename TOut, bool kVec>
+__device__ __forceinline__ void grad_row(const TIn* __restrict__ x,
+                                         TOut* __restrict__ g, int v,
+                                         int lane, float d, float o,
+                                         float c_b, float c_l, int blank,
+                                         int lab) {
+  const auto cell = [&](float xv, int vi) {
+    const float p = expf(xv + d);
+    const float coef = o - (vi == blank ? c_b : 0.f) - (vi == lab ? c_l : 0.f);
+    return coef == 0.f ? 0.f : p * coef;
+  };
+  if constexpr (kVec) {
+    static_assert(sizeof(TIn) == sizeof(TOut), "16-byte rows are one type");
+    using V = Vec16<TIn>;
+    constexpr int kN = V::n;
+    const typename V::type* xv = reinterpret_cast<const typename V::type*>(x);
+    typename V::type* gv = reinterpret_cast<typename V::type*>(g);
+    constexpr int kU = kVecUnroll<TIn>;
+    const int nv = v / kN;
+    for (int i0 = lane; i0 < nv; i0 += kWarp * kU) {
+      typename V::type raw[kU];
+#pragma unroll
+      for (int k = 0; k < kU; ++k)
+        if (i0 + k * kWarp < nv) raw[k] = __ldcs(xv + i0 + k * kWarp);
+#pragma unroll
+      for (int k = 0; k < kU; ++k) {
+        const int i = i0 + k * kWarp;
+        if (i < nv) {
+          float f[kN];
+          V::unpack(raw[k], f);
+#pragma unroll
+          for (int j = 0; j < kN; ++j) f[j] = cell(f[j], i * kN + j);
+          __stcs(gv + i, V::pack(f));
+        }
+      }
+    }
+  } else {
+    for (int v0 = lane; v0 < v; v0 += kWarp * kUnroll) {
+      float xs[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int vi = v0 + k * kWarp;
+        xs[k] = vi < v ? to_f32(x[vi]) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int vi = v0 + k * kWarp;
+        if (vi < v) g[vi] = from_f32<TOut>(cell(xs[k], vi));
+      }
+    }
+  }
+}
+
+// A row whose three coefficients are 0 (padding, unreachable cells): its
+// gradient is 0 whatever its logits hold, so it is written without being
+// read, 16 bytes a store with kVec.
+template <typename T, bool kVec>
+__device__ __forceinline__ void zero_row(T* __restrict__ g, int v, int lane) {
+  if constexpr (kVec) {
+    using V = Vec16<T>;
+    float f[V::n] = {};
+    const typename V::type z = V::pack(f);
+    typename V::type* gv = reinterpret_cast<typename V::type*>(g);
+    for (int i = lane; i < v / V::n; i += kWarp) __stcs(gv + i, z);
+  } else {
+    const T zero = from_f32<T>(0.f);
+    for (int vi = lane; vi < v; vi += kWarp) g[vi] = zero;
+  }
+}
 
 // --- The stats reduction: a row's max and sum-exp ----------------------------
 //

@@ -55,7 +55,12 @@
 //    the chunk: a step waits on shared memory, not on HBM latency
 //    (csrc/banded.cu's scheme). beta_virtual is the same row for every t and
 //    is staged once. The standalone beta kernel runs the same device code
-//    as fwdbwd's beta block, so the two give identical betas.
+//    as fwdbwd's beta block above S1 = 128. At S1 <= 128 it runs a warp
+//    for every 32 slots (mrnnt_beta_warps_kernel): the carry in registers,
+//    the neighbours by shuffle and, across warps, through shared memory
+//    behind one barrier a step (none in one warp), the operands a register
+//    ring ahead; each slot's arithmetic is beta_chain's, so both give
+//    identical betas.
 //  * Masks: where the additive mask is -inf the output is exactly -inf, by
 //    a select (the port's convention, ROADMAP.md section 3); elsewhere the
 //    mask is added, as the TPU kernels add it. On finite inputs that is the
@@ -308,6 +313,106 @@ __device__ void beta_chain(const float* __restrict__ lpb,
   }
 }
 
+// --- beta_scan at S1 <= 128: a warp for every 32 slots ------------------------
+//
+// A chain is one block of W = ceil(S1/32) <= 4 warps, thread s carrying
+// slot s in a register, so that each operand row loads coalesced. The
+// neighbour nx[s+1] is the carry shuffled down one lane; lane 31 of warp w
+// reads lane 0 of warp w+1 from shared memory, which that lane writes
+// before the step's one barrier (double-buffered by step parity; no
+// barrier and no shared memory for W = 1). A slot whose neighbour lies
+// past S1 takes -inf, so the slots past S1, which carry values no slot
+// reads, never leak in. The virtual row sits in a register, and the
+// t+1 >= T_b select is uniform across the block. lpb, lpl and bmask are
+// loaded kBetaRing steps ahead into a register ring, from clamped, always
+// valid addresses (banded.cu's warp chains), the steps unrolled a ring at
+// a time so that a ring slot is a register; stores are predicated
+// (store_if), so no step waits on memory. Every slot computes beta_chain's
+// apply_mask(log_sum_exp(nx[s] + lpb[s], nx[s+1] + lpl[s]), bmask[s]) on
+// the same operands in the same order, log_sum_exp with a select in place
+// of its early return: the betas equal fwdbwd_scan's. One warp carrying
+// ceil(S1/32) slots a lane in registers instead, with no barrier, took
+// about ceil(S1/32) one-slot steps a step, its slots' log1pf not
+// overlapping, and lost to this chain at every S1 > 32 (PERF.md section 6).
+
+// Steps whose operands a chain has in flight ahead of the step.
+constexpr int kBetaRing = 16;
+
+template <int W>
+__global__ void __launch_bounds__(W * kWarp) mrnnt_beta_warps_kernel(
+    const float* __restrict__ lpb, const float* __restrict__ lpl,
+    const float* __restrict__ bmask, const int* __restrict__ input_lengths,
+    const float* __restrict__ beta_virtual, int t_max, int s1,
+    float* __restrict__ betas) {
+  constexpr int R = kBetaRing;
+  __shared__ float edge[2][W];  // lane 0's nx of each warp, by step parity
+  const int s = threadIdx.x, lane = s % kWarp, w = s / kWarp;
+  const int b = blockIdx.x;
+  const bool live = s < s1;
+  const bool past = s + 1 >= s1;  // nx[s+1] lies past S1
+  const int col = min(s, s1 - 1);
+  const long long base = static_cast<long long>(b) * t_max * s1;
+  const float virt =
+      live ? beta_virtual[static_cast<long long>(b) * s1 + s] : MRNNT_NEG_INF;
+  float carry = MRNNT_NEG_INF;
+  const int t_b = input_lengths[b];
+  // Step i (t = T-1-i) in ring slot i % R; t clamped to 0.
+  float rb[R], rl[R], rm[R];
+  const auto fetch = [&](int t, int k) {
+    const long long at = base + static_cast<long long>(max(t, 0)) * s1 + col;
+    rb[k] = __ldg(lpb + at);
+    rl[k] = __ldg(lpl + at);
+    rm[k] = __ldg(bmask + at);
+  };
+  const auto step = [&](int t, int k) {  // R is even: k & 1 is i's parity
+    const float nx = t + 1 >= t_b ? virt : carry;  // uniform
+    float up = __shfl_down_sync(kFull, nx, 1);
+    if constexpr (W > 1) {
+      if (lane == 0) edge[k & 1][w] = nx;
+      __syncthreads();
+      if (w + 1 < W) {  // uniform across the warp
+        const float first = edge[k & 1][w + 1];
+        up = lane == kWarp - 1 ? first : up;
+      }
+    }
+    const float x0 = nx + rb[k];
+    const float x1 = (past ? MRNNT_NEG_INF : up) + rl[k];
+    const float mx = x0 > x1 ? x0 : x1;
+    const float e = expf((x0 > x1 ? x1 : x0) - mx);
+    const float lse = mx == MRNNT_NEG_INF ? MRNNT_NEG_INF : mx + log1pf(e);
+    carry = apply_mask(lse, rm[k]);
+    store_if(betas + base + static_cast<long long>(t) * s1 + s, carry, live);
+  };
+#pragma unroll
+  for (int k = 0; k < R; ++k) fetch(t_max - 1 - k, k);
+  int i0 = 0;
+  for (; i0 + R <= t_max; i0 += R) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      step(t_max - 1 - (i0 + k), k);
+      fetch(t_max - 1 - (i0 + k + R), k);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (i0 + k < t_max) step(t_max - 1 - (i0 + k), k);
+}
+
+// The chain's warps: W = ceil(S1/32), 0 past 128 (the block chain).
+inline int beta_chain_warps(int s1) {
+  return s1 <= 4 * kWarp ? (s1 + kWarp - 1) / kWarp : 0;
+}
+
+template <int W>
+int launch_beta_warps(const float* lpb, const float* lpl, const float* bmask,
+                      const int* input_lengths, const float* beta_virtual,
+                      int batch, int t_max, int s1, float* betas,
+                      cudaStream_t stream) {
+  mrnnt_beta_warps_kernel<W><<<batch, W * kWarp, 0, stream>>>(
+      lpb, lpl, bmask, input_lengths, beta_virtual, t_max, s1, betas);
+  return static_cast<int>(cudaGetLastError());
+}
+
 __global__ void mrnnt_alpha_scan_kernel(const float* __restrict__ lpb,
                                         const float* __restrict__ lpl,
                                         const float* __restrict__ amask,
@@ -428,13 +533,27 @@ extern "C" int mrnnt_beta_scan(const float* lpb, const float* lpl,
                                int t_max, int s1, float* betas,
                                void* stream) {
   using namespace mrnnt;
+  if (batch == 0 || t_max == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (beta_chain_warps(s1)) {
+#define MRNNT_BETA_WARPS(W)                                                  \
+  case W:                                                                    \
+    return launch_beta_warps<W>(lpb, lpl, bmask, input_lengths, beta_virtual, \
+                                batch, t_max, s1, betas, st);
+    MRNNT_BETA_WARPS(1)
+    MRNNT_BETA_WARPS(2)
+    MRNNT_BETA_WARPS(3)
+    MRNNT_BETA_WARPS(4)
+#undef MRNNT_BETA_WARPS
+    default:
+      break;
+  }
   int tc, threads;
   size_t smem;
   if (const int err = scan_config(mrnnt_beta_scan_kernel, t_max, s1, &tc,
                                   &smem, &threads))
     return err;
-  mrnnt_beta_scan_kernel<<<batch, threads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  mrnnt_beta_scan_kernel<<<batch, threads, smem, st>>>(
       lpb, lpl, bmask, input_lengths, beta_virtual, t_max, s1, tc, betas);
   return static_cast<int>(cudaGetLastError());
 }

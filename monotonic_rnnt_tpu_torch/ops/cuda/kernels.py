@@ -9,9 +9,10 @@ Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776, 1304-1360``:
   ``mrnnt_beta_grad_kernel`` (csrc/beta_grad.cu), one persistent launch
   whose beta chains run ahead of its gradient tiles;
 * ``grad_pass`` (TPU kernel at kernels.py:1322) launches
-  ``mrnnt_grad_kernel`` (csrc/grad_pass.cu) alone, for the banded and the
-  split routes, the fused-joint losses' chunks and the vocab-sharded
-  losses' local slices.
+  ``mrnnt_grad_kernel`` (csrc/grad_pass.cu), for the banded and the split
+  routes, the fused-joint losses' chunks and the vocab-sharded losses'
+  local slices. It and ``beta_grad_fused`` write every gradient row with
+  the same device code (csrc/common.cuh's ``grad_row``).
 
 The banded kernels' wrappers (ops/cuda/banded_kernels.py), the split
 pipeline's (ops/cuda/split_kernels.py) and the copy-ceiling kernels'

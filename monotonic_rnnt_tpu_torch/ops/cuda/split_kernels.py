@@ -8,7 +8,10 @@ on the padded [B, T, S1(, V)] lattice:
 * ``fwdbwd_scan`` (kernels.py:1053) launches ``mrnnt_fwdbwd_scan_kernel``,
   the alpha and beta chains side by side;
 * ``alpha_scan`` (kernels.py:921) launches ``mrnnt_alpha_scan_kernel``;
-* ``beta_scan`` (kernels.py:947) launches ``mrnnt_beta_scan_kernel``;
+* ``beta_scan`` (kernels.py:947) launches ``mrnnt_beta_warps_kernel``, a
+  warp for every 32 slots of a chain, at S1 <= 128 and
+  ``mrnnt_beta_scan_kernel`` above; its betas equal ``fwdbwd_scan``'s bit
+  for bit;
 * ``softmax_stats_partial`` (kernels.py:816), the vocab-sharded losses'
   per-shard (max, sum-exp), launches ``mrnnt_softmax_stats_partial_kernel``;
 

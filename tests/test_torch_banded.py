@@ -365,20 +365,38 @@ def _grad_operands(c, labels_3d):
     return x, stats.denom, coefs, lab
 
 
+def _grad_case(v_case, labels_3d):
+    """(logits, denom, coefficients, labels, blank): from the oracles at V =
+    130 and the odd V = 21, or random at V = 1 (the blank the only column;
+    ids 1 and -1 match none; a third of the coefficients 0)."""
+    if v_case != "v1":
+        c = Both(CASES[2 if v_case == "v130" else 0])
+        return (*_grad_operands(c, labels_3d), c.blank)
+    rng = np.random.RandomState(1)
+    b, t, s1 = 2, 5, 4
+    f = lambda a: torch.from_numpy(a.astype(np.float32))
+    coef = lambda: f(np.where(rng.rand(b, t, s1) < 0.3, 0.0,
+                              rng.randn(b, t, s1)))
+    lab = torch.from_numpy(rng.randint(-1, 2, (b, t, s1) if labels_3d
+                                       else (b, s1)).astype(np.int32))
+    return (f(rng.randn(b, t, s1, 1) * 2), f(rng.randn(b, t, s1)),
+            (coef(), coef(), coef()), lab, 0)
+
+
+@pytest.mark.parametrize("v_case", ["v130", "v21", "v1"])
 @pytest.mark.parametrize("out", ["f32", "bf16"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("labels_3d", [True, False], ids=["BTW", "BS1"])
-def test_grad_pass_plain_matches_pallas(labels_3d, dtype, out):
-    c = Both(CASES[2])
-    x, denom, (occ, cb, cl), lab = _grad_operands(c, labels_3d)
+def test_grad_pass_plain_matches_pallas(labels_3d, dtype, out, v_case):
+    x, denom, (occ, cb, cl), lab, blank = _grad_case(v_case, labels_3d)
     dt = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
     x = x.to(dt[dtype][0])
     j = [jnp.asarray(a.float().numpy()) for a in (x, denom, occ, cb, cl)]
     want = jk.grad_pass(j[0].astype(dt[dtype][1]), *j[1:],
-                        jnp.asarray(lab.numpy()), c.blank,
+                        jnp.asarray(lab.numpy()), blank,
                         out_dtype=dt[out][1], interpret=True)
-    got = tk.grad_pass(x, denom, occ, cb, cl, lab, c.blank,
+    got = tk.grad_pass(x, denom, occ, cb, cl, lab, blank,
                        out_dtype=dt[out][0])
     assert got.dtype == dt[out][0]
     # bf16 output: both sides round the same f32 value, whose last bits may

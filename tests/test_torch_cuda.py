@@ -760,6 +760,111 @@ def test_grad_pass_kernel_takes_relative_ids(device, labels_3d):
         _close(got, want, 1e-6, 1e-4)
 
 
+# --- grad_pass (row 6) on the shared gradient row, beta_scan's warp chain ----------
+
+def _grad_edge_args(device, v, dtype, labels_3d, seed=0):
+    """grad_pass operands at V = v: rows of zero coefficients holding
+    +-inf logits (padding), rows with one or two zero coefficients, the
+    blank and label columns, ids outside [0, V) and the -1 sentinel."""
+    rng = np.random.RandomState(seed + v)
+    b, t, s1 = 2, 5, 7
+    x = torch.from_numpy((rng.randn(b, t, s1, v) * 2).astype(np.float32))
+    coef = lambda: torch.from_numpy(rng.randn(b, t, s1).astype(np.float32))
+    occ, cb, cl = coef(), coef(), coef()
+    pad = torch.from_numpy(rng.rand(b, t, s1) < 0.3)
+    pad[0, 0] = True                               # a whole lattice row
+    for c in (occ, cb, cl):
+        c[pad] = 0.0
+    x[..., ::2][pad] = float("inf")
+    x[..., 1::2][pad] = float("-inf")
+    cb[1, 1] = 0.0                                 # live rows, one or two
+    cl[1, 2] = 0.0                                 # coefficients zero
+    occ[1, 3], cl[1, 3] = 0.0, 0.0
+    lab = torch.from_numpy(rng.randint(0, v, (b, t, s1) if labels_3d
+                                       else (b, s1)).astype(np.int32))
+    lab[..., 1] = -1
+    lab[..., 2] = v + 3
+    x = x.to(device=device, dtype=dtype)
+    denom = -torch.logsumexp(x.float(), -1)
+    denom = torch.where(torch.isfinite(denom), denom, 0.0)
+    return (x, denom, occ.to(device), cb.to(device), cl.to(device),
+            lab.to(device), min(3, v - 1)), pad.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("labels_3d", [False, True], ids=["BS1", "BTS1"])
+@pytest.mark.parametrize("v", [1, 7, 1000, 1024, 8192])
+def test_grad_pass_kernel_at_row_edges(device, v, labels_3d, dtype):
+    """V = 1 and 7 (scalar rows), 1000, 1024 and 8192 (16-byte rows in both
+    dtypes): zero rows of +-inf logits write exact zeros, no NaN."""
+    args, pad = _grad_edge_args(device, v, dtype, labels_3d)
+    before = K.LAUNCHES["grad_pass"]
+    got = K.grad_pass(*args, out_dtype=dtype)
+    want = K.grad_pass_plain(*args, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["grad_pass"] == before + 1
+    assert got.dtype == dtype and not bool(torch.isnan(got.float()).any())
+    assert bool((got[pad] == 0).all())
+    _close(got, want, 1e-6, 8e-3 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [1000, 1024, 8192])
+def test_grad_pass_16_byte_path_equals_scalar_path(device, v, dtype):
+    """The 16-byte lanes (an aligned tensor) and the scalar lanes (a view
+    of a copy one element off a 16-byte boundary, and the mixed-dtype pair)
+    give the same bits."""
+    args, _ = _grad_edge_args(device, v, dtype, False, seed=1)
+    x = args[0]
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+    flat[1:] = x.reshape(-1)
+    off = flat[1:].view(x.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    aligned = K.grad_pass(*args, out_dtype=dtype)
+    scalar = K.grad_pass(off, *args[1:], out_dtype=dtype)
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    mixed = K.grad_pass(*args, out_dtype=other)
+    torch.cuda.synchronize()
+    assert torch.equal(aligned, scalar)
+    # The mixed pair rounds the same f32 value to its own output type.
+    bf = torch.bfloat16
+    assert torch.equal(mixed.to(bf), aligned.to(bf))
+
+
+# S1 around the chain's warp counts: 1, 31-33 (one or two warps), 51 and
+# 64 (the padded lattice, the fused-joint chunk), 65 and 96 (three), 97
+# and 128 (four), 129 (the block chain).
+BETA_S1 = [1, 31, 32, 33, 51, 64, 65, 96, 97, 128, 129]
+
+
+@pytest.mark.parametrize("t_max", [37, 200])
+@pytest.mark.parametrize("s1", BETA_S1)
+def test_beta_scan_warp_chain_matches_plain(device, s1, t_max):
+    """Samples at T_b = T, T/2, 0 and T - 5; betas equal fwdbwd_scan's beta
+    half bit for bit."""
+    lpb, lpl, am, bm, _, bvirt = _split_scan_args(device, s1 + t_max, 4,
+                                                  t_max, s1)
+    ilen = torch.tensor([t_max, t_max // 2, 0, t_max - 5], dtype=torch.int32,
+                        device=device)
+    before = K.LAUNCHES["beta_scan"]
+    got = SK.beta_scan(lpb, lpl, bm, ilen, bvirt)
+    want = SK.beta_scan_plain(lpb, lpl, bm, ilen, bvirt)
+    _, betas = SK.fwdbwd_scan(lpb, lpl, am, bm, ilen, bvirt)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["beta_scan"] == before + 1
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    _close(got, want, 1e-4, 1e-5)
+    assert torch.equal(got, betas)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_beta_grad_kernel_at_the_padded_lattice(device, dtype):
+    """Row 2 at the benchmark lattice (B=32, T=200, S=50, V=1000), which
+    shares its gradient row with grad_pass."""
+    _, bg_args = _inputs(device, 0, 32, 200, 50, 1000, 0, dtype)
+    _hold_beta_grad(bg_args, True)
+
+
 # --- the copy-ceiling kernels --------------------------------------------------------
 
 def _random_bits(shape, dtype, device, seed):

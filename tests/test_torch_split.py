@@ -32,6 +32,7 @@ from monotonic_rnnt_tpu_torch.ops import loss as tloss
 from monotonic_rnnt_tpu_torch.ops.cuda import fused
 from monotonic_rnnt_tpu_torch.ops.cuda import split_kernels as SK
 from monotonic_rnnt_tpu_torch.utils import config
+from torch_scan_model import beta_chain_model
 from torch_stats_model import special_rows, stats_model
 
 WEIGHTS = np.array([1.0, -0.5, 2.0], np.float32)   # one negative cotangent
@@ -238,6 +239,46 @@ def test_scan_masks_select_where_the_pallas_kernels_add():
     assert torch.isnan(lpb_nan).any()
     alphas, betas = SK.fwdbwd_scan(lpb_nan, lpl, am, bm, ilen, bvirt)
     assert torch.equal(alphas, want_a) and torch.equal(betas, want_b)
+
+
+# --- beta_scan's warp chain, as a torch model ---------------------------------------
+
+# One warp (1, 31, 32), two (33, 51, 64), three (96), four (128); five
+# (129) runs the kernel's block chain, and the model's exchange holds.
+CHAIN_S1 = [1, 31, 32, 33, 51, 64, 96, 128, 129]
+
+
+@pytest.mark.parametrize("s1", CHAIN_S1)
+def test_beta_chain_model_matches_pallas_and_plain(s1):
+    """Samples at T_b = T, T/2, 0 and T - 5; random 0 / -inf masks and
+    virtual rows."""
+    rng = np.random.RandomState(s1)
+    b, t = 4, 13
+    lpb, lpl = ((rng.randn(b, t, s1) - 1).astype(np.float32)
+                for _ in range(2))
+    bm = np.where(rng.rand(b, t, s1) < 0.8, 0.0, -np.inf).astype(np.float32)
+    ilen = np.array([t, t // 2, 0, t - 5], np.int32)
+    bvirt = np.where(rng.rand(b, s1) < 0.3, 0.0, -np.inf).astype(np.float32)
+    got = beta_chain_model(*(_t(a) for a in (lpb, lpl, bm, ilen, bvirt)))
+    plain = SK.beta_scan_plain(*(_t(a) for a in (lpb, lpl, bm, ilen, bvirt)))
+    bt, b_pad, tt, t_pad = PK.dp_tiles(b, t, s1)
+    pad = lambda x, f: jnp.pad(jnp.asarray(x), ((0, b_pad - b),
+                                                (0, t_pad - t), (0, 0)),
+                               constant_values=f)
+    want = PK.beta_scan(pad(lpb, 0.0), pad(lpl, 0.0), pad(bm, NEG_INF),
+                        jnp.pad(jnp.asarray(ilen), (0, b_pad - b),
+                                constant_values=1)[:, None, None],
+                        jnp.pad(jnp.asarray(bvirt), ((0, b_pad - b), (0, 0)),
+                                constant_values=NEG_INF),
+                        interpret=True, tiles=(bt, tt))
+    want = np.asarray(want)[:b, :t]
+    assert np.array_equal(np.isfinite(got.numpy()), np.isfinite(want))
+    assert torch.equal(torch.isfinite(got), torch.isfinite(plain))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # The same operations slot by slot; CPU exp/log1p may round a tail
+    # element differently from a vectorised one, so not bit for bit.
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-6,
+                               atol=1e-6)
 
 
 # --- the split route ---------------------------------------------------------------
