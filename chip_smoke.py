@@ -61,7 +61,9 @@ steps), held against its plain version there too.
 
 The split phase holds the split pipeline's four kernels (softmax_stats,
 fwdbwd_scan, alpha_scan, beta_scan) against their plain versions at
-S1 = 1, 51 and 1101 and at the benchmark lattice in float32 and bfloat16,
+S1 = 1, 51 and 1101, at the scans' register-chain edges (S1 = 31-33, 64,
+65, 96, 97, 128, 129, 256, 257: warp counts and the cut), and at the benchmark
+lattice in float32 and bfloat16,
 drives ``monotonic_rnnt_loss`` under ``pipeline='split'`` (a weighted
 training step, then a cost-only call, launch counts read after each part)
 against the deferred route and the oracle, holds each kernel call that path
@@ -69,7 +71,8 @@ made against its plain version on the path's own operands, checks the
 goldens through it, and, on the banded case's full [2, 1600, 201, 1024]
 lattice, holds the scans at T=1600 and the split route against the
 deferred one. The split scans' times are also printed in ns per dependent
-step, from one call and queued.
+step, from one call, queued, and as the kernel alone (``kernel_queued_ms``:
+wrapper calls captured in a CUDA graph and replayed).
 
 The fused-joint phase runs ``rnnt_loss_fused_joint`` at
 benchmarks/memory_bench.py's case (B=4, T'=1024, S=63, V=8192, H=512,
@@ -86,7 +89,8 @@ on the full lattice, per-t [B, Tc, W] labels on the band), the chunk's beta
 scan fed the next chunk's carry as its virtual row, and grad_pass. The
 interior chunk's beta scan and grad_pass are timed there, one call and
 queued (grad_pass beside torch.softmax on the same logits, its bound from
-the chunk's live rows). Then it times both training steps and their scans.
+the chunk's live rows), and the one alpha scan over all of T one call,
+queued and as the kernel alone. Then it times both training steps.
 
 The sharded phase (``run_sharded``) saves what its ranks read to a
 temporary directory (the parent's single-process costs, the banded case's
@@ -1674,7 +1678,6 @@ def phase_split_timing(mt, main_inputs, weights):
                 out[name]["ns_per_step"] = out[name]["ms"] * 1e6 / n_t
                 out[name]["queued_ns_per_step"] = (out[name]["queued_ms"]
                                                    * 1e6 / n_t)
-            if name == "beta_scan":
                 out[name]["kernel_queued_ms"] = graph_ms(kern)
                 out[name]["kernel_queued_ns_per_step"] = (
                     out[name]["kernel_queued_ms"] * 1e6 / n_t)
@@ -1698,8 +1701,9 @@ def phase_split_timing(mt, main_inputs, weights):
             f"{r['plain_ms']:.4f}, library {r['library_ms']})"
             for n, r in out.items()) + "; " + json.dumps(e2e))
         log(f"split scans {dtype}, ns per dependent step (T={n_t}), one "
-            "call / queued: " + ", ".join(
+            "call / queued / kernel alone: " + ", ".join(
                 f"{n} {r['ns_per_step']:.1f} / {r['queued_ns_per_step']:.1f}"
+                f" / {r['kernel_queued_ns_per_step']:.1f}"
                 for n, r in out.items() if "ns_per_step" in r))
         del ops, scan, lg_leaf
         torch.cuda.empty_cache()
@@ -1712,7 +1716,12 @@ def run_split(mt, golden, main_inputs, weights):
     and the timing rows."""
     errs, launches = {}, {}
     # Small shapes first: S1 = 1, and S1 = 1101 (strided threads, T=1200).
-    for (b, t, s, v, blank) in ((3, 40, 0, 30, 2), (1, 1200, 1100, 16, 3)):
+    # Then the scans' register-chain edges: S1 = 31-33 (one or two warps),
+    # 64-65, 96-97, 128-129, 256 (eight) and 257 (the block chain), T = 300.
+    cases = [(3, 40, 0, 30, 2), (1, 1200, 1100, 16, 3)] + [
+        (4, 300, s1 - 1, 30, 0) for s1 in (31, 32, 33, 64, 65, 96, 97, 128,
+                                           129, 256, 257)]
+    for (b, t, s, v, blank) in cases:
         lg, lab, il, sl = make_inputs(mt, b, t, s, v, blank=blank, seed=2,
                                       t_range=(max(s, 1), t),
                                       s_range=(0, s))
@@ -1734,6 +1743,36 @@ def run_split(mt, golden, main_inputs, weights):
     return errs, launches, phase_split_timing(mt, main_inputs, weights)
 
 
+def phase_step_floor(mt, shapes):
+    """The step floor of a scan of B chains of T dependent steps: the same
+    B chains of T steps on the lightest chain the port has, alpha_scan on a
+    [B, T, 32] lattice (one warp, no barrier), the kernel alone in a CUDA
+    graph. Returns {(B, T): ms}."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    floors = {}
+    for b, t in shapes:
+        lpb, lpl = (torch.randn((b, t, 32), generator=gen, device=DEVICE) - 1
+                    for _ in range(2))
+        am = torch.zeros_like(lpb)
+        floors[(b, t)] = graph_ms(lambda: mt.SK.alpha_scan(lpb, lpl, am))
+        log(f"step floor [{b},{t}]: the one-warp chain (alpha_scan at "
+            f"[{b},{t},32], CUDA graph) takes {floors[(b, t)]:.5f} ms, "
+            f"{floors[(b, t)] * 1e6 / t:.2f} ns a dependent step")
+    return floors
+
+
+def add_step_floor(entries, floors, shapes):
+    """step_floor_ms on each scan entry (shapes: name -> its (B, T)), beside
+    bound_ms; bound_by_floor says which of the two is the larger."""
+    for e in entries:
+        if e["name"] in shapes:
+            b, t = shapes[e["name"]]
+            e["step_floor_ms"] = floors[(b, t)]
+            e["step_floor_ns_per_step"] = floors[(b, t)] * 1e6 / t
+            e["bound_by_floor"] = ("step floor" if e["step_floor_ms"]
+                                   > e["bound_ms"] else e["bound_by"])
+
+
 def split_kernel_entries(errs, launches, rows):
     """The four split kernels' JSON entries (f32, bf16 nested), with the
     split path's launches and errors; by_path adds the other paths'."""
@@ -1751,8 +1790,7 @@ def split_kernel_entries(errs, launches, rows):
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
             "library_ms": f32["library_ms"],
-            "status": ("redesigned" if name in ("softmax_stats", "beta_scan")
-                       else "ported"),
+            "status": "redesigned",
             "dtype": "float32",
             "shape": "B=%d,T=%d,S1=%d,V=%d" % (B, T, S + 1, V),
             "bf16": {"max_abs_err": errs[torch.bfloat16][name],
@@ -1955,17 +1993,18 @@ def fused_path_kernels(mt, module, beta_name, n_chunks, step, what):
     _, b_args, _ = cap.calls[beta_name][1]
     _, g_args, g_kw = cap.calls["grad_pass"][1]
     key = what.replace("-", "_").replace(" ", "_")
-    beta = lambda: pairs[beta_name][0](*b_args)
-    scan_ms = {f"{key}_{alpha_name}_ms": cuda_ms(
-                   lambda: pairs[alpha_name][0](*a_args)),
-               f"{key}_{beta_name}_chunk_ms": cuda_ms(beta),
-               f"{key}_{beta_name}_chunk_queued_ms": queued_ms(beta),
-               f"{key}_{beta_name}_chunk_kernel_queued_ms": graph_ms(beta)}
-    for q in ("queued", "kernel_queued"):
-        scan_ms[f"{key}_{beta_name}_chunk_{q}_ns_per_step"] = (
-            scan_ms[f"{key}_{beta_name}_chunk_{q}_ms"] * 1e6
-            / b_args[0].shape[1])
-    scan_ms[f"{key}_{beta_name}_chunk_shape"] = list(b_args[0].shape)
+    scan_ms = {}
+    for name, fn, args in (
+            (alpha_name, pairs[alpha_name][0], a_args),
+            (f"{beta_name}_chunk", pairs[beta_name][0], b_args)):
+        call = lambda: fn(*args)
+        scan_ms[f"{key}_{name}_ms"] = cuda_ms(call)
+        scan_ms[f"{key}_{name}_queued_ms"] = queued_ms(call)
+        scan_ms[f"{key}_{name}_kernel_queued_ms"] = graph_ms(call)
+        for q in ("queued", "kernel_queued"):
+            scan_ms[f"{key}_{name}_{q}_ns_per_step"] = (
+                scan_ms[f"{key}_{name}_{q}_ms"] * 1e6 / args[0].shape[1])
+        scan_ms[f"{key}_{name}_shape"] = list(args[0].shape)
     scan_ms[f"{key}_grad_pass_chunk"] = grad_chunk_timing(mt, g_args, g_kw)
     del cap, a_args, b_args, g_args
     torch.cuda.empty_cache()
@@ -3520,6 +3559,11 @@ def main() -> int:
     log(f"end-to-end split loss at B={B},T={T},S={S},V={V}: " + json.dumps(
         {str(d).removeprefix("torch."): split_rows[d][1]
          for d in split_rows}))
+    scan_shapes = {"fwdbwd_scan": (B, T), "alpha_scan": (B, T),
+                   "beta_scan": (B, T),
+                   "fwdbwd_scan_banded": tuple(BANDED_CASE[:2]),
+                   "alpha_scan_banded": tuple(BANDED_CASE[:2])}
+    floors = phase_step_floor(mt, sorted(set(scan_shapes.values())))
     band_kernels, band_e2e, band_keep, band_case = run_banded(
         mt, golden, main_inputs, weights, restricted)
     log(f"end-to-end banded loss at B,T,S,V={BANDED_CASE}, shift "
@@ -3572,12 +3616,17 @@ def main() -> int:
     chunk_entries = {e["name"]: e for e in band_kernels + split_kernels}
     chunk_entries["grad_pass"]["fused_joint_chunk"] = fused_e2e[
         "fused_joint_grad_pass_chunk"]
-    chunk_entries["beta_scan"]["fused_joint_chunk"] = {
-        k: fused_e2e[f"fused_joint_beta_scan_chunk_{k}"]
-        for k in ("shape", "ms", "queued_ms", "queued_ns_per_step",
-                  "kernel_queued_ms", "kernel_queued_ns_per_step")}
+    for name, where in (("beta_scan", "fused_joint_chunk"),
+                        ("alpha_scan", "fused_joint_forward")):
+        prefix = ("fused_joint_beta_scan_chunk" if name == "beta_scan"
+                  else "fused_joint_alpha_scan")
+        chunk_entries[name][where] = {
+            k: fused_e2e[f"{prefix}_{k}"]
+            for k in ("shape", "ms", "queued_ms", "queued_ns_per_step",
+                      "kernel_queued_ms", "kernel_queued_ns_per_step")}
     kernels += band_kernels + split_kernels + [partial_entry] + stream_entries
     add_ceiling(kernels, rates)
+    add_step_floor(kernels, floors, scan_shapes)
     check(len(kernels) == 14, f"the kernels JSON lists {len(kernels)} of 14")
     log(f"total {time.perf_counter() - t0:.1f} s")
 

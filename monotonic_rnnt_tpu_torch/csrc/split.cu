@@ -54,19 +54,22 @@
 //    into shared memory with all its threads' loads in flight, then walks
 //    the chunk: a step waits on shared memory, not on HBM latency
 //    (csrc/banded.cu's scheme). beta_virtual is the same row for every t and
-//    is staged once. The standalone beta kernel runs the same device code
-//    as fwdbwd's beta block above S1 = 128. At S1 <= 128 it runs a warp
-//    for every 32 slots (mrnnt_beta_warps_kernel): the carry in registers,
-//    the neighbours by shuffle and, across warps, through shared memory
-//    behind one barrier a step (none in one warp), the operands a register
-//    ring ahead; each slot's arithmetic is beta_chain's, so both give
-//    identical betas.
+//    is staged once. That block chain runs above S1 = 256 (the chain's cut).
+//    At S1 <= 256 every scan runs the register chain: a warp for every 32
+//    slots (alpha_warps, beta_warps), the carry in registers, the
+//    neighbours by shuffle and, across warps, through shared memory behind
+//    one barrier a step (none in one warp), the operands a register ring
+//    ahead; each slot's arithmetic is alpha_chain's or beta_chain's, so both
+//    designs give identical alphas and betas, and alpha_scan and beta_scan
+//    equal fwdbwd_scan's halves.
 //  * Masks: where the additive mask is -inf the output is exactly -inf, by
 //    a select (the port's convention, ROADMAP.md section 3); elsewhere the
 //    mask is added, as the TPU kernels add it. On finite inputs that is the
 //    TPU kernels' result; a NaN statistic of a masked padding cell (from
 //    +-inf padding logits) stays out of the recurrence.
 // Row offsets are 64-bit.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -313,41 +316,110 @@ __device__ void beta_chain(const float* __restrict__ lpb,
   }
 }
 
-// --- beta_scan at S1 <= 128: a warp for every 32 slots ------------------------
+// --- The register chain at S1 <= 256: a warp for every 32 slots -------------
 //
-// A chain is one block of W = ceil(S1/32) <= 4 warps, thread s carrying
-// slot s in a register, so that each operand row loads coalesced. The
-// neighbour nx[s+1] is the carry shuffled down one lane; lane 31 of warp w
-// reads lane 0 of warp w+1 from shared memory, which that lane writes
-// before the step's one barrier (double-buffered by step parity; no
-// barrier and no shared memory for W = 1). A slot whose neighbour lies
-// past S1 takes -inf, so the slots past S1, which carry values no slot
-// reads, never leak in. The virtual row sits in a register, and the
-// t+1 >= T_b select is uniform across the block. lpb, lpl and bmask are
-// loaded kBetaRing steps ahead into a register ring, from clamped, always
-// valid addresses (banded.cu's warp chains), the steps unrolled a ring at
-// a time so that a ring slot is a register; stores are predicated
-// (store_if), so no step waits on memory. Every slot computes beta_chain's
-// apply_mask(log_sum_exp(nx[s] + lpb[s], nx[s+1] + lpl[s]), bmask[s]) on
-// the same operands in the same order, log_sum_exp with a select in place
-// of its early return: the betas equal fwdbwd_scan's. One warp carrying
-// ceil(S1/32) slots a lane in registers instead, with no barrier, took
-// about ceil(S1/32) one-slot steps a step, its slots' log1pf not
-// overlapping, and lost to this chain at every S1 > 32 (PERF.md section 6).
+// A chain is one block of W = ceil(S1/32) <= kChainWarpsMax warps, thread s
+// carrying slot s in a register, so that each operand row loads coalesced. The
+// neighbour term comes over one lane by shuffle; across a warp edge it goes
+// through shared memory, written by the edge lane before the step's one
+// barrier (double-buffered by step parity; no barrier and no shared memory
+// for W = 1). The slots past S1 carry values from clamped operand columns
+// that no live slot reads. Operands are loaded kChainRing steps ahead into
+// a register ring, from clamped, always valid addresses (banded.cu's warp
+// chains), the steps unrolled a ring at a time so that a ring slot is a
+// register; stores are predicated (store_if), so no step waits on memory.
+// Each slot computes alpha_chain's or beta_chain's apply_mask(log_sum_exp(a,
+// b), mask) on the same operands in the same order, log_sum_exp with a
+// select in place of its early return (lse_select): the values equal the
+// block chain's.
+//  * Alpha: slot s offers alpha(t-1, s) + lpl[t, s], the emit term of slot
+//    s+1, which takes it by __shfl_up_sync (lane 0 of warp w from lane 31
+//    of warp w-1); slot 0 takes -inf.
+//  * Beta: the neighbour nx[s+1] is the carry (or the virtual row, a
+//    register, where t+1 >= T_b: uniform across the block) shuffled down
+//    one lane (lane 31 of warp w from lane 0 of warp w+1); a slot whose
+//    neighbour lies past S1 takes -inf.
+// One warp carrying ceil(S1/32) slots a lane in registers instead, with no
+// barrier, took about ceil(S1/32) one-slot steps a step, its slots' log1pf
+// not overlapping, and lost to this chain at every S1 > 32 (PERF.md
+// section 6).
 
 // Steps whose operands a chain has in flight ahead of the step.
-constexpr int kBetaRing = 16;
+constexpr int kChainRing = 16;
+// The largest W that runs the register chain; above W * 32 slots the
+// block chain runs. Eight warps beat the block chain at every S1 timed past
+// 128 (129-256, T = 200 and 1600, B = 2 and 32: PERF.md section 6).
+constexpr int kChainWarpsMax = 8;
+
+// log_sum_exp(a, b) with a select in place of its early return: the same
+// bits, no branch between one step's shuffles and the next's.
+__device__ __forceinline__ float lse_select(float a, float b) {
+  const float mx = a > b ? a : b;
+  const float e = expf((a > b ? b : a) - mx);
+  return mx == MRNNT_NEG_INF ? MRNNT_NEG_INF : mx + log1pf(e);
+}
 
 template <int W>
-__global__ void __launch_bounds__(W * kWarp) mrnnt_beta_warps_kernel(
+__device__ __forceinline__ void alpha_warps(const float* __restrict__ lpb,
+                                            const float* __restrict__ lpl,
+                                            const float* __restrict__ amask,
+                                            int b, int t_max, int s1,
+                                            float* __restrict__ alphas) {
+  constexpr int R = kChainRing;
+  __shared__ float edge[2][W];  // lane 31's emit term of each warp, by parity
+  const int s = threadIdx.x, lane = s % kWarp, w = s / kWarp;
+  const bool live = s < s1;
+  const int col = min(s, s1 - 1);
+  const long long base = static_cast<long long>(b) * t_max * s1;
+  float carry = s == 0 ? 0.f : MRNNT_NEG_INF;
+  // Step t in ring slot t % R; t clamped to T-1.
+  float rb[R], rl[R], rm[R];
+  const auto fetch = [&](int t, int k) {
+    const long long at =
+        base + static_cast<long long>(min(t, t_max - 1)) * s1 + col;
+    rb[k] = __ldg(lpb + at);
+    rl[k] = __ldg(lpl + at);
+    rm[k] = __ldg(amask + at);
+  };
+  const auto step = [&](int t, int k) {  // R is even: k & 1 is t's parity
+    const float offer = carry + rl[k];    // alpha(t-1, s) + lpl[t, s]
+    float emit = __shfl_up_sync(kFull, offer, 1);
+    if constexpr (W > 1) {
+      if (lane == kWarp - 1) edge[k & 1][w] = offer;
+      __syncthreads();
+      if (w > 0) {  // uniform across the warp
+        const float last = edge[k & 1][w - 1];
+        emit = lane == 0 ? last : emit;
+      }
+    }
+    emit = s == 0 ? MRNNT_NEG_INF : emit;
+    carry = apply_mask(lse_select(carry + rb[k], emit), rm[k]);
+    store_if(alphas + base + static_cast<long long>(t) * s1 + s, carry, live);
+  };
+#pragma unroll
+  for (int k = 0; k < R; ++k) fetch(k, k);
+  int t0 = 0;
+  for (; t0 + R <= t_max; t0 += R) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      step(t0 + k, k);
+      fetch(t0 + k + R, k);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (t0 + k < t_max) step(t0 + k, k);
+}
+
+template <int W>
+__device__ __forceinline__ void beta_warps(
     const float* __restrict__ lpb, const float* __restrict__ lpl,
     const float* __restrict__ bmask, const int* __restrict__ input_lengths,
-    const float* __restrict__ beta_virtual, int t_max, int s1,
+    const float* __restrict__ beta_virtual, int b, int t_max, int s1,
     float* __restrict__ betas) {
-  constexpr int R = kBetaRing;
+  constexpr int R = kChainRing;
   __shared__ float edge[2][W];  // lane 0's nx of each warp, by step parity
   const int s = threadIdx.x, lane = s % kWarp, w = s / kWarp;
-  const int b = blockIdx.x;
   const bool live = s < s1;
   const bool past = s + 1 >= s1;  // nx[s+1] lies past S1
   const int col = min(s, s1 - 1);
@@ -375,12 +447,8 @@ __global__ void __launch_bounds__(W * kWarp) mrnnt_beta_warps_kernel(
         up = lane == kWarp - 1 ? first : up;
       }
     }
-    const float x0 = nx + rb[k];
-    const float x1 = (past ? MRNNT_NEG_INF : up) + rl[k];
-    const float mx = x0 > x1 ? x0 : x1;
-    const float e = expf((x0 > x1 ? x1 : x0) - mx);
-    const float lse = mx == MRNNT_NEG_INF ? MRNNT_NEG_INF : mx + log1pf(e);
-    carry = apply_mask(lse, rm[k]);
+    carry = apply_mask(
+        lse_select(nx + rb[k], (past ? MRNNT_NEG_INF : up) + rl[k]), rm[k]);
     store_if(betas + base + static_cast<long long>(t) * s1 + s, carry, live);
   };
 #pragma unroll
@@ -398,19 +466,49 @@ __global__ void __launch_bounds__(W * kWarp) mrnnt_beta_warps_kernel(
     if (i0 + k < t_max) step(t_max - 1 - (i0 + k), k);
 }
 
-// The chain's warps: W = ceil(S1/32), 0 past 128 (the block chain).
-inline int beta_chain_warps(int s1) {
-  return s1 <= 4 * kWarp ? (s1 + kWarp - 1) / kWarp : 0;
+template <int W>
+__global__ void __launch_bounds__(W * kWarp) mrnnt_alpha_warps_kernel(
+    const float* __restrict__ lpb, const float* __restrict__ lpl,
+    const float* __restrict__ amask, int t_max, int s1,
+    float* __restrict__ alphas) {
+  alpha_warps<W>(lpb, lpl, amask, blockIdx.x, t_max, s1, alphas);
 }
 
 template <int W>
-int launch_beta_warps(const float* lpb, const float* lpl, const float* bmask,
-                      const int* input_lengths, const float* beta_virtual,
-                      int batch, int t_max, int s1, float* betas,
-                      cudaStream_t stream) {
-  mrnnt_beta_warps_kernel<W><<<batch, W * kWarp, 0, stream>>>(
-      lpb, lpl, bmask, input_lengths, beta_virtual, t_max, s1, betas);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(W * kWarp) mrnnt_beta_warps_kernel(
+    const float* __restrict__ lpb, const float* __restrict__ lpl,
+    const float* __restrict__ bmask, const int* __restrict__ input_lengths,
+    const float* __restrict__ beta_virtual, int t_max, int s1,
+    float* __restrict__ betas) {
+  beta_warps<W>(lpb, lpl, bmask, input_lengths, beta_virtual, blockIdx.x,
+                t_max, s1, betas);
+}
+
+// fwdbwd_scan's register chains: blockIdx.y 0 the alpha chain, 1 the beta
+// chain of sample blockIdx.x.
+template <int W>
+__global__ void __launch_bounds__(W * kWarp) mrnnt_fwdbwd_warps_kernel(
+    const float* __restrict__ lpb, const float* __restrict__ lpl,
+    const float* __restrict__ amask, const float* __restrict__ bmask,
+    const int* __restrict__ input_lengths,
+    const float* __restrict__ beta_virtual, int t_max, int s1,
+    float* __restrict__ alphas, float* __restrict__ betas) {
+  if (blockIdx.y == 0)
+    alpha_warps<W>(lpb, lpl, amask, blockIdx.x, t_max, s1, alphas);
+  else
+    beta_warps<W>(lpb, lpl, bmask, input_lengths, beta_virtual, blockIdx.x,
+                  t_max, s1, betas);
+}
+
+// Calls f(std::integral_constant<int, W>) for the chain's W = ceil(S1/32)
+// and returns its result; -1 past the cut (the block chain runs).
+template <int W = 1, typename F>
+int with_chain_warps(int s1, F&& f) {
+  if (s1 <= W * kWarp) return f(std::integral_constant<int, W>{});
+  if constexpr (W < kChainWarpsMax)
+    return with_chain_warps<W + 1>(s1, f);
+  else
+    return -1;
 }
 
 __global__ void mrnnt_alpha_scan_kernel(const float* __restrict__ lpb,
@@ -516,14 +614,22 @@ extern "C" int mrnnt_alpha_scan(const float* lpb, const float* lpl,
                                 const float* amask, int batch, int t_max,
                                 int s1, float* alphas, void* stream) {
   using namespace mrnnt;
+  if (batch == 0 || t_max == 0 || s1 == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chain = with_chain_warps(s1, [&](auto wc) {
+    constexpr int W = decltype(wc)::value;
+    mrnnt_alpha_warps_kernel<W><<<batch, W * kWarp, 0, st>>>(
+        lpb, lpl, amask, t_max, s1, alphas);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (chain >= 0) return chain;
   int tc, threads;
   size_t smem;
   if (const int err = scan_config(mrnnt_alpha_scan_kernel, t_max, s1, &tc,
                                   &smem, &threads))
     return err;
-  mrnnt_alpha_scan_kernel<<<batch, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      lpb, lpl, amask, t_max, s1, tc, alphas);
+  mrnnt_alpha_scan_kernel<<<batch, threads, smem, st>>>(lpb, lpl, amask,
+                                                        t_max, s1, tc, alphas);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -533,21 +639,15 @@ extern "C" int mrnnt_beta_scan(const float* lpb, const float* lpl,
                                int t_max, int s1, float* betas,
                                void* stream) {
   using namespace mrnnt;
-  if (batch == 0 || t_max == 0) return 0;
+  if (batch == 0 || t_max == 0 || s1 == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (beta_chain_warps(s1)) {
-#define MRNNT_BETA_WARPS(W)                                                  \
-  case W:                                                                    \
-    return launch_beta_warps<W>(lpb, lpl, bmask, input_lengths, beta_virtual, \
-                                batch, t_max, s1, betas, st);
-    MRNNT_BETA_WARPS(1)
-    MRNNT_BETA_WARPS(2)
-    MRNNT_BETA_WARPS(3)
-    MRNNT_BETA_WARPS(4)
-#undef MRNNT_BETA_WARPS
-    default:
-      break;
-  }
+  const int chain = with_chain_warps(s1, [&](auto wc) {
+    constexpr int W = decltype(wc)::value;
+    mrnnt_beta_warps_kernel<W><<<batch, W * kWarp, 0, st>>>(
+        lpb, lpl, bmask, input_lengths, beta_virtual, t_max, s1, betas);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (chain >= 0) return chain;
   int tc, threads;
   size_t smem;
   if (const int err = scan_config(mrnnt_beta_scan_kernel, t_max, s1, &tc,
@@ -565,13 +665,22 @@ extern "C" int mrnnt_fwdbwd_scan(const float* lpb, const float* lpl,
                                  int t_max, int s1, float* alphas,
                                  float* betas, void* stream) {
   using namespace mrnnt;
+  if (batch == 0 || t_max == 0 || s1 == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chain = with_chain_warps(s1, [&](auto wc) {
+    constexpr int W = decltype(wc)::value;
+    mrnnt_fwdbwd_warps_kernel<W><<<dim3(batch, 2), W * kWarp, 0, st>>>(
+        lpb, lpl, amask, bmask, input_lengths, beta_virtual, t_max, s1,
+        alphas, betas);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (chain >= 0) return chain;
   int tc, threads;
   size_t smem;
   if (const int err = scan_config(mrnnt_fwdbwd_scan_kernel, t_max, s1, &tc,
                                   &smem, &threads))
     return err;
-  mrnnt_fwdbwd_scan_kernel<<<dim3(batch, 2), threads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  mrnnt_fwdbwd_scan_kernel<<<dim3(batch, 2), threads, smem, st>>>(
       lpb, lpl, amask, bmask, input_lengths, beta_virtual, t_max, s1, tc,
       alphas, betas);
   return static_cast<int>(cudaGetLastError());

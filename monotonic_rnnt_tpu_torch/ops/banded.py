@@ -22,7 +22,9 @@ band_layout_is_exact holds.
 
 As in ops/reference.py, the oracle applies the reachability masks with a
 select where the JAX oracle adds a -inf mask, and zeroes the gradient where
-its coefficient is zero; on finite inputs the two agree.
+its coefficient is zero, except on the lattice cells of a sample whose cost
+is not finite, which take p * 0 as the JAX oracle's do; on finite inputs
+the two agree.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from .bands import (BandLayout, Bands, LatticeMasks, band_final_slot,
 from .helpers import (NEG_INF, extend_labels, log_sum_exp, mask_to_additive,
                       select_label_logits, shift_left_s, shift_right_s)
 from .loss import _resolve_backend
+from .reference import nonfinite_cost_cells
 
 
 class BandStats(NamedTuple):
@@ -166,8 +169,10 @@ def band_occupancy_coefficients(alphas, betas, ll, input_lengths,
 
 
 def band_gradients(logits_band, denom, lab_band, occ, cb, cl,
-                   blank_id: int, v_offset: int = 0) -> torch.Tensor:
-    """dL/dz on the packed layout, f32; exactly 0 where the coefficient is 0.
+                   blank_id: int, v_offset: int = 0,
+                   open_cells: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dL/dz on the packed layout, f32; exactly 0 where the coefficient is 0,
+    except on open_cells ([B, T, W] bool), which take p * coef.
 
     v_offset shifts local vocab indices to global ids (the vocab-sharded
     path; cf. reference.gradients_from_coefficients).
@@ -179,7 +184,10 @@ def band_gradients(logits_band, denom, lab_band, occ, cb, cl,
     coef = (occ[..., None]
             - torch.where(v_idx == blank_id, cb[..., None], 0.0)
             - torch.where(v_idx == lab_band[..., None], cl[..., None], 0.0))
-    return torch.where(coef == 0.0, 0.0, p * coef)
+    zero = coef == 0.0
+    if open_cells is not None:
+        zero &= ~open_cells[..., None]
+    return torch.where(zero, 0.0, p * coef)
 
 
 def rnnt_loss_banded_reference(
@@ -216,8 +224,12 @@ def rnnt_loss_banded_reference(
         return -ll, None
     occ, cb, cl = band_occupancy_coefficients(
         alphas, betas, ll, input_lengths, label_lengths, layout)
+    w_idx = torch.arange(w, dtype=torch.int32, device=logits_band.device)
+    open_cells = nonfinite_cost_cells(ll, input_lengths, label_lengths,
+                                      layout.offset[:, :, None] + w_idx,
+                                      t_max)
     return -ll, band_gradients(logits_band, stats.denom, lab_band, occ, cb,
-                               cl, blank_id)
+                               cl, blank_id, open_cells=open_cells)
 
 
 # ---------------------------------------------------------------------------

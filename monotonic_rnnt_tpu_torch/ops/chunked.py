@@ -60,7 +60,7 @@ from .cuda.split_kernels import (alpha_scan, alpha_scan_plain, beta_scan,
                                  beta_scan_plain, softmax_stats,
                                  softmax_stats_plain)
 from .helpers import NEG_INF, extend_labels, mask_to_additive, shift_left_s
-from .reference import LatticeStats, _gather_ll
+from .reference import LatticeStats, _gather_ll, nonfinite_cost_cells
 
 
 def _chunk_stats(logits_c, labels_ext, blank_id: int, group=None):
@@ -160,12 +160,18 @@ def push_through_joint(logits_c, leaves, dlogits, targets) -> None:
             targets[i].add_(g)
 
 
-def coefficients(aprev, betas, bnext, valid, llb, weight):
-    """(occ, cb, cl) of one chunk, the cotangent folded in (chunked.py:294-299)."""
+def coefficients(aprev, betas, bnext, valid, llb, weight, nan_cells):
+    """(occ, cb, cl) of one chunk, the cotangent folded in (chunked.py:294-299).
+
+    occ is NaN on nan_cells: the lattice cells with a non-finite denom of a
+    sample whose cost is not finite. Its coefficients are all 0, and there
+    the JAX oracle's p * 0 is NaN where grad_pass would write a zero.
+    """
     def coef(b):
         return torch.where(valid, torch.exp(aprev + b - llb), 0.0) * weight
 
-    return coef(betas), coef(bnext), coef(shift_left_s(bnext))
+    occ = torch.where(nan_cells, float("nan"), coef(betas))
+    return occ, coef(bnext), coef(shift_left_s(bnext))
 
 
 def gradient_targets(ctx, enc, pred, values, n_lead: int):
@@ -223,6 +229,7 @@ class _FusedJointCore(torch.autograd.Function):
         aprev = torch.cat([alpha_virt, alphas[:, :-1]], dim=1)
         ll_ok = torch.isfinite(ll)
         llb = torch.where(ll_ok, ll, 0.0)[:, None, None]
+        open_cells = nonfinite_cost_cells(ll, ilen, slen, s_idx, t_max)
         weight = cost_cotangent.to(torch.float32)[:, None, None]
         needs, acc = gradient_targets(ctx, enc, pred, values, 12)
 
@@ -243,8 +250,9 @@ class _FusedJointCore(torch.autograd.Function):
             t_idx = torch.arange(t0, t1, dtype=torch.int32, device=dev)
             valid = ((t_idx[None, :, None] < ilen[:, None, None])
                      & ll_ok[:, None, None])
-            occ, cb, cl = coefficients(aprev[:, t0:t1], betas, bnext, valid,
-                                       llb, weight)
+            occ, cb, cl = coefficients(
+                aprev[:, t0:t1], betas, bnext, valid, llb, weight,
+                open_cells[:, t0:t1] & ~torch.isfinite(stats.denom))
             dlogits = kernel_or_plain(grad_pass, grad_pass_plain, x)(
                 x, stats.denom, occ, cb, cl, labels_ext - v_off,
                 ctx.blank_id - v_off, out_dtype=x.dtype)

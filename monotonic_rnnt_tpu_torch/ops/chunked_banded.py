@@ -49,6 +49,7 @@ from .collective import sharded_band_stats
 from .cuda.kernels import grad_pass, grad_pass_plain, kernel_or_plain
 from .cuda.split_kernels import softmax_stats, softmax_stats_plain
 from .helpers import NEG_INF, mask_to_additive, shift_left_s, shift_right_s
+from .reference import nonfinite_cost_cells
 
 
 def _band_chunk_stats(logits_c, lab_k, blank_id: int, group=None):
@@ -174,6 +175,8 @@ class _FusedBandedCore(torch.autograd.Function):
         aprev = torch.where(layout.d[:, :, None] == 1, shift_left_s(ap), ap)
         ll_ok = torch.isfinite(ll)
         llb = torch.where(ll_ok, ll, 0.0)[:, None, None]
+        open_cells = nonfinite_cost_cells(
+            ll, ilen, slen, layout.offset[:, :, None] + w_idx, t_max)
         weight = cost_cotangent.to(torch.float32)[:, None, None]
         needs, acc = gradient_targets(ctx, enc, pred, values, 13)
 
@@ -196,8 +199,9 @@ class _FusedBandedCore(torch.autograd.Function):
             t_idx = torch.arange(t0, t1, dtype=torch.int32, device=dev)
             valid = ((t_idx[None, :, None] < ilen[:, None, None])
                      & ll_ok[:, None, None])
-            occ, cb, cl = coefficients(aprev[:, t0:t1], betas, bnext, valid,
-                                       llb, weight)
+            occ, cb, cl = coefficients(
+                aprev[:, t0:t1], betas, bnext, valid, llb, weight,
+                open_cells[:, t0:t1] & ~torch.isfinite(stats.denom))
             dlogits = kernel_or_plain(grad_pass, grad_pass_plain, x)(
                 x, stats.denom, occ, cb, cl, lab_k - v_off,
                 ctx.blank_id - v_off, out_dtype=x.dtype)

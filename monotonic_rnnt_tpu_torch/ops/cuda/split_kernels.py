@@ -5,13 +5,14 @@ on the padded [B, T, S1(, V)] lattice:
 
 * ``softmax_stats`` (TPU kernel at kernels.py:244) launches
   ``mrnnt_softmax_stats_kernel``;
-* ``fwdbwd_scan`` (kernels.py:1053) launches ``mrnnt_fwdbwd_scan_kernel``,
-  the alpha and beta chains side by side;
-* ``alpha_scan`` (kernels.py:921) launches ``mrnnt_alpha_scan_kernel``;
-* ``beta_scan`` (kernels.py:947) launches ``mrnnt_beta_warps_kernel``, a
-  warp for every 32 slots of a chain, at S1 <= 128 and
-  ``mrnnt_beta_scan_kernel`` above; its betas equal ``fwdbwd_scan``'s bit
-  for bit;
+* ``fwdbwd_scan`` (kernels.py:1053) launches ``mrnnt_fwdbwd_warps_kernel``,
+  the alpha and beta chains side by side, each a warp for every 32 slots,
+  at S1 <= 256 and ``mrnnt_fwdbwd_scan_kernel`` above;
+* ``alpha_scan`` (kernels.py:921) launches ``mrnnt_alpha_warps_kernel`` at
+  S1 <= 256 and ``mrnnt_alpha_scan_kernel`` above;
+* ``beta_scan`` (kernels.py:947) launches ``mrnnt_beta_warps_kernel`` at
+  S1 <= 256 and ``mrnnt_beta_scan_kernel`` above; its betas equal
+  ``fwdbwd_scan``'s, and ``alpha_scan``'s alphas its alphas, bit for bit;
 * ``softmax_stats_partial`` (kernels.py:816), the vocab-sharded losses'
   per-shard (max, sum-exp), launches ``mrnnt_softmax_stats_partial_kernel``;
 

@@ -27,9 +27,13 @@ All recurrences run in float32 log space regardless of input dtype.
 Two choices differ from the JAX oracle only where it would produce NaN:
 the reachability masks are applied with ``where`` instead of adding an
 additive -inf mask, and the gradient is zero wherever its coefficient is
-zero (the guard the Pallas kernels apply). With +-inf logits in padding
-cells the JAX oracle returns NaN; this one returns the padding-independent
-cost and a zero gradient there. On finite inputs the two agree.
+zero (the guard the Pallas kernels apply), except on the lattice cells of a
+sample whose cost is not finite. With +-inf logits in padding cells the
+JAX oracle returns NaN; this one returns the padding-independent cost and
+a zero gradient there. A sample whose cost is NaN (a non-finite logit in a
+lattice cell) has all-zero coefficients in both oracles, and its lattice
+cells take p * 0 as the JAX oracle's do: NaN where p is not finite. On
+finite inputs the two agree.
 """
 
 from __future__ import annotations
@@ -167,20 +171,37 @@ def occupancy_coefficients(alphas: torch.Tensor, betas: torch.Tensor,
     return _coef(betas), _coef(beta_next), _coef(beta_next_up)
 
 
+def nonfinite_cost_cells(ll: torch.Tensor, input_lengths: torch.Tensor,
+                         label_lengths: torch.Tensor, cell_s: torch.Tensor,
+                         t_max: int) -> torch.Tensor:
+    """[B, T, S1] bool: the lattice cells (t < T_b, s <= S_b) of the samples
+    whose ll is not finite. cell_s is each cell's lattice s, broadcastable
+    to [B, T, S1]: the s index on the padded lattice, offset[t] + w on the
+    band layout."""
+    t_idx = torch.arange(t_max, dtype=torch.int32, device=ll.device)
+    return ((~torch.isfinite(ll))[:, None, None]
+            & (t_idx[None, :, None] < input_lengths[:, None, None])
+            & (cell_s <= label_lengths[:, None, None]))
+
+
 def gradients_from_coefficients(logits: torch.Tensor, denom: torch.Tensor,
                                 labels: torch.Tensor,
                                 label_lengths: torch.Tensor,
                                 occ: torch.Tensor, cb: torch.Tensor,
                                 cl: torch.Tensor, blank_id: int,
-                                v_offset: int = 0) -> torch.Tensor:
+                                v_offset: int = 0,
+                                open_cells: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """Assemble dL/dz from per-cell coefficients.
 
       dL/dz[t,s,v] = p(v|t,s) * (occ - [v==blank]*cb - [v==label[s]]*cl)
 
     and exactly 0 where the coefficient is 0, so +-inf padding logits
-    (p = NaN or inf there) cannot leak NaN into the gradient. v_offset
-    shifts local vocab indices to global ids (the vocab-sharded path, where
-    this shard holds columns [v_offset, v_offset + V_local)).
+    (p = NaN or inf there) cannot leak NaN into the gradient; open_cells
+    ([B, T, S1] bool, nonfinite_cost_cells) lifts that guard, so those
+    cells take p * coef as the JAX oracle's do. v_offset shifts local
+    vocab indices to global ids (the vocab-sharded path, where this shard
+    holds columns [v_offset, v_offset + V_local)).
     """
     s1, v = logits.shape[2], logits.shape[3]
     p = torch.exp(logits.float() + denom[..., None])
@@ -194,7 +215,10 @@ def gradients_from_coefficients(logits: torch.Tensor, denom: torch.Tensor,
     coef = (occ[..., None]
             - torch.where(blank_mask, cb[..., None], 0.0)
             - torch.where(label_mask, cl[..., None], 0.0))
-    return torch.where(coef == 0.0, 0.0, p * coef)
+    zero = coef == 0.0
+    if open_cells is not None:
+        zero &= ~open_cells[..., None]
+    return torch.where(zero, 0.0, p * coef)
 
 
 def rnnt_loss_reference(
@@ -232,6 +256,9 @@ def rnnt_loss_reference(
 
     occ, cb, cl = occupancy_coefficients(
         alphas, betas, ll_fwd, input_lengths, label_lengths)
+    s_idx = torch.arange(s1, dtype=torch.int32, device=logits.device)
     grads = gradients_from_coefficients(
-        logits, stats.denom, labels, label_lengths, occ, cb, cl, blank_id)
+        logits, stats.denom, labels, label_lengths, occ, cb, cl, blank_id,
+        open_cells=nonfinite_cost_cells(ll_fwd, input_lengths, label_lengths,
+                                        s_idx, t_max))
     return costs, grads

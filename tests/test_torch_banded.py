@@ -29,6 +29,7 @@ from monotonic_rnnt_tpu_torch.ops.cuda import banded as tcbanded
 from monotonic_rnnt_tpu_torch.ops.cuda import banded_kernels as tbk
 from monotonic_rnnt_tpu_torch.ops.cuda import kernels as tk
 from monotonic_rnnt_tpu_torch.utils.status import RnntError
+from test_torch_reference import assert_nan_cost_contract, nan_cost_case
 
 # (seed, B, T, S, V, shift, blank): the case shapes of tests/test_banded.py
 # (shift 0 is the exact-path restriction; V=130 spans more than one lane
@@ -573,3 +574,33 @@ def test_no_grad_call_takes_the_cost_only_route(api, monkeypatch):
     assert seen == [False] and not costs.requires_grad
     fn(x, *c.t[1:], bands=c.tb, blank_id=c.blank).sum().backward()
     assert seen == [False, True] and x.grad is not None
+
+
+@pytest.mark.parametrize("route", ["oracle", "reference"])
+def test_banded_nan_cost_gets_the_jax_oracles_nan_gradient(route):
+    """The NaN-cost case of tests/test_torch_reference.py on the default
+    band at W = S1: the banded oracle, and the public banded loss on the
+    reference backend, against the JAX banded oracle."""
+    case, finite = nan_cost_case()
+    t_max, s1 = case[0].shape[1], case[0].shape[2]
+    j_il, j_sl = jnp.asarray(case[2]), jnp.asarray(case[3])
+    jb = jbands.default_bands(j_il, j_sl, t_max)
+    jl = jbands.compute_band_layout(j_il, j_sl, jb, t_max, s1, s1)
+    want_c, want_g = _jref(jbands.pack_band(jnp.asarray(case[0]), jl),
+                           jnp.asarray(case[1]), j_il, j_sl, jb)
+    assert int(np.isnan(np.asarray(want_g)).sum()) == 5
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(*case, device="cpu")
+    tb = tbands.default_bands(il, sl, t_max)
+    layout = tbands.compute_band_layout(il, sl, tb, t_max, s1, s1)
+    _, finite_g = tbanded.rnnt_loss_banded_reference(
+        tbands.pack_band(torch.from_numpy(finite), layout), lb, il, sl, tb)
+    x = tbands.pack_band(lg, layout)
+    if route == "oracle":
+        got_c, got_g = tbanded.rnnt_loss_banded_reference(x, lb, il, sl, tb)
+    else:
+        x.requires_grad_(True)
+        got_c = mt.monotonic_rnnt_loss_banded(x, lb, il, sl, bands=tb,
+                                              backend="reference")
+        got_c.sum().backward()
+        got_g = x.grad
+    assert_nan_cost_contract(got_c, got_g, want_c, want_g, finite_g.numpy())

@@ -18,6 +18,7 @@ import torch
 
 import monotonic_rnnt_tpu_torch as mt
 from monotonic_rnnt_tpu.ops.bands import bands_from_alignment as j_bands_from
+from monotonic_rnnt_tpu.ops.bands import default_bands as jbands_default
 from monotonic_rnnt_tpu.ops.bands import required_band_width
 from monotonic_rnnt_tpu.ops.chunked import rnnt_loss_fused_joint as j_fused
 from monotonic_rnnt_tpu.ops.chunked_banded import \
@@ -46,6 +47,10 @@ def j_joint_banded(params, enc_c, pred_band):
     e = enc_c.astype(jnp.float32) @ params["we"]
     p = pred_band.astype(jnp.float32) @ params["wp"]
     return jnp.tanh(e[:, :, None, :] + p) @ params["wv"] + params["bv"]
+
+
+def _add_joint_banded(params, enc_c, pred_band):
+    return enc_c[:, :, None, :] + pred_band + params["bv"]
 
 
 def t_joint(params, enc_c, pred):
@@ -318,6 +323,69 @@ def test_fused_joint_infeasible_sample_inf_cost_zero_grads():
     assert (e.grad[2] == 0).all() and torch.isfinite(e.grad).all()
     np.testing.assert_allclose(e.grad.numpy(), np.asarray(j_denc), rtol=1e-4,
                                atol=1e-5)
+
+
+def _add_joint(params, enc_c, pred):
+    """An additive joint (De = Dp = V), so a non-finite encoder value
+    reaches exactly one vocab column of its frame's logits."""
+    return enc_c[:, :, None, :] + pred[:, None, :, :] + params["bv"]
+
+
+@pytest.mark.parametrize("banded", [False, True], ids=["full", "band"])
+def test_fused_joint_nan_cost_gets_the_jax_nan_gradient(banded):
+    """enc[1, 1, 2] = +inf: sample 1's logits at frame 1 are +inf in
+    column 2 and its cost is not finite. Its coefficients are all 0 in both
+    packages; the JAX oracle's p * 0 puts NaN in d_enc[1, 1, 2], d_pred[1,
+    :, 2] and d_bv[2], where the port's lattice cells must be NaN too (the
+    port keeps d_pred's padding rows s > S_b at zero, as the padded oracle
+    does). Sample 0's gradients keep their bits."""
+    rng = np.random.RandomState(0)
+    b, t, s, v = 2, 11, 4, 9
+    enc = rng.randn(b, t, v).astype(np.float32)
+    pred = rng.randn(b, s + 1, v).astype(np.float32)
+    labels = rng.randint(1, v, (b, s)).astype(np.int32)
+    ilen, slen = np.array([11, 9], np.int32), np.array([4, 3], np.int32)
+    bv = rng.randn(v).astype(np.float32)
+    finite = enc.copy()
+    enc[1, 1, 2] = np.inf
+    j_args = tuple(jnp.asarray(a) for a in (labels, ilen, slen))
+    jb = jbands_default(j_args[1], j_args[2], t)
+    width = int(required_band_width(j_args[1], j_args[2], jb, t, s + 1))
+    tb = convert.bands_from_numpy(*(np.asarray(a) for a in jb), device="cpu")
+
+    def j_loss(e, p, bias):
+        if banded:
+            return j_fused_banded(e, p, *j_args, _add_joint_banded,
+                                  {"bv": bias}, bands=jb, band_width=width,
+                                  chunk_t=4)
+        return j_fused(e, p, *j_args, _add_joint, {"bv": bias}, chunk_t=4)
+
+    def port(e_np):
+        e, p = (torch.from_numpy(a).requires_grad_(True) for a in (e_np, pred))
+        bias = torch.from_numpy(bv).requires_grad_(True)
+        kw = ({"bands": tb, "band_width": width} if banded else {})
+        loss = (mt.rnnt_loss_fused_joint_banded if banded
+                else mt.rnnt_loss_fused_joint)
+        costs = loss(e, p, *_t_args(labels, ilen, slen),
+                     _add_joint_banded if banded else _add_joint,
+                     {"bv": bias}, chunk_t=4, **kw)
+        costs.sum().backward()
+        return costs.detach().numpy(), [e.grad.numpy(), p.grad.numpy(),
+                                        bias.grad.numpy()]
+
+    j_costs, j_vjp = jax.vjp(j_loss, *(jnp.asarray(a) for a in (enc, pred,
+                                                                bv)))
+    want = [np.asarray(g) for g in j_vjp(jnp.ones(b, jnp.float32))]
+    got_c, got = port(enc)
+    _, fin = port(finite)
+    np.testing.assert_allclose(got_c, np.asarray(j_costs), rtol=1e-5)
+    assert np.isfinite(got_c[0]) and not np.isfinite(got_c[1])
+    lattice = [(1, 1, slice(None)), (1, slice(0, slen[1] + 1)), ...]
+    for g, w, cells in zip(got, want, lattice):
+        assert np.isnan(w[cells]).any()
+        assert np.isnan(g[cells])[np.isnan(w[cells])].all()
+    for g, f in zip(got[:2], fin[:2]):
+        np.testing.assert_array_equal(g[0], f[0])
 
 
 @pytest.mark.parametrize("route", ["reference", "cuda"])

@@ -833,8 +833,8 @@ def test_grad_pass_16_byte_path_equals_scalar_path(device, v, dtype):
 
 # S1 around the chain's warp counts: 1, 31-33 (one or two warps), 51 and
 # 64 (the padded lattice, the fused-joint chunk), 65 and 96 (three), 97
-# and 128 (four), 129 (the block chain).
-BETA_S1 = [1, 31, 32, 33, 51, 64, 65, 96, 97, 128, 129]
+# and 128 (four), 129 (five), 257 (the block chain).
+BETA_S1 = [1, 31, 32, 33, 51, 64, 65, 96, 97, 128, 129, 257]
 
 
 @pytest.mark.parametrize("t_max", [37, 200])
@@ -855,6 +855,92 @@ def test_beta_scan_warp_chain_matches_plain(device, s1, t_max):
     assert torch.equal(torch.isfinite(got), torch.isfinite(want))
     _close(got, want, 1e-4, 1e-5)
     assert torch.equal(got, betas)
+
+
+# The register chains of rows 4, 5 and 11 run at S1 <= CHAIN_CUT
+# (csrc/split.cu: kChainWarpsMax warps of 32 slots), the block chains above.
+CHAIN_CUT = 256
+# S1 around the chains' warp counts and the cut, and 201 (the long-T split
+# check and the alignment path's occupancies); T = 1, around the 16-step
+# register ring, 37 and 200.
+SCAN_S1 = sorted({1, 31, 32, 33, 51, 64, 65, 96, 97, 128, 129, 201,
+                  CHAIN_CUT - 1, CHAIN_CUT, CHAIN_CUT + 1})
+SCAN_T = [1, 15, 16, 17, 37, 200]
+
+
+def _chain_scan_args(device, s1, t_max):
+    """_split_scan_args at B = 4 with T_b = T, T/2, 0 and T - 5 (at least
+    0), and alpha masks all 0 on the first sample so that its alphas climb
+    to every slot."""
+    lpb, lpl, am, bm, _, bvirt = _split_scan_args(device, s1 * 7 + t_max, 4,
+                                                  t_max, s1)
+    am[0] = 0.0
+    ilen = torch.tensor([t_max, t_max // 2, 0, max(0, t_max - 5)],
+                        dtype=torch.int32, device=device)
+    return lpb, lpl, am, bm, ilen, bvirt
+
+
+@pytest.mark.parametrize("t_max", SCAN_T)
+@pytest.mark.parametrize("s1", SCAN_S1)
+def test_alpha_and_fwdbwd_scans_match_plain(device, s1, t_max):
+    """alpha_scan, fwdbwd_scan and beta_scan against their plain versions,
+    one launch each; alpha_scan equals fwdbwd_scan's alphas and beta_scan
+    its betas bit for bit, on either side of the cut."""
+    args = _chain_scan_args(device, s1, t_max)
+    lpb, lpl, am, bm, ilen, bvirt = args
+    names = ("alpha_scan", "beta_scan", "fwdbwd_scan")
+    before = {n: K.LAUNCHES[n] for n in names}
+    a_only = SK.alpha_scan(lpb, lpl, am)
+    b_only = SK.beta_scan(lpb, lpl, bm, ilen, bvirt)
+    alphas, betas = SK.fwdbwd_scan(*args)
+    want_a, want_b = SK.fwdbwd_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert {n: K.LAUNCHES[n] - before[n] for n in names} == dict.fromkeys(
+        names, 1)
+    for got, want in ((alphas, want_a), (betas, want_b)):
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+        _close(got, want, 1e-4, 1e-5)
+    assert torch.equal(a_only, alphas) and torch.equal(b_only, betas)
+
+
+@pytest.mark.parametrize("batch,t_max", [(0, 37), (3, 0)],
+                         ids=["B0", "T0"])
+def test_scans_take_an_empty_lattice(device, batch, t_max):
+    """B = 0 or T = 0: empty outputs, no launch error."""
+    args = _split_scan_args(device, 5, max(batch, 1), max(t_max, 1), 51)
+    args = tuple(a[:batch, :t_max].contiguous() if a.dim() == 3
+                 else a[:batch].contiguous() for a in args)
+    alphas, betas = SK.fwdbwd_scan(*args)
+    a_only = SK.alpha_scan(*args[:3])
+    b_only = SK.beta_scan(*args[:2], *args[3:])
+    torch.cuda.synchronize()
+    for out in (alphas, betas, a_only, b_only):
+        assert tuple(out.shape) == (batch, t_max, 51)
+
+
+def test_chains_equal_the_block_chains_bit_for_bit(device):
+    """A lattice past the cut runs the block chains; its first 64 slots,
+    as a lattice of their own, the register chains. alpha(t, s) reads
+    slots <= s only, so the first 64 alphas agree bit for bit; beta(t, s)
+    reads slots >= s, so with the tail slots' mask and virtual row at -inf
+    the first 64 betas agree too (slot 63's neighbour is -inf in both)."""
+    s1, n = CHAIN_CUT + 73, 64
+    lpb, lpl, am, bm, ilen, bvirt = _chain_scan_args(device, s1, 200)
+    bm[..., n:] = NEG_INF
+    bvirt[:, n:] = NEG_INF
+    head = lambda x: x[..., :n].contiguous()
+    full = SK.fwdbwd_scan(lpb, lpl, am, bm, ilen, bvirt)
+    part = SK.fwdbwd_scan(head(lpb), head(lpl), head(am), head(bm), ilen,
+                          head(bvirt))
+    a_part = SK.alpha_scan(head(lpb), head(lpl), head(am))
+    b_full = SK.beta_scan(lpb, lpl, bm, ilen, bvirt)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(full[0][0, -1, :n]).all())
+    assert bool(torch.isfinite(full[1][0, 0, :n]).any())
+    for f, p in zip(full, part):
+        assert torch.equal(head(f), p)
+    assert torch.equal(a_part, part[0])
+    assert torch.equal(head(b_full), part[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

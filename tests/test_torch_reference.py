@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import golden
+import monotonic_rnnt_tpu_torch as mt
 from monotonic_rnnt_tpu.ops.bands import bands_from_alignment as j_bands_from_alignment
 from monotonic_rnnt_tpu.ops.reference import rnnt_loss_reference as _j_ref
 from monotonic_rnnt_tpu_torch import convert
@@ -152,3 +153,50 @@ def test_bf16_logits_match_jax_oracle():
     np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=1e-5)
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-4,
                                atol=1e-6)
+
+
+def nan_cost_case():
+    """B=2, T=6, S=3, V=5 from RandomState(0), one lattice cell's row of
+    sample 1 at +inf: sample 1's cost is NaN, sample 0's finite."""
+    rng = np.random.RandomState(0)
+    logits = rng.randn(2, 6, 4, 5).astype(np.float32)
+    labels = rng.randint(1, 5, (2, 3)).astype(np.int32)
+    finite = logits.copy()
+    logits[1, 1, 0, :] = np.inf
+    return (logits, labels, np.array([6, 5], np.int32),
+            np.array([3, 2], np.int32)), finite
+
+
+def assert_nan_cost_contract(got_c, got_g, want_c, want_g, finite_g):
+    """Costs equal the JAX oracle's, NaN included; the port's NaN cells
+    contain JAX's; sample 0 (finite cost) keeps its gradient bit for bit."""
+    got_c, got_g = got_c.detach().numpy(), got_g.detach().numpy()
+    want_g = np.asarray(want_g)
+    np.testing.assert_allclose(got_c, np.asarray(want_c), rtol=1e-5)
+    assert np.isfinite(got_c[0]) and np.isnan(got_c[1])
+    assert np.isnan(want_g).sum() > 0
+    assert np.isnan(got_g)[np.isnan(want_g)].all()
+    np.testing.assert_array_equal(got_g[0], finite_g[0])
+    np.testing.assert_allclose(got_g[0], want_g[0], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("route", ["oracle", "reference", "auto"])
+def test_nan_cost_gets_the_jax_oracles_nan_gradient(route):
+    """The oracle, and the public loss on the reference backend and on
+    'auto' (the reference route on the CPU), against the JAX oracle."""
+    case, finite = nan_cost_case()
+    want_c, want_g = j_ref(*(jnp.asarray(a) for a in case))
+    assert int(np.isnan(np.asarray(want_g)).sum()) == 5
+    _, finite_g = rnnt_loss_reference(*_cpu(finite, *case[1:]))
+    if route == "oracle":
+        got_c, got_g = rnnt_loss_reference(*_cpu(*case))
+    else:
+        lg, lb, il, sl = _cpu(*case)
+        x = lg.requires_grad_(True)
+        got_c = mt.monotonic_rnnt_loss(x, lb, il, sl, backend=route)
+        got_c.sum().backward()
+        got_g = x.grad
+    assert_nan_cost_contract(got_c, got_g, want_c, want_g, finite_g.numpy())
+    # Padding cells (t >= T_b or s > S_b) keep their exact zero.
+    assert (got_g.detach().numpy()[1, 5:] == 0).all()
+    assert (got_g.detach().numpy()[1, :, 3:] == 0).all()

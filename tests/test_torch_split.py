@@ -32,7 +32,7 @@ from monotonic_rnnt_tpu_torch.ops import loss as tloss
 from monotonic_rnnt_tpu_torch.ops.cuda import fused
 from monotonic_rnnt_tpu_torch.ops.cuda import split_kernels as SK
 from monotonic_rnnt_tpu_torch.utils import config
-from torch_scan_model import beta_chain_model
+from torch_scan_model import alpha_chain_model, beta_chain_model
 from torch_stats_model import special_rows, stats_model
 
 WEIGHTS = np.array([1.0, -0.5, 2.0], np.float32)   # one negative cotangent
@@ -243,8 +243,8 @@ def test_scan_masks_select_where_the_pallas_kernels_add():
 
 # --- beta_scan's warp chain, as a torch model ---------------------------------------
 
-# One warp (1, 31, 32), two (33, 51, 64), three (96), four (128); five
-# (129) runs the kernel's block chain, and the model's exchange holds.
+# One warp (1, 31, 32), two (33, 51, 64), three (96), four (128), five
+# (129): the model's exchange holds at every warp count.
 CHAIN_S1 = [1, 31, 32, 33, 51, 64, 96, 128, 129]
 
 
@@ -275,6 +275,37 @@ def test_beta_chain_model_matches_pallas_and_plain(s1):
     assert np.array_equal(np.isfinite(got.numpy()), np.isfinite(want))
     assert torch.equal(torch.isfinite(got), torch.isfinite(plain))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # The same operations slot by slot; CPU exp/log1p may round a tail
+    # element differently from a vectorised one, so not bit for bit.
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+# S1 for the alpha chain: one warp (1, 31, 32), two (33, 51 the padded
+# lattice, 64 the fused-joint forward), three (65), four (128).
+ALPHA_CHAIN_S1 = [1, 31, 32, 33, 51, 64, 65, 128]
+
+
+@pytest.mark.parametrize("s1", ALPHA_CHAIN_S1)
+def test_alpha_chain_model_matches_pallas_and_plain(s1):
+    """Random 0 / -inf masks; the JAX alpha_scan and fwdbwd_scan's alphas
+    (interpret mode) and alpha_scan_plain. T > S1, so that alpha reaches
+    every slot (it climbs one slot a step) and every warp edge is used."""
+    rng = np.random.RandomState(100 + s1)
+    b, t = 4, s1 + 3
+    lpb, lpl = ((rng.randn(b, t, s1) - 1).astype(np.float32)
+                for _ in range(2))
+    am, bm = (np.where(rng.rand(b, t, s1) < 0.8, 0.0,
+                       -np.inf).astype(np.float32) for _ in range(2))
+    ilen = np.array([t, t // 2, 1, t - 5], np.int32)
+    bvirt = np.where(rng.rand(b, s1) < 0.3, 0.0, -np.inf).astype(np.float32)
+    want, _, (want_fb, _) = _jax_scans(lpb, lpl, am, bm, ilen, bvirt)
+    got = alpha_chain_model(_t(lpb), _t(lpl), _t(am))
+    plain = SK.alpha_scan_plain(_t(lpb), _t(lpl), _t(am))
+    assert np.array_equal(np.isfinite(got.numpy()), np.isfinite(want))
+    assert torch.equal(torch.isfinite(got), torch.isfinite(plain))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want_fb, rtol=1e-5, atol=1e-5)
     # The same operations slot by slot; CPU exp/log1p may round a tail
     # element differently from a vectorised one, so not bit for bit.
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-6,

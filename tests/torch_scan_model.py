@@ -1,13 +1,52 @@
-"""A torch model of the CUDA beta_scan chain's slot layout and lane exchange
-(csrc/split.cu, mrnnt_beta_warps_kernel), shared by the CPU tests
-(tests/test_torch_split.py holds it against the JAX package's beta_scan and
-the plain version). It imports no JAX."""
+"""Torch models of the CUDA register chains' slot layout and lane exchange
+(csrc/split.cu, alpha_warps and beta_warps: the scans at S1 <= 128), shared
+by the CPU tests (tests/test_torch_split.py holds them against the JAX
+package's alpha_scan, beta_scan and fwdbwd_scan and the plain versions). It
+imports no JAX."""
 
 import torch
 
 from monotonic_rnnt_tpu_torch.ops.helpers import NEG_INF, log_sum_exp
 
 LANES = 32
+
+
+def _layout(s1):
+    """K = ceil(S1/32) warps: slot j*32 + lane in warp j; each slot's
+    operand column, clamped to S1-1 for the slots past S1."""
+    k = max(1, -(-s1 // LANES))
+    slots = torch.arange(k * LANES)
+    return k, slots, slots.clamp(max=s1 - 1)
+
+
+def alpha_chain_model(lp_blank, lp_label, alpha_maskadd):
+    """alpha_scan's alphas [B, T, S1] as the chain computes them: K warps of
+    32 lanes a sample (the slots past S1 carry values from clamped operand
+    columns that no live slot reads). The carry starts at 0 in slot 0 and
+    -inf elsewhere; each step every slot offers carry + lp_label[t] (its
+    own column), which each warp shuffles up one lane, lane 0 taking lane
+    31 of warp j-1, and slot 0 takes -inf; then
+    mask(log_sum_exp(carry + lp_blank, offer from below)) slot by slot: -inf
+    where the additive mask is -inf, the mask added elsewhere."""
+    batch, t_max, s1 = lp_blank.shape
+    k, slots, col = _layout(s1)
+
+    def regs(x):                               # [B, S1] -> [B, K, 32]
+        return x[:, col].reshape(batch, k, LANES)
+
+    carry = torch.where(slots == 0, 0.0, NEG_INF).reshape(1, k, LANES)
+    carry = carry.expand(batch, k, LANES)
+    alphas = torch.empty_like(lp_blank)
+    for t in range(t_max):
+        offer = carry + regs(lp_label[:, t])
+        emit = torch.cat([offer[..., :1], offer[..., :-1]], dim=-1)  # up
+        emit[:, 1:, 0] = offer[:, :-1, -1]     # lane 0 <- warp j-1's lane 31
+        emit[:, 0, 0] = NEG_INF                # slot 0
+        new = log_sum_exp(carry + regs(lp_blank[:, t]), emit)
+        mask = regs(alpha_maskadd[:, t])
+        carry = torch.where(mask == NEG_INF, NEG_INF, new + mask)
+        alphas[:, t] = carry.reshape(batch, k * LANES)[:, :s1]
+    return alphas
 
 
 def beta_chain_model(lp_blank, lp_label, beta_maskadd, input_lengths,
@@ -24,11 +63,9 @@ def beta_chain_model(lp_blank, lp_label, beta_maskadd, input_lengths,
     log_sum_exp is the port's, the kernels' arithmetic on the same operands
     in the same order."""
     batch, t_max, s1 = lp_blank.shape
-    k = max(1, -(-s1 // LANES))
-    slots = torch.arange(k * LANES)
+    k, slots, col = _layout(s1)
     live = (slots < s1).reshape(k, LANES)
     edge = (slots + 1 >= s1).reshape(k, LANES)
-    col = slots.clamp(max=s1 - 1)
 
     def regs(x):                               # [B, S1] -> [B, K, 32]
         return x[:, col].reshape(batch, k, LANES)
