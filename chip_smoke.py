@@ -114,6 +114,29 @@ parent fails as soon as a rank fails or the ranks pass SHARDED_TIMEOUT_S,
 sums the fused gradients' squared errors over the shards, and times
 ``softmax_stats_partial`` at a rank's padded shard [16, 200, 51, 500].
 
+The model phase (``run_model``) builds the port's Conformer transducer at
+benchmarks/train_bench.py's defaults (B=16, 400 input frames, 25 labels, 80
+features; a 4x256 Conformer with 4 heads, an LSTM predictor with embed_dim
+128, joint_dim 256, V=1024, dropout 0; its lattice [16, 100, 26, 1024])
+from a seeded torch.Generator, in float32 (TF32 off) and bfloat16. In
+float32 it holds the card against the same model on the CPU, where the loss
+runs rows 1-2's plain versions: the costs, every parameter's gradient and
+the greedy hypotheses (max_labels 50, decode_bench.py's default; a sample
+whose hypothesis differs must differ first at a frame whose CPU top-2
+margin is below 1e-4, printed); holds rows 1-2 against their plain versions
+on the model's logits; reads the launch counts of the loss step (one
+stats_alpha_fused, one beta_grad_fused), of a cost-only forward under
+torch.no_grad (stats_alpha_fused only) and of greedy decode (none); and
+runs the Joint as the joint_fn of rnnt_loss_fused_joint and, under
+default_bands, of rnnt_loss_fused_joint_banded, and its banded form under
+monotonic_rnnt_loss_banded, each against the materialised model loss, with
+every kept kernel call held against its plain version. The bf16 model's
+costs are held against the f32 model's. Then it prints, each on its own
+line beside the card's name and power limit, CUDA-event medians of 10
+calls: the cost-only forward, the loss step (forward and backward, no
+optimiser), rows 1+2 alone on the step's logits and their share of the
+step, greedy decode, and the step's peak memory above its inputs.
+
 The packed-layout, binding and alignment paths run last, so that every
 figure above is taken in the same state as without them. The alignment phase
 (``run_alignment``) runs ``viterbi_alignment`` on the banded case's full
@@ -131,10 +154,11 @@ a weighted training step, a cost-only call (launch counts read after each),
 the +-8 restricted variant and bf16; the native engine on the host on the
 first 4 samples against the card; the goldens through the binding; the
 packed step, the padded step and the two index ops timed. Last, one
-training step of the padded loss runs under the port's
-``utils/profiling.device_trace``: the top 10 device operations and the
-device time over the step's wall time (a trace without device time is
-printed, not failed).
+training step of the padded loss, then one loss step of the model cell in
+float32 and bfloat16, runs under the port's
+``utils/profiling.device_trace``: the top 10 device operations, the
+device ops counted and the device time over the step's wall time (a trace
+without device time is printed, not failed).
 
 Any failed check raises, and the script exits non-zero. The last three lines
 of its output are the kernels JSON line, the card's name and power limit,
@@ -201,6 +225,14 @@ Tolerances, each with its reason:
     1.1e-3 at one entry, past the oracle's 1e-3);
     binding goldens as above, restricted 1.22 / 2.7 at 1e-2 as
     tests/test_interop.py;
+  * the model, card vs CPU in float32: costs 1e-4 relative, every
+    parameter's gradient a relative L2 error of 1e-3 (the attention's key
+    bias, whose exact gradient is 0, against its key weight's gradient
+    norm), greedy hypotheses equal (or first apart at a CPU top-2 margin
+    below 1e-4); the bf16 model's costs 2e-2 relative to the f32 model's
+    (two roundings of every layer); the Joint as joint_fn and its banded
+    form vs the materialised model loss: costs |d| <= 1e-4 + 1e-5|ref|,
+    gradients relative L2 <= 2e-3, as the fused-joint losses above;
   * Viterbi on the band vs the full lattice: alignments identical, scores
     |d| <= 1e-4 + 1e-5|ref| (the same max-plus steps on stats from two
     stats kernels); each score vs its own alignment's restricted loss at
@@ -216,6 +248,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -413,6 +446,9 @@ def plain_pairs(mt):
                                   BK.alpha_scan_banded_plain, *scan),
             "fwdbwd_scan_banded": (BK.fwdbwd_scan_banded,
                                    BK.fwdbwd_scan_banded_plain, *scan),
+            "softmax_stats_banded": (BK.softmax_stats_banded,
+                                     BK.softmax_stats_banded_plain, 1e-5,
+                                     1e-6),
             "grad_pass": (K.grad_pass, K.grad_pass_plain, 1e-6, 1e-4),
             "softmax_stats_partial": (SK.softmax_stats_partial,
                                       SK.softmax_stats_partial_plain, 1e-5,
@@ -856,6 +892,28 @@ def phase_train(mt, main_inputs):
     log(f"5 SGD steps (lr 0.5) on a logits leaf: summed loss {losses}")
 
 
+def rows12_alone_ms(mt, sa_args, bg_args, scale):
+    """Rows 1 and 2's kernels alone on their wrappers' operands, each on its
+    scratch zeroed outside the timed window: (stats_alpha ms, beta_grad ms,
+    the coefficients [3, B, T, S1] that beta_grad wrote)."""
+    K = mt.K
+    lg, lab, a_lo, a_hi, blank = sa_args
+    n_b, n_t, n_s1 = lg.shape[:3]
+    out4 = torch.empty((4, n_b, n_t, n_s1), device=DEVICE)
+    betas = torch.empty((n_b, n_t, n_s1), device=DEVICE)
+    coef = torch.empty((3, n_b, n_t, n_s1), device=DEVICE)
+    sync_sa = torch.zeros(n_b * n_t + 2, dtype=torch.int32, device=DEVICE)
+    sync_bg = torch.zeros(n_b + 2, dtype=torch.int32, device=DEVICE)
+    grads = torch.empty_like(lg)
+    _, denom, lpbb, lplb, aprev, il32, llb, bvirt, _, _ = bg_args
+    t_sa = kernel_ms(lambda: K.launch_stats_alpha(
+        lg, lab, a_lo, a_hi, blank, out4, sync_sa), sync_sa)
+    t_bg = kernel_ms(lambda: K.launch_beta_grad(
+        lg, denom, lpbb, lplb, aprev, il32, llb, scale, bvirt, lab, blank,
+        grads, betas, coef, sync_bg), sync_bg)
+    return t_sa, t_bg, coef
+
+
 def phase_timing(mt, main_inputs, weights, errs, main_launches):
     K = mt.K
     logits, labels, ilen, slen = main_inputs
@@ -869,22 +927,8 @@ def phase_timing(mt, main_inputs, weights, errs, main_launches):
         big = lg.numel() * isz
         sa_args, bg_args, _ = kernel_operands(mt, lg, labels, ilen, slen, 0)
         scale = weights
-        lab = sa_args[1]
-        out4 = torch.empty((4, n_b, n_t, n_s1), device="cuda")
-        betas = torch.empty((n_b, n_t, n_s1), device="cuda")
-        coef = torch.empty((3, n_b, n_t, n_s1), device="cuda")
-        sync_sa = torch.zeros(n_b * n_t + 2, dtype=torch.int32, device="cuda")
-        sync_bg = torch.zeros(n_b + 2, dtype=torch.int32, device="cuda")
-        grads = torch.empty_like(lg)
-        _, denom, lpbb, lplb, aprev, il32, llb, bvirt, _, _ = bg_args
-
-        # The kernels alone, each on its zeroed scratch (zeroed outside the
-        # timed window); the wrappers' times less these are host time.
-        t_sa = kernel_ms(lambda: K.launch_stats_alpha(
-            lg, lab, sa_args[2], sa_args[3], 0, out4, sync_sa), sync_sa)
-        t_bg = kernel_ms(lambda: K.launch_beta_grad(
-            lg, denom, lpbb, lplb, aprev, il32, llb, scale, bvirt, lab, 0,
-            grads, betas, coef, sync_bg), sync_bg)
+        # The wrappers' times less the kernels' alone are host time.
+        t_sa, t_bg, coef = rows12_alone_ms(mt, sa_args, bg_args, scale)
         t_zero_sa = cuda_ms(lambda: torch.zeros(n_b * n_t + 2,
                                                 dtype=torch.int32,
                                                 device="cuda"))
@@ -949,7 +993,7 @@ def phase_timing(mt, main_inputs, weights, errs, main_launches):
                         for p in sa["parts"] + bg["parts"])
             + f"; live rows {live}/{n_cells}; loss fwd+bwd "
             f"{e2e['fwd_bwd_ms']:.4f} ms, cost-only {e2e['cost_only_ms']:.4f} ms")
-        del grads, out4, betas, coef, sa_args, bg_args, lg_leaf
+        del coef, sa_args, bg_args, lg_leaf
         torch.cuda.empty_cache()
 
     kernels = []
@@ -1926,12 +1970,13 @@ def rel_l2(got, ref) -> float:
     return float((got - ref).norm() / ref.norm())
 
 
-def compare_joint_grads(got, ref, what, rel: float = 2e-3):
+def compare_joint_grads(got, ref, what, rel: float = 2e-3,
+                        names=JOINT_GRADS):
     """Gradients of two routes through the joint, leaf by leaf: finite, and
     ||got - ref|| / ||ref|| <= rel (why not entry by entry: the module
     docstring's fused-joint tolerance)."""
     errs = {}
-    for n, g, r in zip(JOINT_GRADS, got, ref):
+    for n, g, r in zip(names, got, ref, strict=True):
         check(bool(torch.isfinite(g).all()), f"{what} {n} finite")
         errs[n] = rel_l2(g, r)
         check(errs[n] <= rel, f"{what} {n}: relative L2 error {errs[n]:.3g} "
@@ -2211,6 +2256,406 @@ def run_fused_joint(mt):
     log("fused-joint timing: " + json.dumps(e2e))
     return ({"fused_joint": step, "fused_joint_banded": bstep},
             {"fused_joint": errs, "fused_joint_banded": berrs}, e2e)
+
+
+# --- the Conformer transducer (Models A) ---------------------------------------
+
+# benchmarks/train_bench.py's defaults: B, input frames, labels, features; a
+# 4x256 Conformer with max(2, 256 // 64) heads, embed_dim 128, joint_dim 256,
+# V = 1024 and the LSTM predictor, dropout 0. Its lattice is [16, 100, 26,
+# 1024]: 170 MB of f32 logits.
+MODEL_BATCH = (16, 400, 25, 80)
+MODEL_LAYERS, MODEL_DIM, MODEL_VOCAB = 4, 256, 1024
+MODEL_MAX_LABELS = 50         # benchmarks/decode_bench.py's default
+MODEL_REPS = 10
+
+
+def model_config(mt, dtype):
+    m = mt.models
+    return m.TransducerConfig(
+        encoder=m.ConformerConfig(num_layers=MODEL_LAYERS, dim=MODEL_DIM,
+                                  num_heads=max(2, MODEL_DIM // 64),
+                                  dropout=0.0, dtype=dtype),
+        predictor=m.PredictorConfig(vocab_size=MODEL_VOCAB, dim=MODEL_DIM,
+                                    embed_dim=MODEL_DIM // 2, dtype=dtype),
+        joint_dim=MODEL_DIM, vocab_size=MODEL_VOCAB, dtype=dtype)
+
+
+def model_batch(device):
+    """train_bench.py's batch, drawn as it draws it: full lengths."""
+    b, t, s, f = MODEL_BATCH
+    rng = np.random.RandomState(SEED)
+    feats = rng.randn(b, t, f).astype(np.float32)
+    labels = rng.randint(1, MODEL_VOCAB, (b, s)).astype(np.int32)
+    full = lambda n: torch.full((b,), n, dtype=torch.int32, device=device)
+    return (torch.from_numpy(feats).to(device), full(t),
+            torch.from_numpy(labels).to(device), full(s))
+
+
+def make_model(mt, dtype, device):
+    """The model from a seeded generator: its weights are drawn on the CPU,
+    so the card's model and the CPU's are the same."""
+    return mt.models.MonotonicTransducer(
+        model_config(mt, dtype), MODEL_BATCH[3],
+        generator=torch.Generator().manual_seed(SEED), device=device)
+
+
+def model_step(model, batch):
+    """The model's loss step: costs, their mean, backward(); no optimiser.
+    Returns (costs, {name: grad})."""
+    model.zero_grad(set_to_none=True)
+    costs = model(*batch)
+    costs.mean().backward()
+    return costs.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def plain_model_step(mt, model, batch):
+    """model_step on the CPU through rows 1-2's plain versions: the model's
+    logits into ops/loss._LossCore on the cuda backend's deferred route,
+    which CPU tensors run through stats_alpha_fused_plain and
+    beta_grad_fused_plain."""
+    feats, flen, labels, slen = batch
+    model.zero_grad(set_to_none=True)
+    logits, enc_len = model.logits(feats, flen, labels)
+    bands = mt.bands.default_bands(enc_len, slen, logits.shape[1])
+    costs = mt.loss._LossCore.apply(logits, labels, enc_len, slen,
+                                    bands.min_s, bands.max_s,
+                                    model.cfg.blank_id, "cuda")
+    costs.mean().backward()
+    return costs.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def compare_model_grads(got, ref, what, rel):
+    """Every parameter's gradient by its relative L2 error. The attention's
+    key bias has an exact gradient of 0 (it adds q.b to a whole softmax row),
+    so each side holds rounding noise there: it is held to rel times its
+    key weight's gradient norm instead."""
+    errs = {}
+    for name, g in got.items():
+        r = ref[name].to(g.device)
+        check(bool(torch.isfinite(g).all()), f"{what} {name} finite")
+        if name.endswith("mhsa.key.bias"):
+            scale = float(ref[name[:-4] + "weight"].norm())
+            errs[name] = float((g - r).norm()) / scale
+        else:
+            errs[name] = rel_l2(g, r)
+        check(errs[name] <= rel, f"{what} {name}: relative L2 error "
+              f"{errs[name]:.3g} > {rel}")
+    return errs
+
+
+def greedy_frames(model, feats, flen, max_labels):
+    """model.greedy_decode's loop replayed frame by frame, the same calls in
+    the same order, keeping each frame's argmax and the margin between its
+    two largest logits: (hyp, n_hyp, tokens [B, T'], margins [B, T'])."""
+    with torch.no_grad():
+        enc, enc_len = model.encode(feats, flen)
+        batch, t_out, _ = enc.shape
+        dev = enc.device
+        pred = model.predictor
+        state, ctx = pred.step(pred.init_state(batch),
+                               torch.zeros(batch, dtype=torch.int32,
+                                           device=dev))
+        hyp = torch.zeros((batch, max_labels), dtype=torch.int32, device=dev)
+        n_hyp = torch.zeros(batch, dtype=torch.int32, device=dev)
+        slots = torch.arange(max_labels, device=dev)[None, :]
+        tokens, margins = [], []
+        for t in range(t_out):
+            logit = model.joint(enc[:, t:t + 1], ctx[:, None, :])[:, 0, 0]
+            tok = torch.argmax(logit, dim=-1).to(torch.int32)
+            top2 = logit.topk(2, dim=-1).values
+            tokens.append(tok)
+            margins.append(top2[:, 0] - top2[:, 1])
+            emit = ((tok != model.cfg.blank_id) & (t < enc_len)
+                    & (n_hyp < max_labels))
+            hyp = torch.where(emit[:, None] & (slots == n_hyp[:, None]),
+                              tok[:, None], hyp)
+            n_hyp = n_hyp + emit.to(torch.int32)
+            new_state, new_ctx = pred.step(state, tok)
+            state = model._select_state(emit, new_state, state)
+            ctx = torch.where(emit[:, None], new_ctx, ctx)
+    return hyp, n_hyp, torch.stack(tokens, 1), torch.stack(margins, 1)
+
+
+def phase_model_decode(mt, model, cpu_model, batch, cpu_batch):
+    """Greedy decode on the card (no kernel launch) against the CPU: the
+    same hypotheses token for token, or, where a sample's differ, the first
+    frame whose argmax differs has a CPU top-2 margin below 1e-4."""
+    K = mt.K
+    feats, flen = batch[:2]
+    K.reset_launch_counts()
+    hyp, n_hyp = model.greedy_decode(feats, flen, MODEL_MAX_LABELS)
+    torch.cuda.synchronize()
+    check(launched(K) == {}, f"greedy decode launches {launched(K)}")
+    c_hyp, c_n, c_tok, c_margin = greedy_frames(cpu_model, *cpu_batch[:2],
+                                                MODEL_MAX_LABELS)
+    ref_hyp, ref_n = cpu_model.greedy_decode(*cpu_batch[:2],
+                                             MODEL_MAX_LABELS)
+    check(torch.equal(c_hyp, ref_hyp) and torch.equal(c_n, ref_n),
+          "the frame-by-frame replay gives greedy_decode's hypotheses")
+    differ = (hyp.cpu() != c_hyp).any(1) | (n_hyp.cpu() != c_n)
+    notes = []
+    if bool(differ.any()):
+        _, _, g_tok, _ = greedy_frames(model, feats, flen, MODEL_MAX_LABELS)
+        for b in torch.nonzero(differ)[:, 0].tolist():
+            frames = torch.nonzero(g_tok[b].cpu() != c_tok[b])[:, 0]
+            check(len(frames) > 0, f"decode sample {b}: hypotheses differ "
+                  "with every frame's argmax equal")
+            f0 = int(frames[0])
+            margin = float(c_margin[b, f0])
+            notes.append(f"sample {b} frame {f0} CPU top-2 margin {margin:.3g}")
+            check(margin < 1e-4, f"greedy decode sample {b} differs from the "
+                  f"CPU's at frame {f0}, where the CPU's top-2 margin is "
+                  f"{margin:.3g} >= 1e-4")
+    enc_len = mt.models.conformer.subsampled_length(model.cfg.encoder,
+                                                    cpu_batch[1])
+    valid = torch.arange(c_margin.shape[1])[None, :] < enc_len[:, None]
+    log(f"model greedy decode (max_labels {MODEL_MAX_LABELS}): launches "
+        f"none; card vs CPU hypotheses equal in {int((~differ).sum())} of "
+        f"{len(differ)} samples" + (f" ({'; '.join(notes)})" if notes else "")
+        + f"; lengths {n_hyp.tolist()}; smallest CPU top-2 margin on a valid "
+        f"frame {float(c_margin[valid].min()):.3g}")
+    return hyp, n_hyp
+
+
+def joint_case(model, batch):
+    """The model's encoder and predictor outputs and its joint's parameters,
+    as joint_step takes them."""
+    feats, flen, labels, slen = batch
+    with torch.no_grad():
+        enc, enc_len = model.encode(feats, flen)
+        pred = model.predictor(labels)
+    return {"enc": enc, "pred": pred, "labels": labels, "ilen": enc_len,
+            "slen": slen, "params": {k: v.detach() for k, v in
+                                     model.joint.joint_params().items()}}
+
+
+def phase_model_fused_joint(mt, model, batch):
+    """The model's Joint as the joint_fn of both fused-joint losses (the
+    banded one under default_bands, the whole lattice), and its banded form
+    under monotonic_rnnt_loss_banded: each against the materialised model
+    loss, every kernel call of each path held against its plain version.
+    Returns (launches by path, max |d| by path)."""
+    joint = model.joint
+    case = joint_case(model, batch)
+    args = (case["labels"], case["ilen"], case["slen"])
+    b, t_enc = case["enc"].shape[:2]
+    s1 = case["pred"].shape[1]
+    names = ["d_enc", "d_pred"] + [f"d_{k}" for k in case["params"]]
+    weights = torch.linspace(-0.5, 2.0, b, device=DEVICE)
+    chunk = 32                      # rnnt_loss_fused_joint's default
+    n_chunks = -(-t_enc // chunk)
+    mono = lambda e, p, pr: mt.monotonic_rnnt_loss(joint.joint_fn(pr, e, p),
+                                                   *args)
+    ref_costs, ref_grads, _, ref_step = joint_step(mt, mono, case, weights)
+    check(ref_step == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+          f"materialised model joint launches {ref_step}")
+    bands = mt.bands.default_bands(case["ilen"], case["slen"], t_enc)
+    w = mt.bands.suggested_band_width(case["ilen"], case["slen"], bands,
+                                      t_enc, s1)
+    keep = lambda scan: {"softmax_stats": {n_chunks, n_chunks + n_chunks // 2},
+                         scan: {0, n_chunks // 2}, "grad_pass": {0,
+                                                                 n_chunks // 2}}
+    routes = {
+        "fused_joint": (mt.chunked, {**keep("beta_scan"), "alpha_scan": {0}},
+                        lambda e, p, pr: mt.rnnt_loss_fused_joint(
+                            e, p, *args, joint.joint_fn, pr, chunk_t=chunk),
+                        {"softmax_stats": 2 * n_chunks, "alpha_scan": 1,
+                         "beta_scan": n_chunks, "grad_pass": n_chunks}),
+        "fused_joint_banded": (
+            mt.chunked_banded, {**keep("fwdbwd_scan_banded"),
+                                "alpha_scan_banded": {0}},
+            lambda e, p, pr: mt.rnnt_loss_fused_joint_banded(
+                e, p, *args, joint.banded_fn, pr, bands=bands, band_width=w,
+                chunk_t=chunk),
+            {"softmax_stats": 2 * n_chunks, "alpha_scan_banded": 1,
+             "fwdbwd_scan_banded": n_chunks, "grad_pass": n_chunks})}
+    launches = {"model_fused_joint": {}, "model_banded": {}}
+    errs = {"model_fused_joint": {}}
+    parts = []
+    for route, (module, kept, loss_fn, want) in routes.items():
+        with Capture(module, kept) as cap:
+            costs, grads, _, step = joint_step(mt, loss_fn, case, weights)
+        check(step == want, f"model {route} step launches {step}")
+        e_c = assert_close(costs, ref_costs, 1e-4, 1e-5,
+                           f"model {route} vs materialised costs")
+        e_g = compare_joint_grads(grads, ref_grads,
+                                  f"model {route} vs materialised",
+                                  names=names)
+        for name, e in compare_captured(mt, cap, f"model {route}").items():
+            errs["model_fused_joint"][name] = max(
+                e, errs["model_fused_joint"].get(name, 0.0))
+        for name, n in step.items():
+            launches["model_fused_joint"][name] = (
+                launches["model_fused_joint"].get(name, 0) + n)
+        parts.append(f"{route}: launches {step}, costs max|d| {e_c:.3g}, "
+                     "grads relative L2 max "
+                     f"{max(e_g.values()):.3g} ({max(e_g, key=e_g.get)})")
+        del grads
+    layout = mt.bands.compute_band_layout(case["ilen"], case["slen"], bands,
+                                          t_enc, s1, w)
+    idx = layout.offset.long()[:, :, None] + torch.arange(w, device=DEVICE)
+    b_idx = torch.arange(b, device=DEVICE)[:, None, None]
+    banded = lambda e, p, pr: mt.monotonic_rnnt_loss_banded(
+        joint.banded_fn(pr, e, p[b_idx, idx]), *args, bands=bands)
+    with Capture(mt.cuda_banded, {"softmax_stats_banded": {0},
+                                  "fwdbwd_scan_banded": {0},
+                                  "grad_pass": {0}}) as cap:
+        costs, grads, _, step = joint_step(mt, banded, case, weights)
+    check(step == {"softmax_stats_banded": 1, "fwdbwd_scan_banded": 1,
+                   "grad_pass": 1}, f"model banded joint launches {step}")
+    e_c = assert_close(costs, ref_costs, 1e-4, 1e-5,
+                       "model banded joint vs materialised costs")
+    e_g = compare_joint_grads(grads, ref_grads, "model banded joint vs "
+                              "materialised", names=names)
+    errs["model_banded"] = compare_captured(mt, cap, "model banded joint")
+    launches["model_banded"] = step
+    parts.append(f"Joint.banded under monotonic_rnnt_loss_banded: launches "
+                 f"{step}, costs max|d| {e_c:.3g}, grads relative L2 max "
+                 f"{max(e_g.values()):.3g}")
+    log(f"model joint as joint_fn at [{b},{t_enc},{s1},{MODEL_VOCAB}], "
+        f"chunk_t={chunk}, W={w}: " + "; ".join(parts))
+    del case, grads
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+def phase_model_timing(mt, model, batch, dtype, gpu):
+    """The model forward (cost-only), the loss step, greedy decode and the
+    step's peak memory, with CUDA events (medians of MODEL_REPS calls); rows
+    1 and 2 alone on the step's logits, and their share of the step."""
+    feats, flen, labels, slen = batch
+    name = dtype_name(dtype)
+
+    def forward():
+        with torch.no_grad():
+            model(*batch)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        model(*batch).mean().backward()
+
+    with torch.no_grad():
+        logits, enc_len = model.logits(feats, flen, labels)
+    sa_args, bg_args, _ = kernel_operands(mt, logits, labels, enc_len, slen,
+                                          model.cfg.blank_id)
+    scale = torch.full((logits.shape[0],), 1.0 / logits.shape[0],
+                       device=DEVICE)
+    t_sa, t_bg, _ = rows12_alone_ms(mt, sa_args, bg_args, scale)
+    del sa_args, bg_args, logits
+    figures = {"forward_ms": cuda_ms(forward, reps=MODEL_REPS),
+               "step_ms": cuda_ms(step, reps=MODEL_REPS),
+               "decode_ms": cuda_ms(lambda: model.greedy_decode(
+                   feats, flen, MODEL_MAX_LABELS), reps=MODEL_REPS,
+                   warmup=1),
+               "stats_alpha_kernel_ms": t_sa, "beta_grad_kernel_ms": t_bg}
+    figures["rows12_share_of_step"] = (t_sa + t_bg) / figures["step_ms"]
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    figures["step_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    model.zero_grad(set_to_none=True)
+    for label, value in (
+            ("forward (cost-only)", f"{figures['forward_ms']:.3f} ms"),
+            ("loss step (forward + backward)",
+             f"{figures['step_ms']:.3f} ms"),
+            ("rows 1+2 share of the loss step", f"{t_sa:.4f} + {t_bg:.4f} "
+             f"ms kernels alone = {figures['rows12_share_of_step']:.4f}"),
+            (f"greedy decode (max_labels {MODEL_MAX_LABELS})",
+             f"{figures['decode_ms']:.3f} ms"),
+            ("loss step peak memory above the inputs",
+             f"{figures['step_peak_bytes'] / 2**20:.1f} MiB")):
+        log(f"model {name} {label}: {value} ({gpu})")
+    return figures
+
+
+def run_model(mt, gpu):
+    """The Conformer transducer at train_bench.py's defaults on the card:
+    the f32 model against the same model on the CPU (costs, every gradient,
+    greedy hypotheses), rows 1 and 2 against their plain versions on its
+    logits, launch counts of the loss step, a cost-only forward and greedy
+    decode, the Joint as joint_fn, and the bf16 model; then both timed.
+    Returns (launches by path, max |d| by path, figures by dtype)."""
+    K = mt.K
+    b, t, s, f = MODEL_BATCH
+    batch, cpu_batch = model_batch(DEVICE), model_batch("cpu")
+    figures, costs_by_dtype = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        model = make_model(mt, dtype, DEVICE)
+        K.reset_launch_counts()
+        costs, grads = model_step(model, batch)
+        torch.cuda.synchronize()
+        step_launches = launched(K)
+        check(step_launches == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+              f"model {name} loss step launches {step_launches}")
+        check(tuple(costs.shape) == (b,) and bool(torch.isfinite(costs).all()),
+              f"model {name} costs [B] and finite")
+        K.reset_launch_counts()
+        with torch.no_grad():
+            fwd_costs = model(*batch)
+        torch.cuda.synchronize()
+        check(launched(K) == {"stats_alpha_fused": 1},
+              f"model {name} no_grad forward launches {launched(K)}")
+        check(torch.equal(fwd_costs, costs), f"model {name} cost-only costs "
+              "differ from the loss step's")
+        costs_by_dtype[dtype] = costs
+        if dtype == torch.float32:
+            main_launches = step_launches
+            cpu_model = make_model(mt, dtype, "cpu")
+            for (n, p), q in zip(model.state_dict().items(),
+                                 cpu_model.state_dict().values()):
+                check(torch.equal(p.cpu(), q), f"model weights {n} differ "
+                      "between the card and the CPU")
+            cpu_costs, cpu_grads = plain_model_step(mt, cpu_model, cpu_batch)
+            e_c = assert_close(costs.cpu(), cpu_costs, 0.0, 1e-4,
+                               "model f32 card vs CPU costs")
+            e_g = compare_model_grads(grads, cpu_grads,
+                                      "model f32 card vs CPU", 1e-3)
+            worst = max(e_g, key=e_g.get)
+            # A joint that gave every token 1/V: T' log V - log C(T', S).
+            t_enc = int(mt.models.conformer.subsampled_length(
+                model.cfg.encoder, t))
+            uniform = (t_enc * math.log(MODEL_VOCAB) - math.lgamma(t_enc + 1)
+                       + math.lgamma(s + 1) + math.lgamma(t_enc - s + 1))
+            log(f"model f32 card vs CPU (plain versions): costs max|d| "
+                f"{e_c:.3g}, every gradient's relative L2 <= "
+                f"{e_g[worst]:.3g} ({worst}, {len(e_g)} parameters); mean "
+                f"cost {float(costs.mean()):.4f} (a uniform joint's "
+                f"{uniform:.1f})")
+            with torch.no_grad():
+                logits, enc_len = model.logits(*batch[:3])
+            err_12 = compare_kernels(mt, *kernel_operands(
+                mt, logits, batch[2], enc_len, batch[3], 0), "model logits "
+                f"[{b},{logits.shape[1]},{s + 1},{MODEL_VOCAB}]")
+            del logits
+            phase_model_decode(mt, model, cpu_model, batch, cpu_batch)
+            del cpu_model, cpu_grads
+            model_launches, model_errs = phase_model_fused_joint(mt, model,
+                                                                 batch)
+        else:
+            K.reset_launch_counts()
+            model.greedy_decode(*batch[:2], MODEL_MAX_LABELS)
+            torch.cuda.synchronize()
+            check(launched(K) == {}, f"model bf16 greedy decode launches "
+                  f"{launched(K)}")
+            e_b = assert_close(costs, costs_by_dtype[torch.float32], 0.0,
+                               2e-2, "model bf16 vs f32 costs")
+            log(f"model bf16: costs vs the f32 model's (same weights) max|d| "
+                f"{e_b:.3g}; mean cost {float(costs.mean()):.4f}")
+        del grads
+        figures[name] = phase_model_timing(mt, model, batch, dtype, gpu)
+        del model
+        torch.cuda.empty_cache()
+    model_launches["model"] = main_launches
+    model_errs["model"] = {"stats_alpha_fused": err_12[0],
+                           "beta_grad_fused": err_12[1]}
+    log("model timing: " + json.dumps(figures))
+    return model_launches, model_errs, figures
 
 
 # --- the sharded losses ---------------------------------------------------------
@@ -3135,12 +3580,7 @@ def _device_us(evt) -> float:
 
 
 def phase_trace(mt, main_inputs, weights):
-    """One training step of the padded loss under the port's device_trace
-    (torch.profiler, CPU and CUDA, a Chrome trace into a temporary
-    directory, its name and size printed): the
-    top 10 device operations by device time, and the device time summed
-    over the step's wall time (profiler on). A trace without device time is
-    printed as a finding; a profiler exception fails the run."""
+    """One training step of the padded loss, traced (trace_step)."""
     logits, labels, ilen, slen = main_inputs
     x = leaf(logits, torch.float32)
 
@@ -3149,6 +3589,36 @@ def phase_trace(mt, main_inputs, weights):
         (costs * weights).sum().backward()
         x.grad = None
 
+    return trace_step(mt, step, "padded fwd+bwd, f32")
+
+
+def phase_model_trace(mt):
+    """One loss step of the model cell (run_model's), f32 and bf16, traced
+    (trace_step): how many device ops a step makes, and how busy the card
+    is."""
+    batch = model_batch(DEVICE)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = make_model(mt, dtype, DEVICE)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            model(*batch).mean().backward()
+
+        out[dtype_name(dtype)] = trace_step(
+            mt, step, f"model loss step, {dtype_name(dtype)}")
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def trace_step(mt, step, what):
+    """One call of step() under the port's device_trace (torch.profiler, CPU
+    and CUDA, a Chrome trace into a temporary directory, its name and size
+    printed), after one untimed call: the top 10 device operations by device
+    time, the device ops counted, and the device time summed over the
+    step's wall time (profiler on). A trace without device time is printed
+    as a finding; a profiler exception fails the run."""
     step()
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory(prefix="mrnnt_trace_") as out_dir:
@@ -3165,12 +3635,12 @@ def phase_trace(mt, main_inputs, weights):
     kernels = [e for e in avgs if e.device_type == cuda_type
                and _device_us(e) > 0]
     if not kernels:
-        log(f"traced step: {wall_ms:.3f} ms wall; key_averages() shows no "
-            "device time (a finding: time with CUDA events instead)")
+        log(f"traced step ({what}): {wall_ms:.3f} ms wall; key_averages() "
+            "shows no device time (a finding: time with CUDA events instead)")
         return {"wall_ms": wall_ms, "device_ms": None}
     kernels.sort(key=_device_us, reverse=True)
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
-    log(f"traced step (padded fwd+bwd, f32, profiler on): wall {wall_ms:.3f} "
+    log(f"traced step ({what}, profiler on): wall {wall_ms:.3f} "
         f"ms, device time summed {device_ms:.3f} ms = {device_ms / wall_ms:.1%}"
         f" of the wall time, {sum(e.count for e in kernels)} device ops in "
         f"{len(kernels)} kinds; trace {traces[0]}; "
@@ -3178,7 +3648,8 @@ def phase_trace(mt, main_inputs, weights):
             f"{e.key[:70]} x{e.count} {_device_us(e) / 1e3:.4f} ms"
             for e in kernels[:10]))
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": device_ms / wall_ms}
+            "busy_share": device_ms / wall_ms,
+            "device_ops": sum(e.count for e in kernels)}
 
 
 # --- the packed layout and the binding ------------------------------------------
@@ -3480,14 +3951,16 @@ class _Port:
 
     def __init__(self):
         import monotonic_rnnt_tpu_torch as pkg
-        from monotonic_rnnt_tpu_torch import convert, interop, parallel
+        from monotonic_rnnt_tpu_torch import (convert, interop, models,
+                                              parallel)
         from monotonic_rnnt_tpu_torch.ops import (banded, bands, chunked,
                                                   chunked_banded, collective,
-                                                  helpers)
+                                                  helpers, loss)
         from monotonic_rnnt_tpu_torch.parallel import sharding
         from monotonic_rnnt_tpu_torch.ops.cuda import (_build, banded_kernels,
                                                        fused, kernels,
                                                        split_kernels, stream)
+        from monotonic_rnnt_tpu_torch.ops.cuda import banded as cuda_banded
         from monotonic_rnnt_tpu_torch.utils import profiling
 
         pkg_dir = Path(pkg.__file__).resolve().parent
@@ -3507,6 +3980,7 @@ class _Port:
         self.par, self.collective, self.sharding = (parallel, collective,
                                                     sharding)
         self.ST, self.interop, self.profiling = stream, interop, profiling
+        self.models, self.loss, self.cuda_banded = models, loss, cuda_banded
         for name in ("pack_acts", "unpack_acts", "monotonic_rnnt_loss_packed",
                      "viterbi_alignment", "viterbi_alignment_banded",
                      "occupancy_posteriors", "occupancy_posteriors_banded",
@@ -3580,6 +4054,7 @@ def main() -> int:
     sharded_launches, sharded_errs, partial_entry = run_sharded(
         mt, band_keep, {torch.float32: costs_f32, torch.bfloat16: costs_bf16})
     del band_keep
+    model_launches, model_errs, _ = run_model(mt, gpu)
     # The alignment, packed and traced phases run last, so that the figures
     # above are taken as without them (a profiler session or thousands of
     # small ops could leave host state behind that slows later host-bound
@@ -3599,19 +4074,21 @@ def main() -> int:
         f"{json.dumps(packed_e2e)}")
     phase_trace(mt, main_inputs, weights)
     del main_inputs, restricted
+    phase_model_trace(mt)
     torch.cuda.empty_cache()
     split_f32 = split_errs[torch.float32]
-    by_path(kernels, "padded", {**sharded_launches, **packed_launches}, {})
+    by_path(kernels, "padded", {**sharded_launches, **packed_launches,
+                                **model_launches}, model_errs)
     by_path(band_kernels, "banded", {"split": split_launches,
                                      **fused_launches, **sharded_launches,
-                                     **align_launches},
+                                     **align_launches, **model_launches},
             {"split": {"grad_pass": split_f32["grad_pass"]}, **fused_errs,
-             **sharded_errs})
+             **sharded_errs, **model_errs})
     split_kernels = split_kernel_entries(split_errs, split_launches,
                                          split_rows)
     by_path(split_kernels, "split", {**fused_launches, **sharded_launches,
-                                     **align_launches},
-            {**fused_errs, **sharded_errs})
+                                     **align_launches, **model_launches},
+            {**fused_errs, **sharded_errs, **model_errs})
     by_path([partial_entry], "tp_padded", sharded_launches, sharded_errs)
     chunk_entries = {e["name"]: e for e in band_kernels + split_kernels}
     chunk_entries["grad_pass"]["fused_joint_chunk"] = fused_e2e[
@@ -3625,6 +4102,9 @@ def main() -> int:
             for k in ("shape", "ms", "queued_ms", "queued_ns_per_step",
                       "kernel_queued_ms", "kernel_queued_ns_per_step")}
     kernels += band_kernels + split_kernels + [partial_entry] + stream_entries
+    for e in kernels:   # this slice's paths, on every row (0: not on it)
+        for path in ("model", "model_fused_joint"):
+            e["launches_by_path"].setdefault(path, 0)
     add_ceiling(kernels, rates)
     add_step_floor(kernels, floors, scan_shapes)
     check(len(kernels) == 14, f"the kernels JSON lists {len(kernels)} of 14")

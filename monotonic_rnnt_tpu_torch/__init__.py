@@ -10,6 +10,8 @@ for sm_90a at first use) on CUDA tensors, and through the kernels' plain
 versions or the plain-torch oracles on CPU tensors; so do Viterbi
 alignment and the occupancy posteriors. ``interop`` holds the reference's
 PyTorch binding surface, ``native`` the C++ engine it runs on CPU tensors.
+``models`` holds the Conformer transducer whose loss step runs on the padded
+loss, ``data`` the synthetic batches, ``utils.metrics`` the edit distance.
 """
 
 from .ops.alignment import (ViterbiResult, occupancy_posteriors,

@@ -3,10 +3,12 @@
 What crosses between the two packages is the loss's inputs, its bands and
 its packed band layout, and the parameters of the fused-joint losses'
 joint, as numpy arrays: logits, labels, lengths, ``Bands(min_s, max_s)``,
-``BandLayout(offset, d, d_next, width)`` and a dict of joint weights. Integer arrays become int32
-tensors, as the JAX package keeps them. The functions create tensors, so
-they default to ``device="cuda"`` and raise when no GPU is present; pass
-``device="cpu"`` to run on the CPU.
+``BandLayout(offset, d, d_next, width)`` and a dict of joint weights; and a
+flax Conformer-transducer's parameter tree, which becomes the port model's
+``state_dict`` by explicit layout rules (``transducer_params_from_flax``).
+Integer arrays become int32 tensors, as the JAX package keeps them. The
+functions create tensors, so they default to ``device="cuda"`` and raise
+when no GPU is present; pass ``device="cpu"`` to run on the CPU.
 """
 
 from __future__ import annotations
@@ -80,3 +82,133 @@ def band_layout_from_numpy(offset, d, d_next, width: int,
     dev = _device(device)
     return BandLayout(_int_tensor(offset, dev), _int_tensor(d, dev),
                       _int_tensor(d_next, dev), int(width))
+
+
+# --- a flax Conformer-transducer's parameters -------------------------------
+
+def _flax_leaves(tree, prefix=""):
+    """{"a/b/c": leaf} of a nested mapping (flax's params, FrozenDict too)."""
+    out = {}
+    for name, sub in tree.items():
+        path = f"{prefix}{name}"
+        if hasattr(sub, "items"):
+            out.update(_flax_leaves(sub, path + "/"))
+        else:
+            out[path] = np.asarray(sub)
+    return out
+
+
+def _dense(m):          # kernel [in, out] -> Linear.weight [out, in]
+    return {"weight": m["kernel"].T, "bias": m["bias"]}
+
+
+def _layer_norm(m):     # scale -> weight
+    return {"weight": m["scale"], "bias": m["bias"]}
+
+
+def _conv1d(m):         # (k, in/g, out) -> Conv1d (out, in/g, k)
+    return {"weight": m["kernel"].transpose(2, 1, 0), "bias": m["bias"]}
+
+
+def _conv2d(m):         # (kh, kw, in, out) -> Conv2d (out, in, kh, kw)
+    return {"weight": m["kernel"].transpose(3, 2, 0, 1), "bias": m["bias"]}
+
+
+def _heads_in(m):       # query/key/value: [D, H, Dh], [H, Dh] -> [H*Dh, D]
+    d = m["kernel"].shape[0]
+    return {"weight": m["kernel"].reshape(d, -1).T,
+            "bias": m["bias"].reshape(-1)}
+
+
+def _heads_out(m):      # out: [H, Dh, D] -> [D, H*Dh]
+    d = m["kernel"].shape[-1]
+    return {"weight": m["kernel"].reshape(-1, d).T, "bias": m["bias"]}
+
+
+def _embed(m):
+    return {"weight": m["embedding"]}
+
+
+def _lstm(m):
+    """OptimizedLSTMCell's ii/if/ig/io (input kernels, no bias) and
+    hi/hf/hg/ho (hidden kernels with bias) -> nn.LSTMCell, gates i, f, g,
+    o: weight_ih = cat(ii, if, ig, io)^T, weight_hh = cat(hi, hf, hg, ho)^T,
+    bias_hh = cat(their biases), bias_ih = 0."""
+    gates = "ifgo"
+    bias = np.concatenate([m[f"h{g}/bias"] for g in gates])
+    return {"weight_ih": np.concatenate([m[f"i{g}/kernel"] for g in gates],
+                                        axis=1).T,
+            "weight_hh": np.concatenate([m[f"h{g}/kernel"] for g in gates],
+                                        axis=1).T,
+            "bias_ih": np.zeros_like(bias), "bias_hh": bias}
+
+
+def _transducer_modules(cfg):
+    """(flax module path, torch module path, layout rule) of every module
+    of a MonotonicTransducer with config `cfg` that holds parameters."""
+    stages = int(cfg.encoder.subsample_factor).bit_length() - 1
+    sub = "encoder/ConvSubsampler_0"
+    mods = [(f"{sub}/Conv_{i}", f"encoder.subsampler.convs.{i}", _conv2d)
+            for i in range(stages)]
+    mods.append((f"{sub}/Dense_0", "encoder.subsampler.dense", _dense))
+    for i in range(cfg.encoder.num_layers):
+        fb, tb = f"encoder/ConformerBlock_{i}", f"encoder.blocks.{i}"
+        for j, ff in enumerate(("ff1", "ff2")):
+            mods += [(f"{fb}/FeedForward_{j}/LayerNorm_0", f"{tb}.{ff}.norm",
+                      _layer_norm),
+                     (f"{fb}/FeedForward_{j}/Dense_0", f"{tb}.{ff}.dense1",
+                      _dense),
+                     (f"{fb}/FeedForward_{j}/Dense_1", f"{tb}.{ff}.dense2",
+                      _dense)]
+        mha = f"{fb}/MHSA_0/MultiHeadDotProductAttention_0"
+        mods.append((f"{fb}/MHSA_0/LayerNorm_0", f"{tb}.mhsa.norm",
+                     _layer_norm))
+        mods += [(f"{mha}/{n}", f"{tb}.mhsa.{n}", _heads_in)
+                 for n in ("query", "key", "value")]
+        mods.append((f"{mha}/out", f"{tb}.mhsa.out", _heads_out))
+        conv = f"{fb}/ConvModule_0"
+        mods += [(f"{conv}/LayerNorm_0", f"{tb}.conv.norm1", _layer_norm),
+                 (f"{conv}/Dense_0", f"{tb}.conv.pointwise1", _dense),
+                 (f"{conv}/Conv_0", f"{tb}.conv.depthwise", _conv1d),
+                 (f"{conv}/LayerNorm_1", f"{tb}.conv.norm2", _layer_norm),
+                 (f"{conv}/Dense_1", f"{tb}.conv.pointwise2", _dense),
+                 (f"{fb}/LayerNorm_0", f"{tb}.norm", _layer_norm)]
+    mods.append(("predictor/embed", "predictor.embed", _embed))
+    if cfg.predictor_kind == "lstm":
+        mods.append(("predictor/cell", "predictor.cell", _lstm))
+    else:
+        mods.append(("predictor/conv", "predictor.conv", _conv1d))
+    mods.append(("predictor/out", "predictor.out", _dense))
+    mods += [(f"joint/{n}", f"joint.{n}", _dense)
+             for n in ("enc_proj", "pred_proj", "vocab_proj")]
+    return mods
+
+
+def transducer_params_from_flax(params, cfg, device="cuda"
+                                ) -> Dict[str, torch.Tensor]:
+    """A flax MonotonicTransducer's parameters as the port's state_dict.
+
+    params: what ``model.init`` returns (``{"params": ...}``) or its
+    "params" tree, numpy or JAX leaves; any tree of that structure (a
+    gradient tree too) converts. cfg: the port's ``TransducerConfig`` (its
+    layer count, subsampling and predictor kind name the modules). Returns
+    {name: tensor on `device`} that ``MonotonicTransducer.load_state_dict``
+    accepts; each leaf keeps its dtype. Raises ValueError if a flax leaf is
+    left over or missing.
+    """
+    dev = _device(device)
+    leaves = _flax_leaves(params.get("params", params))
+    state = {}
+    for flax_mod, torch_mod, rule in _transducer_modules(cfg):
+        mine = {path[len(flax_mod) + 1:]: leaf for path, leaf in leaves.items()
+                if path.startswith(flax_mod + "/")}
+        if not mine:
+            raise ValueError(f"flax params hold no module {flax_mod!r}")
+        for name, arr in rule(mine).items():
+            state[f"{torch_mod}.{name}"] = _float_tensor(arr).to(dev)
+        for path in mine:
+            del leaves[f"{flax_mod}/{path}"]
+    if leaves:
+        raise ValueError("flax params the config does not name: "
+                         + ", ".join(sorted(leaves)))
+    return state

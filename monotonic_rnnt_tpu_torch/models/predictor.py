@@ -1,0 +1,153 @@
+"""Label-context prediction networks for the transducer.
+
+PyTorch counterpart of ``monotonic_rnnt_tpu/models/predictor.py``. One
+context vector per label position s in [0, S]; position 0 is the empty
+history (the lattice's s=0 row). Two families:
+
+  * LstmPredictor: embedding + unidirectional LSTM over the label sequence;
+  * ConvPredictor: stateless limited-context predictor (embedding + causal
+    conv).
+
+Both expose, besides the batched training ``forward``, a stepwise decoding
+interface, so frame-synchronous decoders advance in O(1) work per emitted
+label:
+
+    state = predictor.init_state(batch)          # context for empty history
+    state, ctx = predictor.step(state, tokens)   # advance with emitted token
+
+For the LSTM the state is flax's carry ``(c, h)``, in float32 whatever the
+compute dtype (flax's carry starts in the parameter dtype, and ``f * c``
+promotes); for the conv predictor it is a ring of the last ``context``
+token ids with a validity mask. The LSTM's parameters sit in an
+``nn.LSTMCell`` (gates i, f, g, o; ``bias_ih`` stays 0 under the flax
+converter, since flax's input kernels have no bias); the gates are formed
+here, as flax's ``OptimizedLSTMCell`` forms them, so that each matmul runs
+in the compute dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .conformer import dense
+from .init import finish_init
+
+
+@dataclasses.dataclass(frozen=True)
+class PredictorConfig:
+    vocab_size: int = 1024           # includes blank
+    dim: int = 256
+    embed_dim: int = 128
+    context: int = 2                 # ConvPredictor history length
+    dtype: torch.dtype = torch.bfloat16
+
+
+def _shift_with_bos(labels: torch.Tensor) -> torch.Tensor:
+    """[B, S] labels -> [B, S+1] history inputs (position 0 = BOS=0)."""
+    bos = torch.zeros((labels.shape[0], 1), dtype=labels.dtype,
+                      device=labels.device)
+    return torch.cat([bos, labels], dim=1)
+
+
+def _embed(table: nn.Embedding, tokens, dtype):
+    return F.embedding(tokens.long(), table.weight.to(dtype))
+
+
+class LstmPredictor(nn.Module):
+    def __init__(self, cfg: PredictorConfig, *,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
+        self.cell = nn.LSTMCell(cfg.embed_dim, cfg.dim)
+        self.out = nn.Linear(cfg.dim, cfg.dim)
+        finish_init(self, generator, device)
+
+    def _input_gates(self, tokens):
+        dt = self.cfg.dtype
+        return F.linear(_embed(self.embed, tokens, dt),
+                        self.cell.weight_ih.to(dt), self.cell.bias_ih.to(dt))
+
+    def _advance(self, state, input_gates):
+        """One LSTM step from the input's gate pre-activations."""
+        dt = self.cfg.dtype
+        c, h = state
+        gates = input_gates + F.linear(h.to(dt), self.cell.weight_hh.to(dt),
+                                       self.cell.bias_hh.to(dt))
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return c, torch.sigmoid(o) * torch.tanh(c)
+
+    def forward(self, labels, deterministic: bool = True):
+        gates = self._input_gates(_shift_with_bos(labels))   # [B, S+1, 4D]
+        state = self.init_state(labels.shape[0])
+        hs = []
+        for k in range(gates.shape[1]):
+            state = self._advance(state, gates[:, k])
+            hs.append(state[1])
+        return dense(self.out, torch.stack(hs, dim=1), self.cfg.dtype).float()
+
+    def init_state(self, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        zeros = torch.zeros((batch, self.cfg.dim), dtype=torch.float32,
+                            device=self.out.weight.device)
+        return zeros, zeros
+
+    def step(self, state, tokens: torch.Tensor):
+        """Advance with one token per sample. tokens [B] int (0 = BOS).
+
+        Returns (new_state, ctx [B, dim] f32): ctx is the context vector
+        *after* consuming `tokens` (position len(history) in forward terms).
+        """
+        state = self._advance(state, self._input_gates(tokens))
+        return state, dense(self.out, state[1], self.cfg.dtype).float()
+
+
+class ConvPredictor(nn.Module):
+    def __init__(self, cfg: PredictorConfig, *,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
+        self.conv = nn.Conv1d(cfg.embed_dim, cfg.dim, cfg.context)
+        self.out = nn.Linear(cfg.dim, cfg.dim)
+        finish_init(self, generator, device)
+
+    def _conv(self, emb):
+        """VALID conv over [B, L, E] -> relu'd [B, L - context + 1, dim]."""
+        dt = self.cfg.dtype
+        y = F.conv1d(emb.transpose(1, 2), self.conv.weight.to(dt),
+                     self.conv.bias.to(dt))
+        return F.relu(y.transpose(1, 2))
+
+    def forward(self, labels, deterministic: bool = True):
+        cfg = self.cfg
+        emb = _embed(self.embed, _shift_with_bos(labels), cfg.dtype)
+        # Causal conv: pad left so position s sees only labels < s.
+        y = self._conv(F.pad(emb, (0, 0, cfg.context - 1, 0)))
+        return dense(self.out, y, cfg.dtype).float()
+
+    def init_state(self, batch: int):
+        # Ring of the last `context` tokens with a validity mask: unfilled
+        # slots enter the conv as zero VECTORS, matching the training path's
+        # zero left-padding (embed(0) is the BOS embedding, distinct from
+        # padding). The decoder's first step pushes BOS (token 0).
+        dev = self.out.weight.device
+        ctx = self.cfg.context
+        return (torch.zeros((batch, ctx), dtype=torch.int32, device=dev),
+                torch.zeros((batch, ctx), dtype=torch.bool, device=dev))
+
+    def step(self, state, tokens: torch.Tensor):
+        """Push one token per sample; returns ctx after consuming it."""
+        ring, filled = state
+        ring = torch.cat([ring[:, 1:], tokens[:, None].to(ring.dtype)], dim=1)
+        filled = torch.cat([filled[:, 1:], torch.ones_like(filled[:, :1])],
+                           dim=1)
+        emb = _embed(self.embed, ring, self.cfg.dtype)
+        emb = emb * filled[..., None].to(emb.dtype)
+        y = self._conv(emb)[:, 0]
+        return (ring, filled), dense(self.out, y, self.cfg.dtype).float()

@@ -604,3 +604,41 @@ def test_banded_nan_cost_gets_the_jax_oracles_nan_gradient(route):
         got_c.sum().backward()
         got_g = x.grad
     assert_nan_cost_contract(got_c, got_g, want_c, want_g, finite_g.numpy())
+
+
+def test_banded_kernel_route_nan_cost_gradient_matches_jax_pallas():
+    """The NaN-cost case on the banded loss's kernel route: like the JAX
+    package's Pallas route (interpret mode), costs [8.5436, NaN] and an
+    all-zero gradient for sample 1. Both form the coefficients with the
+    occupancy rule that zeroes a sample whose ll is not finite, and the
+    gradient pass writes 0 where the coefficient is 0 (ROADMAP §3's
+    recorded difference from the oracles' NaN cells)."""
+    case, _ = nan_cost_case()
+    t_max, s1 = case[0].shape[1], case[0].shape[2]
+    j_lb, j_il, j_sl = (jnp.asarray(a) for a in case[1:])
+    jb = jbands.default_bands(j_il, j_sl, t_max)
+    jl = jbands.compute_band_layout(j_il, j_sl, jb, t_max, s1, s1)
+
+    def total(x):
+        return jnp.sum(jbanded.monotonic_rnnt_loss_banded(
+            x, j_lb, j_il, j_sl, bands=jb, backend="pallas"))
+
+    with interpret_mode():
+        j_band = jbands.pack_band(jnp.asarray(case[0]), jl)
+        want_c = jbanded.monotonic_rnnt_loss_banded(
+            j_band, j_lb, j_il, j_sl, bands=jb, backend="pallas")
+        want_g = np.asarray(jax.grad(total)(j_band))
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(*case, device="cpu")
+    tb = tbands.default_bands(il, sl, t_max)
+    layout = tbands.compute_band_layout(il, sl, tb, t_max, s1, s1)
+    x = tbands.pack_band(lg, layout).requires_grad_(True)
+    costs = tbanded._BandedCore.apply(x, lb, il, sl, tb.min_s, tb.max_s, 0,
+                                      "cuda")
+    costs.sum().backward()
+    got_g = x.grad.numpy()
+    np.testing.assert_allclose(costs.detach().numpy(), np.asarray(want_c),
+                               rtol=1e-5)
+    assert np.isnan(costs.detach().numpy()[1])
+    assert not np.isnan(want_g).any() and (want_g[1] == 0).all()
+    assert not np.isnan(got_g).any() and (got_g[1] == 0).all()
+    np.testing.assert_allclose(got_g, want_g, rtol=1e-4, atol=1e-6)

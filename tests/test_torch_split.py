@@ -32,6 +32,7 @@ from monotonic_rnnt_tpu_torch.ops import loss as tloss
 from monotonic_rnnt_tpu_torch.ops.cuda import fused
 from monotonic_rnnt_tpu_torch.ops.cuda import split_kernels as SK
 from monotonic_rnnt_tpu_torch.utils import config
+from test_torch_reference import nan_cost_case
 from torch_scan_model import alpha_chain_model, beta_chain_model
 from torch_stats_model import special_rows, stats_model
 
@@ -481,3 +482,39 @@ def test_split_route_inf_padding_and_infeasible_sample():
     assert sl[2] > 0 and torch.isfinite(c_bad[:2]).all()
     assert c_bad[2].item() == np.inf
     assert (g_bad[2] == 0).all() and torch.isfinite(g_bad).all()
+
+
+def test_split_nan_cost_gradient_matches_jax_split():
+    """The NaN-cost case on the split route: like the JAX package's Pallas
+    split route (interpret mode), costs [8.5436, NaN] and an all-zero
+    gradient for sample 1, where the oracles and the deferred route put NaN
+    on lattice cells. JAX's occupancy coefficients are all 0 for a sample
+    whose ll is not finite (reference.py occupancy_coefficients), and its
+    grad_pass writes 0 where the coefficient is 0; the port's row 6 keeps
+    that contract (ROADMAP §3's recorded difference)."""
+    from monotonic_rnnt_tpu.utils.debug import interpret_mode
+
+    case, _ = nan_cost_case()
+    args = tuple(jnp.asarray(a) for a in case)
+
+    def total(x):
+        return jnp.sum(mr.monotonic_rnnt_loss(x, *args[1:], backend="pallas"))
+
+    with jax_config(pipeline="split"), interpret_mode():
+        want_c = mr.monotonic_rnnt_loss(*args, backend="pallas")
+        want_g = np.asarray(jax.grad(total)(args[0]))
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(*case, device="cpu")
+    bands = mt.default_bands(il, sl, lg.shape[1])
+    x = lg.clone().requires_grad_(True)
+    with mt.config_override(pipeline="split"):
+        costs = tloss._LossCore.apply(x, lb, il, sl, bands.min_s,
+                                      bands.max_s, 0, "cuda")
+        costs.sum().backward()
+    got_g = x.grad.numpy()
+    np.testing.assert_allclose(costs.detach().numpy(), np.asarray(want_c),
+                               rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(want_c)[0], 8.5436, rtol=1e-5)
+    assert np.isnan(costs.detach().numpy()[1])
+    assert not np.isnan(want_g).any() and (want_g[1] == 0).all()
+    assert not np.isnan(got_g).any() and (got_g[1] == 0).all()
+    np.testing.assert_allclose(got_g, want_g, rtol=1e-4, atol=1e-6)
