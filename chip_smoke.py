@@ -108,8 +108,9 @@ case on (2,2); ``make_dp_tp_fused_loss`` at memory_bench's case and
 ``make_dp_tp_fused_banded_loss`` at the banded case on (2,2), with the peak
 memory of each rank. Each result is held against the single-process port
 route on the rank's batch slice (the loss is batch-separable) or against the
-parent's saved single-process numbers, and the kernel calls of the padded
-and fused TP paths are kept and held against their plain versions. The
+parent's saved single-process numbers, and one training step's kernel
+calls on every path (data-parallel, padded, banded and fused TP) are kept
+and held against their plain versions. The
 parent fails as soon as a rank fails or the ranks pass SHARDED_TIMEOUT_S,
 sums the fused gradients' squared errors over the shards, and times
 ``softmax_stats_partial`` at a rank's padded shard [16, 200, 51, 500].
@@ -137,6 +138,35 @@ calls: the cost-only forward, the loss step (forward and backward, no
 optimiser), rows 1+2 alone on the step's logits and their share of the
 step, greedy decode, and the step's peak memory above its inputs.
 
+The train phase (``run_train``) drives ``models/train.py`` at the model
+cell: ``create_train_state`` (lr 3e-3, one warmup update, so the first
+update has lr 0) from seed 0, the same weights as run_model's. In float32
+it takes 3 ``train_step``s on the card (one stats_alpha_fused and one
+beta_grad_fused each) and 3 on the CPU (the loss's oracle) and holds the
+losses, grad_norms and every parameter after them (the attention's key
+bias apart: its true gradient is exactly 0, so it is held finite and
+within Adam's drift bound), then two more card steps, over which the loss
+must descend; the memory-efficient step (``make_memory_efficient_loss``,
+chunk 32, through ``train_step_with_loss``; softmax_stats, alpha_scan,
+beta_scan and grad_pass in the chunking's counts) against the padded
+steps; ``make_grad_accum_train_step(4)`` against the first two; and a
+checkpoint round trip on the card (saved, restored into a state from seed
+7, one more step on each). Then, f32 and bf16, CUDA-event medians of 10
+steps after 3 warm-up steps, of ``train_step`` and of the memory-efficient
+step, in ms and kframes/s (16 x 400 input frames a step), each step's peak
+memory above what was allocated before it, and rows 1+2's share of the
+train step. The sharded phase's ranks also take two
+``make_sharded_train_step`` steps on (4,1) and two
+``make_tp_sharded_train_step`` steps (chunk 32) on (2,2) of the model cell
+cut to one Conformer block, held against the parent's single-process
+``train_step`` run on the same weights; the launches of both go into the
+kernels JSON (paths train_dp, train_tp, beside train and
+train_fused_joint). Each of the four paths keeps the kernel calls of one
+step (rows 1-2; or the stats of the backward's last and an interior
+chunk, the beta scan and grad_pass on those chunks and the alpha scan)
+and holds them against their plain versions on the same operands. The
+traced phase also traces one train_step a dtype.
+
 The packed-layout, binding and alignment paths run last, so that every
 figure above is taken in the same state as without them. The alignment phase
 (``run_alignment``) runs ``viterbi_alignment`` on the banded case's full
@@ -145,13 +175,15 @@ and both occupancy posteriors: identical alignments, each score at least
 the loss and equal to its own alignment's score, occupancies that sum to 1
 and agree between the two layouts; the Viterbi path's +-20 band through
 the binding's restricted loss on the packed acts against
-``monotonic_rnnt_loss_banded``; launch counts; both Viterbi calls timed.
+``monotonic_rnnt_loss_banded``; launch counts; the four calls' kernel
+calls held against their plain versions; both Viterbi calls timed.
 The packed phase (``run_packed``) packs the benchmark lattice to the
 reference's [sum T_b(S_b+1), V] layout and drives the torch binding
 (``monotonic_rnnt_loss``, ``MonotonicRNNTLoss`` none/sum/mean) and
 ``monotonic_rnnt_loss_packed`` against the padded loss on the same logits:
 a weighted training step, a cost-only call (launch counts read after each),
-the +-8 restricted variant and bf16; the native engine on the host on the
+the +-8 restricted variant and bf16 (the step's rows 1-2 calls held
+against their plain versions); the native engine on the host on the
 first 4 samples against the card; the goldens through the binding; the
 packed step, the padded step and the two index ops timed. Last, one
 training step of the padded loss, then one loss step of the model cell in
@@ -160,7 +192,9 @@ float32 and bfloat16, runs under the port's
 device ops counted and the device time over the step's wall time (a trace
 without device time is printed, not failed).
 
-Any failed check raises, and the script exits non-zero. The last three lines
+Every path in a kernel's launches_by_path has a max_abs_err_by_path entry
+from its own run, or the script fails. Any failed check raises, and the
+script exits non-zero. The last three lines
 of its output are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 
@@ -233,6 +267,21 @@ Tolerances, each with its reason:
     (two roundings of every layer); the Joint as joint_fn and its banded
     form vs the materialised model loss: costs |d| <= 1e-4 + 1e-5|ref|,
     gradients relative L2 <= 2e-3, as the fused-joint losses above;
+  * the train step, card vs CPU in float32 over 3 steps: losses 1e-4
+    relative, grad_norm 1e-3, every parameter's relative L2 error 1e-3
+    (TRAIN_PARAM_REL: Adam's step does not see a gradient's scale, so
+    run_model's <= 8.61e-5 gradient agreement carries into each leaf's error
+    at about that size; the rest is room for the elements at the noise
+    floor, whose steps noise decides), the key bias within Adam's drift
+    bound of its initial 0 on both sides; the memory-efficient step vs
+    train_step: losses |d| <= 1e-4 + 1e-5|ref|, parameters at the
+    fused-joint gradient bound 2e-3; gradient accumulation vs one step:
+    losses 1e-5 relative, parameters 1e-3; the resumed checkpoint's loss
+    1e-6 relative (CUDA atomics in the backward vary the bits); the
+    sharded train steps vs the single-process run: losses |d| <= 1e-4 +
+    1e-5|ref|, grad_norm 1e-3 relative, each rank's parameters (its shard
+    of the vocab projection) at 1e-3 (DP) and 2e-3 (TP, the fused-joint
+    route);
   * Viterbi on the band vs the full lattice: alignments identical, scores
     |d| <= 1e-4 + 1e-5|ref| (the same max-plus steps on stats from two
     stats kernels); each score vs its own alignment's restricted loss at
@@ -322,8 +371,9 @@ def ulps(x):
     return torch.nextafter(x, torch.full_like(x, float("inf"))) - x
 
 
-def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
-    """Median of `reps` CUDA-event timings of fn(), after `warmup` calls."""
+def cuda_times(fn, reps: int, warmup: int = 3) -> list:
+    """`reps` CUDA-event timings of fn() in ms, each from an idle card,
+    after `warmup` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -336,7 +386,12 @@ def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
+    """Median of `reps` CUDA-event timings of fn(), after `warmup` calls."""
+    return statistics.median(cuda_times(fn, reps, warmup))
 
 
 def queued_ms(fn, reps: int = TIMING_REPS) -> float:
@@ -483,6 +538,45 @@ def compare_captured(mt, cap, what):
                                for _, a, _ in cap.calls[n][:1]) + ")"
                     for n, e in errs.items()))
     return errs
+
+
+def compare_captured_rows12(mt, cap, what):
+    """Rows 1-2's captured calls (a Capture on mt.fused keeping the same
+    call indices of stats_alpha_fused and beta_grad_fused) against their
+    plain versions on the operands the path built (compare_kernels);
+    returns each wrapper's max |d| over its captured calls."""
+    sa, bg = cap.calls["stats_alpha_fused"], cap.calls["beta_grad_fused"]
+    for name, calls in cap.calls.items():
+        check(len(calls) == len(cap.keep[name]), f"{what}: {name} made "
+              f"{len(calls)} of the calls {sorted(cap.keep[name])}")
+    errs = [compare_kernels(
+        mt, s_args, b_args, b_kw.get("grad_scale"),
+        f"{what} call {idx} [{'x'.join(map(str, s_args[0].shape))}]")
+        for (idx, s_args, _), (_, b_args, b_kw) in zip(sa, bg)]
+    return {"stats_alpha_fused": max(e[0] for e in errs),
+            "beta_grad_fused": max(e[1] for e in errs)}
+
+
+def rows12_capture(mt, call):
+    """A Capture of rows 1-2's call `call` on the padded loss's path."""
+    return Capture(mt.fused, {"stats_alpha_fused": {call},
+                              "beta_grad_fused": {call}})
+
+
+def fused_joint_capture(module, n_chunks, beta_name="beta_scan",
+                        alpha_name="alpha_scan", stats=None):
+    """A Capture of a fused-joint step's chunk kernels: the stats of the
+    backward's first (the last chunk) and an interior chunk, the beta scan
+    and grad_pass on those chunks, and the one alpha scan. `stats`: the
+    (module, name) of the stats wrapper where it is not `module`'s
+    softmax_stats (the vocab-sharded path's softmax_stats_partial)."""
+    mid = n_chunks // 2
+    chunk = {beta_name: {0, mid}, "grad_pass": {0, mid}, alpha_name: {0}}
+    stats_mod, stats_name = stats or (module, "softmax_stats")
+    keep_stats = {stats_name: {n_chunks, n_chunks + mid}}
+    if stats_mod is module:
+        return (Capture(module, {**keep_stats, **chunk}),)
+    return Capture(stats_mod, keep_stats), Capture(module, chunk)
 
 
 # --- inputs ---------------------------------------------------------------------
@@ -2024,12 +2118,9 @@ def fused_path_kernels(mt, module, beta_name, n_chunks, step, what):
     reverse), and the alpha scan over all of T: each held against its plain
     version on those operands, and the scans timed on them. Returns (max
     |d| per wrapper, the scans' ms)."""
-    mid = n_chunks // 2
     alpha_name = ("alpha_scan_banded" if beta_name == "fwdbwd_scan_banded"
                   else "alpha_scan")
-    cap = Capture(module, {"softmax_stats": {n_chunks, n_chunks + mid},
-                           beta_name: {0, mid}, "grad_pass": {0, mid},
-                           alpha_name: {0}})
+    cap, = fused_joint_capture(module, n_chunks, beta_name, alpha_name)
     with cap:
         step()
     errs = compare_captured(mt, cap, what)
@@ -2270,10 +2361,10 @@ MODEL_MAX_LABELS = 50         # benchmarks/decode_bench.py's default
 MODEL_REPS = 10
 
 
-def model_config(mt, dtype):
+def model_config(mt, dtype, layers=MODEL_LAYERS):
     m = mt.models
     return m.TransducerConfig(
-        encoder=m.ConformerConfig(num_layers=MODEL_LAYERS, dim=MODEL_DIM,
+        encoder=m.ConformerConfig(num_layers=layers, dim=MODEL_DIM,
                                   num_heads=max(2, MODEL_DIM // 64),
                                   dropout=0.0, dtype=dtype),
         predictor=m.PredictorConfig(vocab_size=MODEL_VOCAB, dim=MODEL_DIM,
@@ -2658,6 +2749,323 @@ def run_model(mt, gpu):
     return model_launches, model_errs, figures
 
 
+# --- the training step (Models B) -----------------------------------------------
+
+# create_train_state at train_bench.py's defaults (the model cell above), lr
+# 3e-3 and one warmup update, as tests/test_models.py's train tests: the
+# first update has lr 0, so the steps after it move the weights.
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 1
+TRAIN_STEPS = 3                # card vs CPU
+TRAIN_DESCEND_STEPS = 5        # test_train_step_descends
+TRAIN_CHUNK = 32               # make_memory_efficient_loss's default chunk_t
+TRAIN_MICRO = 4                # make_grad_accum_train_step's microbatches
+# Tolerances of the parameters after the steps, by each leaf's relative L2
+# error ||p - p_ref|| / ||p_ref||. Adam's update does not see a gradient's
+# scale, so a relative gradient error e moves an element's step by ~e of it
+# wherever the element's gradient is well above rounding noise; a leaf's
+# update is at most its norm (zero-initialised biases) and ~0.1 of it
+# (weights, 3e-3 a step against entries ~1/sqrt(256)), so the leaf's error
+# stays at ~e. Elements at the noise floor take +-lr steps that noise
+# decides (on the CPU, port against JAX: <= 5.1e-5 on every other leaf).
+# Card vs CPU: run_model's gradients agree within 8.61e-5 relative L2, so 1e-3
+# (a tenth of that noise floor's room left to the elements Adam amplifies);
+# the fused-joint route against the materialised one: its gradient bound,
+# 2e-3.
+TRAIN_PARAM_REL = 1e-3
+TRAIN_FUSED_PARAM_REL = 2e-3
+
+
+def train_state(mt, dtype, device, seed=SEED, layers=MODEL_LAYERS):
+    """create_train_state at the model cell, its weights drawn on the CPU
+    from `seed` (run_model's weights at seed 0), the model on `device`."""
+    return mt.train.create_train_state(
+        model_config(mt, dtype, layers), seed, model_batch("cpu"),
+        learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, device=device)
+
+
+def snapshot(state):
+    return {n: p.detach().clone() for n, p in state.model.named_parameters()}
+
+
+def train_steps(mt, state, batch, n, step=None, launches=None):
+    """n steps (train_step unless `step`); returns [(loss, grad_norm)] as
+    floats, read after the steps. With `launches`, each step's launch
+    counts must equal it."""
+    K = mt.K
+    step = step or mt.train.train_step
+    out = []
+    for _ in range(n):
+        K.reset_launch_counts()
+        state, m = step(state, batch)
+        if launches is not None:
+            torch.cuda.synchronize()
+            check(launched(K) == launches,
+                  f"train step launches {launched(K)}, not {launches}")
+        out.append((m["loss"], m["grad_norm"]))
+    return [(float(a), float(b)) for a, b in out]
+
+
+def key_bias_bound(mt, lrs):
+    """Adam's drift bound over updates at lrs (models/train.py): the most
+    the attention's key bias, whose true gradient is exactly 0, can move
+    from its initial 0 on rounding noise."""
+    return mt.train.adam_drift_bound(lrs) * (1 + 1e-6) + 1e-7
+
+
+def compare_params(mt, got, ref, what, rel, lrs):
+    """Each leaf's relative L2 error against `ref`; the key bias finite and
+    within key_bias_bound on both sides. Returns {name: error}."""
+    errs = {}
+    bound = key_bias_bound(mt, lrs)
+    for name, g in got.items():
+        r = ref[name].to(g.device)
+        check(bool(torch.isfinite(g).all()), f"{what} {name} finite")
+        if name.endswith("mhsa.key.bias"):
+            drift = max(float(g.abs().max()), float(r.abs().max()))
+            check(drift <= bound, f"{what} {name}: drift {drift:.3g} > Adam's "
+                  f"bound {bound:.3g}")
+            errs[name] = drift / bound
+            continue
+        errs[name] = rel_l2(g, r)
+        check(errs[name] <= rel, f"{what} {name}: relative L2 error "
+              f"{errs[name]:.3g} > {rel}")
+    return errs
+
+
+def share_line(errs, rel):
+    """The worst leaf's share of its tolerance, the key bias apart."""
+    plain = {k: v for k, v in errs.items() if not k.endswith("key.bias")}
+    worst = max(plain, key=plain.get)
+    keyb = [v for k, v in errs.items() if k.endswith("key.bias")]
+    return (f"params relative L2 <= {plain[worst]:.3g} ({worst}; "
+            f"{plain[worst] / rel:.3f} of {rel}), key bias "
+            f"{max(keyb):.3f} of Adam's drift bound")
+
+
+def train_lrs(mt, n):
+    """The lrs of the first n updates (create_train_state's schedule)."""
+    return [TRAIN_LR * mt.train.warmup_cosine_factor(c, TRAIN_WARMUP, 10_000)
+            for c in range(n)]
+
+
+def peak_step_bytes(step):
+    """Peak device memory of one step above what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_train_vs_cpu(mt, batch, cpu_batch):
+    """TRAIN_STEPS f32 train_steps on the card (one stats_alpha_fused and
+    one beta_grad_fused each) and on the CPU (the loss's oracle) from the
+    same weights: losses at 1e-4 relative, grad_norm at 1e-3, every
+    parameter after the steps at TRAIN_PARAM_REL; then two more card steps:
+    the loss descends over TRAIN_DESCEND_STEPS. The second step's calls of
+    rows 1-2 are kept and held against their plain versions. Returns the
+    card state, its snapshots after steps 2 and 3, their metrics and the
+    kept calls' max |d| per wrapper."""
+    step_launches = {"stats_alpha_fused": 1, "beta_grad_fused": 1}
+    card = train_state(mt, torch.float32, DEVICE)
+    cpu = train_state(mt, torch.float32, "cpu")
+    for (n, p), q in zip(card.model.named_parameters(),
+                         cpu.model.parameters()):
+        check(torch.equal(p.cpu(), q), f"train weights {n} differ")
+    with rows12_capture(mt, 1) as cap:
+        got = train_steps(mt, card, batch, 2, launches=step_launches)
+    after2 = snapshot(card)
+    got += train_steps(mt, card, batch, TRAIN_STEPS - 2,
+                       launches=step_launches)
+    after3 = snapshot(card)
+    t0 = time.perf_counter()
+    want = train_steps(mt, cpu, cpu_batch, TRAIN_STEPS)
+    cpu_s = time.perf_counter() - t0
+    loss_share = max(abs(g[0] - w[0]) / (1e-4 * abs(w[0]))
+                     for g, w in zip(got, want))
+    norm_share = max(abs(g[1] - w[1]) / (1e-3 * abs(w[1]))
+                     for g, w in zip(got, want))
+    check(loss_share <= 1 and norm_share <= 1, f"train f32 card vs CPU: "
+          f"losses {got} vs {want}")
+    errs = compare_params(mt, after3, snapshot(cpu), "train f32 card vs CPU",
+                          TRAIN_PARAM_REL, train_lrs(mt, TRAIN_STEPS))
+    log(f"train f32 card vs CPU ({TRAIN_STEPS} train_steps, lr {TRAIN_LR}, "
+        f"warmup {TRAIN_WARMUP}; the CPU's {cpu_s:.1f} s): losses "
+        f"{[round(g[0], 4) for g in got]} vs {[round(w[0], 4) for w in want]}"
+        f", {loss_share:.3f} of 1e-4 relative; grad_norm "
+        f"{[round(g[1], 3) for g in got]}, {norm_share:.3f} of 1e-3; "
+        + share_line(errs, TRAIN_PARAM_REL) + f"; launches a step "
+        f"{step_launches}")
+    more = train_steps(mt, card, batch,
+                       TRAIN_DESCEND_STEPS - TRAIN_STEPS)
+    losses = [g[0] for g in got + more]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train loss did not descend over {len(losses)} steps: {losses}")
+    log(f"train f32 loss over {len(losses)} steps: {losses}")
+    errs = compare_captured_rows12(mt, cap, "train f32 step 2")
+    return card, after2, after3, got, errs
+
+
+def phase_train_fused(mt, batch, after3, padded_metrics):
+    """make_memory_efficient_loss (chunk TRAIN_CHUNK) stepped TRAIN_STEPS
+    times from the same weights as the padded card steps: the same losses
+    (|d| <= 1e-4 + 1e-5|ref|) and parameters at TRAIN_FUSED_PARAM_REL; the
+    launches of each step are the fused-joint path's rows in the counts
+    the chunking gives. The first step's chunk kernels (fused_joint_capture)
+    are held against their plain versions. Returns (launches, max |d| per
+    wrapper)."""
+    state = train_state(mt, torch.float32, DEVICE)
+    loss_fn = mt.train.make_memory_efficient_loss(state.model,
+                                                  chunk_t=TRAIN_CHUNK)
+    t_enc = int(mt.models.conformer.subsampled_length(
+        state.model.cfg.encoder, MODEL_BATCH[1]))
+    n_chunks = -(-t_enc // TRAIN_CHUNK)
+    launches = {"softmax_stats": 2 * n_chunks, "alpha_scan": 1,
+                "beta_scan": n_chunks, "grad_pass": n_chunks}
+    step = lambda s, b: mt.train.train_step_with_loss(s, loss_fn, b)  # noqa
+    cap, = fused_joint_capture(mt.chunked, n_chunks)
+    with cap:
+        got = train_steps(mt, state, batch, 1, step=step, launches=launches)
+    got += train_steps(mt, state, batch, TRAIN_STEPS - 1, step=step,
+                       launches=launches)
+    share = max(abs(g[0] - w[0]) / (1e-4 + 1e-5 * abs(w[0]))
+                for g, w in zip(got, padded_metrics))
+    check(share <= 1, f"train fused-joint losses {got} vs padded "
+          f"{padded_metrics}")
+    errs = compare_params(mt, snapshot(state), after3,
+                          "train fused-joint vs padded",
+                          TRAIN_FUSED_PARAM_REL, train_lrs(mt, TRAIN_STEPS))
+    log(f"train fused-joint step (chunk_t {TRAIN_CHUNK}) vs train_step: "
+        f"losses {share:.3f} of 1e-4 + 1e-5|ref|; "
+        + share_line(errs, TRAIN_FUSED_PARAM_REL) + f"; launches a step "
+        f"{launches}")
+    return launches, compare_captured(mt, cap, "train fused-joint step 1")
+
+
+def phase_train_accum_and_checkpoint(mt, batch, after2, padded_metrics,
+                                     card):
+    """make_grad_accum_train_step(TRAIN_MICRO) over two steps against the
+    padded card run's first two (losses 1e-5 relative, parameters at
+    TRAIN_PARAM_REL); then a checkpoint round trip on the card: the card
+    run's state saved, restored into a state from seed 7, one more step on
+    each: the losses within 1e-6 relative (CUDA atomics in the backward
+    make bits vary) and the restored state equal to the saved one."""
+    state = train_state(mt, torch.float32, DEVICE)
+    n = TRAIN_MICRO
+    got = train_steps(mt, state, batch, 2,
+                      step=mt.train.make_grad_accum_train_step(n),
+                      launches={"stats_alpha_fused": n,
+                                "beta_grad_fused": n})
+    share = max(abs(g[0] - w[0]) / (1e-5 * abs(w[0]))
+                for g, w in zip(got, padded_metrics))
+    check(share <= 1, f"grad accum losses {got} vs {padded_metrics[:2]}")
+    errs = compare_params(mt, snapshot(state), after2,
+                          "grad accum vs one step", TRAIN_PARAM_REL,
+                          train_lrs(mt, 2))
+    log(f"train grad accumulation ({n} microbatches) vs train_step over 2 "
+        f"steps: losses {share:.3f} of 1e-5 relative; "
+        + share_line(errs, TRAIN_PARAM_REL))
+    del state
+    at = card.step
+    with tempfile.TemporaryDirectory(prefix="mrnnt_ckpt_") as tmp:
+        path = Path(tmp) / "state.pt"
+        mt.train.save_checkpoint(path, card)
+        size = path.stat().st_size
+        restored = mt.train.restore_checkpoint(
+            path, train_state(mt, torch.float32, DEVICE, seed=SEED + 7))
+    check(restored.step == card.step, "restored step")
+    for (n_, p), q in zip(card.model.named_parameters(),
+                          restored.model.parameters()):
+        check(torch.equal(p, q), f"restored {n_} differs")
+    (a,), (b,) = (train_steps(mt, s, batch, 1) for s in (card, restored))
+    rel = abs(a[0] - b[0]) / abs(a[0])
+    check(rel <= 1e-6, f"resumed loss {b[0]!r} vs {a[0]!r}")
+    log(f"train checkpoint ({size / 2**20:.1f} MiB) round trip at step "
+        f"{at}: restored state equal; the next losses "
+        f"{a[0]!r} and {b[0]!r}, relative {rel:.3g} (<= 1e-6)")
+
+
+def phase_train_timing(mt, batch, dtype, gpu, rows12_ms):
+    """The loss step of a train state's model (no optimiser), train_step
+    and the memory-efficient step, one call of each in turn MODEL_REPS
+    times after 3 warm-up calls each (CUDA events, each call from an idle
+    card), so that host drift falls on all three alike: medians in ms and
+    kframes/s (B * input frames over the step), the clip and AdamW as
+    train_step less the loss step, each step's peak memory above what was
+    allocated before it, and rows 1+2's share of the train step."""
+    name = dtype_name(dtype)
+    frames = MODEL_BATCH[0] * MODEL_BATCH[1]
+    state = train_state(mt, dtype, DEVICE)
+    fused = train_state(mt, dtype, DEVICE)
+    loss_fn = mt.train.make_memory_efficient_loss(fused.model,
+                                                  chunk_t=TRAIN_CHUNK)
+
+    def loss_step():
+        state.model.zero_grad(set_to_none=True)
+        state.model(*batch).mean().backward()
+
+    steps = {"loss_step": loss_step,
+             "train_step": lambda: mt.train.train_step(state, batch),
+             "memory_efficient_step": lambda: mt.train.train_step_with_loss(
+                 fused, loss_fn, batch)}
+    times = {key: [] for key in steps}
+    for fn in steps.values():
+        cuda_times(fn, 0)
+    for _ in range(MODEL_REPS):
+        for key, fn in steps.items():
+            times[key] += cuda_times(fn, 1, warmup=0)
+    figures = {}
+    for key, fn in steps.items():
+        ms = statistics.median(times[key])
+        figures[f"{key}_ms"] = ms
+        figures[f"{key}_kframes_per_s"] = frames / ms
+        figures[f"{key}_peak_bytes"] = peak_step_bytes(fn)
+    figures["clip_adamw_ms"] = (figures["train_step_ms"]
+                                - figures["loss_step_ms"])
+    figures["rows12_share_of_train_step"] = rows12_ms / figures[
+        "train_step_ms"]
+    for key in steps:
+        log(f"train {name} {key.replace('_', ' ')}: "
+            f"{figures[key + '_ms']:.3f} ms, "
+            f"{figures[key + '_kframes_per_s']:.1f} kframes/s, peak "
+            f"{figures[key + '_peak_bytes'] / 2**20:.1f} MiB above its "
+            f"inputs ({gpu})")
+    log(f"train {name} clip + AdamW (train step less loss step): "
+        f"{figures['clip_adamw_ms']:.3f} ms; rows 1+2 share of the train "
+        f"step: {rows12_ms:.4f} ms kernels alone = "
+        f"{figures['rows12_share_of_train_step']:.4f} ({gpu})")
+    return figures
+
+
+def run_train(mt, gpu, model_figures):
+    """The training step at the model cell on the card: f32 against the
+    CPU, the loss's descent, the memory-efficient step, gradient
+    accumulation and a checkpoint round trip; then f32 and bf16 timed.
+    Returns (launches by path, max |d| by path, figures by dtype)."""
+    batch, cpu_batch = model_batch(DEVICE), model_batch("cpu")
+    card, after2, after3, padded, errs = phase_train_vs_cpu(mt, batch,
+                                                            cpu_batch)
+    fused_launches, fused_errs = phase_train_fused(mt, batch, after3,
+                                                   padded)
+    phase_train_accum_and_checkpoint(mt, batch, after2, padded, card)
+    del card, after2, after3
+    torch.cuda.empty_cache()
+    figures = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        m = model_figures[name]
+        figures[name] = phase_train_timing(
+            mt, batch, dtype, gpu,
+            m["stats_alpha_kernel_ms"] + m["beta_grad_kernel_ms"])
+        torch.cuda.empty_cache()
+    log("train timing: " + json.dumps(figures))
+    return ({"train": {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+             "train_fused_joint": fused_launches},
+            {"train": errs, "train_fused_joint": fused_errs}, figures)
+
+
 # --- the sharded losses ---------------------------------------------------------
 
 SHARDED_WORLD = 4
@@ -2732,7 +3140,8 @@ def tp_padded(mt, mesh, inputs, dtype, blank, weights, global_costs, what,
     loss_fn = par.make_dp_tp_loss(mesh, blank_id=blank)
     x = leaf(par.local_shard(lg, LOGITS_SPEC, mesh), dtype)
     caps = (Capture(mt.collective, {"softmax_stats_partial": {0}}),
-            Capture(mt.sharding, {"grad_pass": {0}})) if capture else ()
+            Capture(mt.sharding, {"fwdbwd_scan": {0}, "grad_pass": {0}})
+            ) if capture else ()
     K.reset_launch_counts()
     with contextlib.ExitStack() as stack:
         for cap in caps:
@@ -2791,16 +3200,19 @@ def tp_padded(mt, mesh, inputs, dtype, blank, weights, global_costs, what,
 
 
 def dp_case(mt, mesh, inputs, global_costs):
-    """make_data_parallel_loss (a training step) and make_per_sample_loss on
-    the data axis, against the parent's single-process costs."""
+    """make_data_parallel_loss (a training step, its rows 1-2 calls kept
+    and held against their plain versions) and make_per_sample_loss on the
+    data axis, against the parent's single-process costs. Returns
+    (launches of the step, max |d| per wrapper)."""
     K, par = mt.K, mt.par
     logits, labels, ilen, slen = inputs
     rows = rows_of(par, mesh, logits.shape[0])
     args = (labels[rows], ilen[rows], slen[rows])
     x = leaf(logits[rows], torch.float32)
     K.reset_launch_counts()
-    loss = par.make_data_parallel_loss(mesh)(x, *args)
-    loss.backward()
+    with rows12_capture(mt, 0) as cap:
+        loss = par.make_data_parallel_loss(mesh)(x, *args)
+        loss.backward()
     torch.cuda.synchronize()
     step = launched(K)
     check(step == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
@@ -2817,13 +3229,15 @@ def dp_case(mt, mesh, inputs, global_costs):
           f"data-parallel costs relative error {rel:.3g}, mean {rel_mean:.3g}")
     log(f"data-parallel (4,1): launches {step}; per-sample costs vs the "
         f"single-process ones, relative {rel:.3g}; mean {rel_mean:.3g}")
-    return step
+    return step, compare_captured_rows12(mt, cap, "data-parallel (4,1)")
 
 
-def tp_banded(mt, mesh, case, dtype):
+def tp_banded(mt, mesh, case, dtype, capture=False):
     """make_dp_tp_banded_loss on this rank's shard of the packed band
     tensor: a training step of the mean and a cost-only call, against
-    monotonic_rnnt_loss_banded on this rank's batch slice."""
+    monotonic_rnnt_loss_banded on this rank's batch slice. With `capture`,
+    the step's kernel calls are held against their plain versions.
+    Returns (launches of the step, max |d| per wrapper)."""
     K, par = mt.K, mt.par
     band = case["logits_band"].to(dtype)
     n_b = band.shape[0]
@@ -2832,10 +3246,16 @@ def tp_banded(mt, mesh, case, dtype):
     bmin, bmax = case["band_min"][rows], case["band_max"][rows]
     loss_fn = par.make_dp_tp_banded_loss(mesh)
     x = leaf(par.local_shard(band, LOGITS_SPEC, mesh), dtype)
+    caps = (Capture(mt.collective, {"softmax_stats_partial": {0}}),
+            Capture(mt.sharding, {"fwdbwd_scan_banded": {0},
+                                  "grad_pass": {0}})) if capture else ()
     K.reset_launch_counts()
-    loss = loss_fn(x, *args, bmin, bmax)
-    loss.backward()
-    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        for cap in caps:
+            stack.enter_context(cap)
+        loss = loss_fn(x, *args, bmin, bmax)
+        loss.backward()
+        torch.cuda.synchronize()
     step = launched(K)
     K.reset_launch_counts()
     with torch.no_grad():
@@ -2877,15 +3297,18 @@ def tp_banded(mt, mesh, case, dtype):
     log(f"{what} [{list(x.shape)} a rank]: launches step {step}, cost-only "
         f"{cost_only}; loss vs single-process |d| {e_l:.3g}, grads max|d| "
         f"{e_g:.3g}" + (f", relative L2 {rel:.3g}" if rel is not None else ""))
-    return step
+    path_errs = {}
+    for cap in caps:
+        path_errs.update(compare_captured(mt, cap, what))
+    return step, path_errs
 
 
 def tp_fused(mt, mesh, case, banded):
     """The fused-joint TP loss on (2,2): a training step of the mean from
     fresh leaves (launches read after the forward and after the step, peak
     memory), against the parent's single-process step; then one more step
-    whose kernel calls (the last and an interior chunk) are kept and held
-    against their plain versions. Returns (launches, path errs, summary)."""
+    whose kernel calls (fused_joint_capture's) are kept and held against
+    their plain versions. Returns (launches, path errs, summary)."""
     K, par = mt.K, mt.par
     t = case["enc"].shape[1]
     n_chunks = -(-t // FUSED_CHUNK)
@@ -2946,10 +3369,8 @@ def tp_fused(mt, mesh, case, banded):
         sq[name] = [float((g.double() - r.double()).pow(2).sum()),
                     float(r.double().pow(2).sum())]
     del grads
-    mid = n_chunks // 2
-    caps = (Capture(mt.collective, {"softmax_stats_partial":
-                                    {n_chunks, n_chunks + mid}}),
-            Capture(module, {"grad_pass": {0, mid}}))
+    caps = fused_joint_capture(module, n_chunks, beta, alpha,
+                               stats=(mt.collective, "softmax_stats_partial"))
     with caps[0], caps[1]:
         step()
     path_errs = {}
@@ -2964,6 +3385,95 @@ def tp_fused(mt, mesh, case, banded):
     return launches, path_errs, {"sq": sq, "peak_bytes": peak,
                                  "step_ms_4_ranks_one_card": step_s * 1e3,
                                  "loss": float(loss)}
+
+
+SHARDED_TRAIN_LAYERS = 1   # the model cell's widths, one Conformer block
+SHARDED_TRAIN_STEPS = 2    # the first has lr 0
+
+
+def save_train_reference(mt, tmp):
+    """The single-process train_step run the ranks' train steps are held
+    against: SHARDED_TRAIN_STEPS steps of the model cell at
+    SHARDED_TRAIN_LAYERS layers from seed 0, its (loss, grad_norm) and the
+    parameters after them."""
+    state = train_state(mt, torch.float32, DEVICE,
+                        layers=SHARDED_TRAIN_LAYERS)
+    metrics = train_steps(mt, state, model_batch(DEVICE),
+                          SHARDED_TRAIN_STEPS)
+    torch.save({"metrics": metrics, "params": {
+        n: p.cpu() for n, p in snapshot(state).items()}}, tmp / "train.pt")
+
+
+def rank_train_steps(mt, meshes, tmp):
+    """make_sharded_train_step on (4,1) and make_tp_sharded_train_step
+    (chunk TRAIN_CHUNK) on (2,2), SHARDED_TRAIN_STEPS steps each from the
+    reference's weights: the launches of each step, the losses (|d| <=
+    1e-4 + 1e-5|ref|) and grad_norms (1e-3 relative) against the
+    single-process run, and this rank's parameters (its shard of the vocab
+    projection) by relative L2 (each shard within the bound keeps the
+    whole leaf within it): DP at TRAIN_PARAM_REL, TP at
+    TRAIN_FUSED_PARAM_REL (the fused-joint route). The first step's kernel
+    calls (rows 1-2 for DP; for TP fused_joint_capture's chunks, the stats
+    by softmax_stats_partial) are held against their plain versions.
+    Returns (launches, max |d|) by path."""
+    ref = torch.load(tmp / "train.pt", map_location=DEVICE)
+    batch = model_batch(DEVICE)
+    t_enc = int(mt.models.conformer.subsampled_length(
+        model_config(mt, torch.float32).encoder, MODEL_BATCH[1]))
+    n_chunks = -(-t_enc // TRAIN_CHUNK)
+    cases = {
+        "train_dp": ((4, 1), TRAIN_PARAM_REL,
+                     {"stats_alpha_fused": 1, "beta_grad_fused": 1}),
+        "train_tp": ((2, 2), TRAIN_FUSED_PARAM_REL,
+                     {"softmax_stats_partial": 2 * n_chunks, "alpha_scan": 1,
+                      "beta_scan": n_chunks, "grad_pass": n_chunks})}
+    launches, path_errs = {}, {}
+    for name, (shape, rel, want) in cases.items():
+        mesh = meshes[shape]
+        state = train_state(mt, torch.float32, DEVICE,
+                            layers=SHARDED_TRAIN_LAYERS)
+        if name == "train_dp":
+            step = mt.train.make_sharded_train_step(mesh)
+            caps = (rows12_capture(mt, 0),)
+        else:
+            state = mt.train.shard_train_state(state, mesh)
+            step = mt.train.make_tp_sharded_train_step(
+                mesh, state.model, chunk_t=TRAIN_CHUNK)
+            caps = fused_joint_capture(mt.chunked, n_chunks, stats=(
+                mt.collective, "softmax_stats_partial"))
+        what = f"{name} {shape}"
+        with contextlib.ExitStack() as stack:
+            for cap in caps:
+                stack.enter_context(cap)
+            got = train_steps(mt, state, batch, 1, step=step, launches=want)
+        got += train_steps(mt, state, batch, SHARDED_TRAIN_STEPS - 1,
+                           step=step, launches=want)
+        path_errs[name] = {}
+        for cap in caps:
+            path_errs[name].update(
+                compare_captured_rows12(mt, cap, f"{what} step 1")
+                if name == "train_dp"
+                else compare_captured(mt, cap, f"{what} step 1"))
+        del caps
+        for (loss, norm), (r_loss, r_norm) in zip(got, ref["metrics"]):
+            e_l, e_n = abs(loss - r_loss), abs(norm - r_norm) / r_norm
+            check(e_l <= 1e-4 + 1e-5 * abs(r_loss) and e_n <= 1e-3,
+                  f"{what}: (loss, grad_norm) {got} vs {ref['metrics']}")
+            record(f"{what} loss |d|", e_l)
+            record(f"{what} grad_norm relative", e_n)
+        specs = mt.train.transducer_tp_specs(state.model)
+        refs = {n: (mt.par.local_shard(p, specs[n], mesh)
+                    if name == "train_tp" else p)
+                for n, p in ref["params"].items()}
+        errs = compare_params(mt, snapshot(state), refs, what, rel,
+                              train_lrs(mt, SHARDED_TRAIN_STEPS))
+        plain = {k: v for k, v in errs.items() if not k.endswith("key.bias")}
+        record(f"{what} params relative L2 (of {rel})", max(plain.values()))
+        log(f"{what}: launches a step {want}; losses {got} vs the single-"
+            f"process run's {ref['metrics']}; " + share_line(errs, rel))
+        launches[name] = want
+        del state
+    return launches, path_errs
 
 
 def run_rank(mt, rank, tmp):
@@ -2995,15 +3505,18 @@ def run_rank(mt, rank, tmp):
     tp_padded(mt, meshes[1, 4], blank_inputs, torch.float32, SHARDED_BLANK,
               weights, None, f"padded TP (1, 4) blank {SHARDED_BLANK}")
     del blank_inputs
-    out["launches"]["dp"] = dp_case(mt, meshes[4, 1], inputs,
-                                    padded["costs"][str(torch.float32)])
+    out["launches"]["dp"], path_errs["dp"] = dp_case(
+        mt, meshes[4, 1], inputs, padded["costs"][str(torch.float32)])
     del inputs, padded
     torch.cuda.empty_cache()
     banded = torch.load(tmp / "banded.pt", map_location=DEVICE)
     for dtype in (torch.float32, torch.bfloat16):
-        launches = tp_banded(mt, meshes[2, 2], banded, dtype)
-        if dtype == torch.float32:
+        first = dtype == torch.float32
+        launches, errs = tp_banded(mt, meshes[2, 2], banded, dtype,
+                                   capture=first)
+        if first:
             out["launches"]["tp_banded"] = launches
+            path_errs["tp_banded"] = errs
     del banded
     for name, banded in (("tp_fused", False), ("tp_fused_banded", True)):
         case = torch.load(tmp / f"{name}.pt", map_location=DEVICE)
@@ -3013,7 +3526,9 @@ def run_rank(mt, rank, tmp):
         out["fused"][name] = summary
         del case
         torch.cuda.empty_cache()
-    out["errs"] = path_errs
+    train_launches, train_errs = rank_train_steps(mt, meshes, tmp)
+    out["launches"].update(train_launches)
+    out["errs"] = {**path_errs, **train_errs}
     out["checks"] = RANK_CHECKS
     out["mesh_index"] = {"data": meshes[2, 2].data_index,
                          "model": meshes[2, 2].model_index}
@@ -3150,6 +3665,7 @@ def run_sharded(mt, banded_case, costs):
     with tempfile.TemporaryDirectory(prefix="mrnnt_sharded_") as tmp:
         tmp = Path(tmp)
         save_sharded_inputs(mt, tmp, banded_case, costs)
+        save_train_reference(mt, tmp)
         t_saved = time.perf_counter() - t0
         ranks = spawn_ranks(tmp)
     for name in ("tp_fused", "tp_fused_banded"):
@@ -3593,21 +4109,26 @@ def phase_trace(mt, main_inputs, weights):
 
 
 def phase_model_trace(mt):
-    """One loss step of the model cell (run_model's), f32 and bf16, traced
+    """One loss step of the model cell (run_model's) and one train_step
+    (run_train's: the loss step, the clip and AdamW), f32 and bf16, traced
     (trace_step): how many device ops a step makes, and how busy the card
     is."""
     batch = model_batch(DEVICE)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        model = make_model(mt, dtype, DEVICE)
+        name = dtype_name(dtype)
+        state = train_state(mt, dtype, DEVICE)
+        model = state.model
 
         def step():
             model.zero_grad(set_to_none=True)
             model(*batch).mean().backward()
 
-        out[dtype_name(dtype)] = trace_step(
-            mt, step, f"model loss step, {dtype_name(dtype)}")
-        del model
+        out[name] = trace_step(mt, step, f"model loss step, {name}")
+        out[f"train {name}"] = trace_step(
+            mt, lambda: mt.train.train_step(state, batch),
+            f"train_step, {name}")
+        del model, state
     torch.cuda.empty_cache()
     return out
 
@@ -3632,8 +4153,11 @@ def trace_step(mt, step, what):
     check(len(traces) == 1, f"device_trace wrote {traces}")
     avgs = list(prof.key_averages())
     cuda_type = torch.autograd.DeviceType.CUDA
+    # A user annotation (torch.optim's "Optimizer.step#AdamW.step") spans
+    # the device ops under it: counting it would count them twice.
     kernels = [e for e in avgs if e.device_type == cuda_type
-               and _device_us(e) > 0]
+               and _device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         log(f"traced step ({what}): {wall_ms:.3f} ms wall; key_averages() "
             "shows no device time (a finding: time with CUDA events instead)")
@@ -3708,7 +4232,9 @@ def run_packed(mt, golden, main_inputs, weights, restricted):
     lattice: the binding and the packed loss against the padded loss on the
     same logits (expected bit for bit), the native engine on the host
     against the card, the goldens, and the packed step's time beside the
-    padded step's. Returns the packed path's launches and its timings."""
+    padded step's; the packed step's calls of rows 1-2 are held against
+    their plain versions. Returns the packed path's launches, max |d| per
+    wrapper and timings."""
     K, bind = mt.K, mt.interop
     logits, labels, ilen, slen = main_inputs
     align, (r_costs, r_grads) = restricted
@@ -3724,8 +4250,9 @@ def run_packed(mt, golden, main_inputs, weights, restricted):
 
     # The packed path: counts reset once before, read after each part.
     K.reset_launch_counts()
-    costs, grads = packed_step(bind.monotonic_rnnt_loss, acts, weighted,
-                               *args)
+    with rows12_capture(mt, 0) as cap:
+        costs, grads = packed_step(bind.monotonic_rnnt_loss, acts, weighted,
+                                   *args)
     torch.cuda.synchronize()
     after_step = launched(K)
     with torch.no_grad():
@@ -3736,6 +4263,8 @@ def run_packed(mt, golden, main_inputs, weights, restricted):
           f"packed training step launches {after_step}")
     check(launches == {"stats_alpha_fused": 2, "beta_grad_fused": 1},
           f"packed cost-only launches {launches}")
+    kernel_errs = compare_captured_rows12(mt, cap, "packed step")
+    del cap
 
     errs = {}
     for name, reduce in (("weighted", weighted), ("sum", lambda c: c.sum()),
@@ -3828,7 +4357,7 @@ def run_packed(mt, golden, main_inputs, weights, restricted):
         + f"; phase {time.perf_counter() - t0:.1f} s")
     del acts, gthr, lg_leaf, a_leaf, grads
     torch.cuda.empty_cache()
-    return {"packed": launches}, timing
+    return {"packed": launches}, {"packed": kernel_errs}, timing
 
 
 # --- Viterbi alignment ----------------------------------------------------------
@@ -3836,25 +4365,33 @@ def run_packed(mt, golden, main_inputs, weights, restricted):
 def run_alignment(mt, case):
     """Viterbi alignment and the occupancy posteriors at the banded case,
     on the full lattice and on the band; their checks, the realignment
-    through the binding's restricted loss, the two Viterbi calls' times.
-    Returns the alignment path's launches and the times."""
+    through the binding's restricted loss, the two Viterbi calls' times;
+    every kernel call of the four is held against its plain version.
+    Returns the alignment path's launches, max |d| per wrapper and the
+    times."""
     K, bd = mt.K, mt.bands
     args = (case["labels"], case["ilen"], case["slen"])
     ilen, slen = case["ilen"], case["slen"]
     clipped = bd.clip_bands_to_width(case["bands"], case["layout"])
     t0 = time.perf_counter()
+    caps = (Capture(mt.alignment, {"softmax_stats": {0, 1},
+                                   "softmax_stats_banded": {0},
+                                   "fwdbwd_scan": {0}}),
+            Capture(mt.cuda_banded, {"softmax_stats_banded": {0},
+                                     "fwdbwd_scan_banded": {0}}))
     K.reset_launch_counts()
-    full = mt.viterbi_alignment(case["logits"], *args, bands=clipped)
-    torch.cuda.synchronize()
-    after_full = launched(K)
-    band = mt.viterbi_alignment_banded(case["logits_band"], *args,
-                                       bands=case["bands"])
-    torch.cuda.synchronize()
-    after_band = launched(K)
-    occ = mt.occupancy_posteriors(case["logits"], *args, bands=clipped)
-    occ_b = mt.occupancy_posteriors_banded(case["logits_band"], *args,
+    with caps[0], caps[1]:
+        full = mt.viterbi_alignment(case["logits"], *args, bands=clipped)
+        torch.cuda.synchronize()
+        after_full = launched(K)
+        band = mt.viterbi_alignment_banded(case["logits_band"], *args,
                                            bands=case["bands"])
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        after_band = launched(K)
+        occ = mt.occupancy_posteriors(case["logits"], *args, bands=clipped)
+        occ_b = mt.occupancy_posteriors_banded(case["logits_band"], *args,
+                                               bands=case["bands"])
+        torch.cuda.synchronize()
     launches = launched(K)
     check(after_full == {"softmax_stats": 1},
           f"viterbi_alignment launches {after_full}")
@@ -3863,6 +4400,11 @@ def run_alignment(mt, case):
     check(launches == {"softmax_stats": 2, "fwdbwd_scan": 1,
                        "softmax_stats_banded": 2, "fwdbwd_scan_banded": 1},
           f"alignment path launches {launches}")
+    errs = {}
+    for cap in caps:
+        for name, e in compare_captured(mt, cap, "alignment").items():
+            errs[name] = max(e, errs.get(name, 0.0))
+    del caps
 
     check(torch.equal(full.alignment, band.alignment),
           "banded and full Viterbi alignments differ")
@@ -3929,7 +4471,7 @@ def run_alignment(mt, case):
         + json.dumps(timing) + f"; phase {time.perf_counter() - t0:.1f} s")
     del full, band, occ, occ_b
     torch.cuda.empty_cache()
-    return {"alignment": launches}, timing
+    return {"alignment": launches}, {"alignment": errs}, timing
 
 
 def moved(obj, device):
@@ -3953,9 +4495,10 @@ class _Port:
         import monotonic_rnnt_tpu_torch as pkg
         from monotonic_rnnt_tpu_torch import (convert, interop, models,
                                               parallel)
-        from monotonic_rnnt_tpu_torch.ops import (banded, bands, chunked,
-                                                  chunked_banded, collective,
-                                                  helpers, loss)
+        from monotonic_rnnt_tpu_torch.ops import (alignment, banded, bands,
+                                                  chunked, chunked_banded,
+                                                  collective, helpers, loss)
+        from monotonic_rnnt_tpu_torch.models import train
         from monotonic_rnnt_tpu_torch.parallel import sharding
         from monotonic_rnnt_tpu_torch.ops.cuda import (_build, banded_kernels,
                                                        fused, kernels,
@@ -3981,6 +4524,8 @@ class _Port:
                                                     sharding)
         self.ST, self.interop, self.profiling = stream, interop, profiling
         self.models, self.loss, self.cuda_banded = models, loss, cuda_banded
+        self.alignment = alignment
+        self.train = train
         for name in ("pack_acts", "unpack_acts", "monotonic_rnnt_loss_packed",
                      "viterbi_alignment", "viterbi_alignment_banded",
                      "occupancy_posteriors", "occupancy_posteriors_banded",
@@ -4054,42 +4599,43 @@ def main() -> int:
     sharded_launches, sharded_errs, partial_entry = run_sharded(
         mt, band_keep, {torch.float32: costs_f32, torch.bfloat16: costs_bf16})
     del band_keep
-    model_launches, model_errs, _ = run_model(mt, gpu)
+    model_launches, model_errs, model_figures = run_model(mt, gpu)
+    train_launches, train_errs, _ = run_train(mt, gpu, model_figures)
     # The alignment, packed and traced phases run last, so that the figures
     # above are taken as without them (a profiler session or thousands of
     # small ops could leave host state behind that slows later host-bound
     # steps).
     main_inputs, restricted, band_case = moved(parked, DEVICE)
     del parked
-    align_launches, align_timing = run_alignment(mt, band_case)
+    align_launches, align_errs, align_timing = run_alignment(mt, band_case)
     ratio = (align_timing["viterbi_full_ms"]
              / band_e2e["float32"]["banded_fwd_bwd_ms"])
     log(f"Viterbi at B,T,S,V={BANDED_CASE}: {json.dumps(align_timing)}; the "
         f"full-lattice call over the banded training step: {ratio:.1f}x")
     del band_case
     torch.cuda.empty_cache()
-    packed_launches, packed_e2e = run_packed(mt, golden, main_inputs, weights,
-                                             restricted)
+    packed_launches, packed_errs, packed_e2e = run_packed(
+        mt, golden, main_inputs, weights, restricted)
     log(f"end-to-end packed loss at B={B},T={T},S={S},V={V}: "
         f"{json.dumps(packed_e2e)}")
     phase_trace(mt, main_inputs, weights)
     del main_inputs, restricted
     phase_model_trace(mt)
     torch.cuda.empty_cache()
-    split_f32 = split_errs[torch.float32]
-    by_path(kernels, "padded", {**sharded_launches, **packed_launches,
-                                **model_launches}, model_errs)
-    by_path(band_kernels, "banded", {"split": split_launches,
-                                     **fused_launches, **sharded_launches,
-                                     **align_launches, **model_launches},
-            {"split": {"grad_pass": split_f32["grad_pass"]}, **fused_errs,
-             **sharded_errs, **model_errs})
+    # Every path's launches and kept calls' max |d|; by_path takes, for
+    # each kernel row, the paths that ran it.
+    path_launches = {"split": split_launches, **fused_launches,
+                     **sharded_launches, **packed_launches, **align_launches,
+                     **model_launches, **train_launches}
+    path_errs = {"split": {"grad_pass": split_errs[torch.float32][
+        "grad_pass"]}, **fused_errs, **sharded_errs, **packed_errs,
+        **align_errs, **model_errs, **train_errs}
     split_kernels = split_kernel_entries(split_errs, split_launches,
                                          split_rows)
-    by_path(split_kernels, "split", {**fused_launches, **sharded_launches,
-                                     **align_launches, **model_launches},
-            {**fused_errs, **sharded_errs, **model_errs})
-    by_path([partial_entry], "tp_padded", sharded_launches, sharded_errs)
+    for entries, base in ((kernels, "padded"), (band_kernels, "banded"),
+                          (split_kernels, "split"),
+                          ([partial_entry], "tp_padded")):
+        by_path(entries, base, path_launches, path_errs)
     chunk_entries = {e["name"]: e for e in band_kernels + split_kernels}
     chunk_entries["grad_pass"]["fused_joint_chunk"] = fused_e2e[
         "fused_joint_grad_pass_chunk"]
@@ -4102,9 +4648,14 @@ def main() -> int:
             for k in ("shape", "ms", "queued_ms", "queued_ns_per_step",
                       "kernel_queued_ms", "kernel_queued_ns_per_step")}
     kernels += band_kernels + split_kernels + [partial_entry] + stream_entries
-    for e in kernels:   # this slice's paths, on every row (0: not on it)
-        for path in ("model", "model_fused_joint"):
+    for e in kernels:   # the model's paths, on every row (0: not on it)
+        for path in ("model", "model_fused_joint", "train",
+                     "train_fused_joint", "train_dp", "train_tp"):
             e["launches_by_path"].setdefault(path, 0)
+        unheld = [p for p, n in e["launches_by_path"].items()
+                  if n and p not in e["max_abs_err_by_path"]]
+        check(not unheld, f"{e['name']}: no kernel call of the paths "
+              f"{unheld} was held against its plain version")
     add_ceiling(kernels, rates)
     add_step_floor(kernels, floors, scan_shapes)
     check(len(kernels) == 14, f"the kernels JSON lists {len(kernels)} of 14")

@@ -131,16 +131,15 @@ def _embed(m):
 
 def _lstm(m):
     """OptimizedLSTMCell's ii/if/ig/io (input kernels, no bias) and
-    hi/hf/hg/ho (hidden kernels with bias) -> nn.LSTMCell, gates i, f, g,
-    o: weight_ih = cat(ii, if, ig, io)^T, weight_hh = cat(hi, hf, hg, ho)^T,
-    bias_hh = cat(their biases), bias_ih = 0."""
+    hi/hf/hg/ho (hidden kernels with bias) -> predictor.LstmCell, gates i,
+    f, g, o: weight_ih = cat(ii, if, ig, io)^T, weight_hh = cat(hi, hf, hg,
+    ho)^T, bias_hh = cat(their biases)."""
     gates = "ifgo"
-    bias = np.concatenate([m[f"h{g}/bias"] for g in gates])
     return {"weight_ih": np.concatenate([m[f"i{g}/kernel"] for g in gates],
                                         axis=1).T,
             "weight_hh": np.concatenate([m[f"h{g}/kernel"] for g in gates],
                                         axis=1).T,
-            "bias_ih": np.zeros_like(bias), "bias_hh": bias}
+            "bias_hh": np.concatenate([m[f"h{g}/bias"] for g in gates])}
 
 
 def _transducer_modules(cfg):
@@ -211,4 +210,66 @@ def transducer_params_from_flax(params, cfg, device="cuda"
     if leaves:
         raise ValueError("flax params the config does not name: "
                          + ", ".join(sorted(leaves)))
+    return state
+
+
+# --- a JAX TrainState ----------------------------------------------------------
+
+def _optax_counts(opt_state):
+    """(ScaleByAdamState, the schedule's count) found in an optax state
+    (the chain of clip_by_global_norm and adamw), by their fields."""
+    adam, sched = None, None
+    stack = [opt_state]
+    while stack:
+        node = stack.pop()
+        if hasattr(node, "mu") and hasattr(node, "nu"):
+            adam = node
+        elif type(node).__name__ == "ScaleByScheduleState":
+            sched = node.count
+        elif isinstance(node, (tuple, list)):
+            stack.extend(node)
+    if adam is None or sched is None:
+        raise ValueError("opt_state holds no adam moments and schedule count "
+                         "(create_train_state's optax chain)")
+    return adam, int(np.asarray(sched))
+
+
+def train_state_from_optax(jax_state, cfg, example_batch, *,
+                           learning_rate: float = 1e-3,
+                           weight_decay: float = 1e-6,
+                           warmup_steps: int = 1000, device="cuda"):
+    """A JAX TrainState (``models/train.create_train_state``'s, after any
+    number of steps) as the port's ``models.train.TrainState``.
+
+    The parameters convert by ``transducer_params_from_flax``, optax's Adam
+    moments ``mu``/``nu`` as gradient trees do (so the LSTM's gate biases
+    land in its one ``bias_hh``), the Adam count into each parameter's
+    AdamW ``step``, the schedule's count into the LambdaLR, and ``step``.
+    An optax chain's hyperparameters are closures that cannot be read:
+    pass the learning_rate, weight_decay and warmup_steps the JAX state was
+    created with (cfg and example_batch as for create_train_state). The
+    dropout key cannot cross: the PRNGs differ, so the port's seed is one
+    derived from the key's bits, and the masks after the crossing are not
+    JAX's.
+    """
+    from .models.train import create_train_state, fold_in
+
+    state = create_train_state(cfg, 0, example_batch, learning_rate,
+                               weight_decay, warmup_steps, device=device)
+    state.model.load_state_dict(transducer_params_from_flax(
+        jax_state.params, cfg, device=device))
+    adam, sched_count = _optax_counts(jax_state.opt_state)
+    mu = transducer_params_from_flax(adam.mu, cfg, device=device)
+    nu = transducer_params_from_flax(adam.nu, cfg, device=device)
+    count = float(np.asarray(adam.count))
+    for name, p in state.model.named_parameters():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.dtype),
+            "exp_avg_sq": nu[name].to(p.dtype)}
+    state.set_update_count(sched_count)
+    state.step = int(np.asarray(jax_state.step))
+    state.dropout_seed = 0
+    for word in np.asarray(jax_state.dropout_rng).astype(np.uint64).ravel():
+        state.dropout_seed = fold_in(state.dropout_seed, int(word))
     return state

@@ -5,7 +5,13 @@ Counterpart of ``monotonic_rnnt_tpu/models``, with the same public names:
   PredictorConfig / LstmPredictor / ConvPredictor — label-context networks
   TransducerConfig / MonotonicTransducer — encoder + predictor + joint + loss,
       with greedy_decode; Joint also runs as the fused-joint losses' joint_fn
-``convert.transducer_params_from_flax`` loads a flax model's parameters.
+  train: create_train_state, train_step, make_sharded_train_step,
+      make_grad_accum_train_step, make_memory_efficient_loss /
+      make_banded_memory_efficient_loss, make_tp_sharded_train_step /
+      shard_train_state / transducer_tp_specs (vocab-TP fused-joint
+      training), save_checkpoint, restore_checkpoint
+``convert.transducer_params_from_flax`` loads a flax model's parameters,
+``convert.train_state_from_optax`` a JAX TrainState.
 """
 
 from .conformer import ConformerConfig, ConformerEncoder

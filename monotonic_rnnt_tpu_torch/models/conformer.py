@@ -21,7 +21,12 @@ does:
     then averages, as flax's does);
   * the masks stay where flax applies them (input frames, after every
     strided stage, after the positions, before the depthwise conv), so the
-    output does not depend on padding.
+    output does not depend on padding;
+  * dropout draws its masks from a ``torch.Generator`` that the caller
+    passes (flax's ``rngs={"dropout": key}``), never from the global RNG,
+    and keeps x / (1 - rate) where it keeps, as flax's ``nn.Dropout``. The
+    streams differ from JAX's (another PRNG, and flax folds each call
+    site's path into its key), so masks agree in law, not in bits.
 
 The encoder needs the feature width at construction (``feat_dim``), where
 flax infers it from the first call.
@@ -29,6 +34,7 @@ flax infers it from the first call.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -69,8 +75,47 @@ def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype):
                         norm.bias, norm.eps).to(dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, deterministic: bool):
-    return F.dropout(x, rate, training=not deterministic)
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]):
+    """flax's nn.Dropout, its mask drawn from `generator` (on x's device):
+    x where deterministic or rate is 0 (nothing drawn), else x / (1 - rate)
+    where a uniform draw is >= rate and 0 elsewhere."""
+    if deterministic or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a "
+                         "torch.Generator (flax's rngs={'dropout': key})")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _replay_draws(generator: Optional[torch.Generator]):
+    """torch.utils.checkpoint's context_fn for a block that draws from
+    `generator`: the forward remembers the generator's state, and the
+    recompute in the backward starts from it (so it draws the forward's
+    masks) and hands the generator back as it found it. checkpoint's own
+    RNG handling covers only the global CPU and CUDA states."""
+    if generator is None:
+        return contextlib.nullcontext(), contextlib.nullcontext()
+    saved = []
+
+    @contextlib.contextmanager
+    def forward():
+        saved.append(generator.get_state())
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = generator.get_state()
+        generator.set_state(saved[0])
+        try:
+            yield
+        finally:
+            generator.set_state(now)
+
+    return forward(), recompute()
 
 
 def same_padding(n: int, kernel: int, stride: int):
@@ -88,12 +133,12 @@ class FeedForward(nn.Module):
         self.dense1 = nn.Linear(cfg.dim, cfg.dim * cfg.ff_expansion)
         self.dense2 = nn.Linear(cfg.dim * cfg.ff_expansion, cfg.dim)
 
-    def forward(self, x, deterministic: bool):
+    def forward(self, x, deterministic: bool, generator=None):
         cfg, dt = self.cfg, self.cfg.dtype
         y = F.silu(dense(self.dense1, layer_norm(self.norm, x, dt), dt))
-        y = dropout(y, cfg.dropout, deterministic)
+        y = dropout(y, cfg.dropout, deterministic, generator)
         y = dense(self.dense2, y, dt)
-        return dropout(y, cfg.dropout, deterministic)
+        return dropout(y, cfg.dropout, deterministic, generator)
 
 
 class ConvModule(nn.Module):
@@ -107,7 +152,7 @@ class ConvModule(nn.Module):
         self.norm2 = nn.LayerNorm(cfg.dim, eps=LAYER_NORM_EPS)
         self.pointwise2 = nn.Linear(cfg.dim, cfg.dim)
 
-    def forward(self, x, pad_mask, deterministic: bool):
+    def forward(self, x, pad_mask, deterministic: bool, generator=None):
         cfg, dt = self.cfg, self.cfg.dtype
         y = dense(self.pointwise1, layer_norm(self.norm1, x, dt), dt)
         y = F.glu(y, dim=-1)
@@ -123,7 +168,7 @@ class ConvModule(nn.Module):
                      groups=cfg.dim).transpose(1, 2)
         y = F.silu(layer_norm(self.norm2, y, dt))  # stands in for batchnorm
         y = dense(self.pointwise2, y, dt)
-        return dropout(y, cfg.dropout, deterministic)
+        return dropout(y, cfg.dropout, deterministic, generator)
 
 
 class MHSA(nn.Module):
@@ -139,7 +184,7 @@ class MHSA(nn.Module):
         self.value = nn.Linear(cfg.dim, cfg.dim)
         self.out = nn.Linear(cfg.dim, cfg.dim)
 
-    def forward(self, x, pad_mask, deterministic: bool):
+    def forward(self, x, pad_mask, deterministic: bool, generator=None):
         cfg, dt = self.cfg, self.cfg.dtype
         y = layer_norm(self.norm, x, dt)
         b, t, d = y.shape
@@ -158,9 +203,11 @@ class MHSA(nn.Module):
             mask = mask & causal_ok                          # [B, 1, T, T]
         w = (q @ k.transpose(-1, -2)).masked_fill(~mask,
                                                   torch.finfo(dt).min)
-        w = dropout(torch.softmax(w, dim=-1), cfg.dropout, deterministic)
+        w = dropout(torch.softmax(w, dim=-1), cfg.dropout, deterministic,
+                    generator)
         o = (w @ v).transpose(1, 2).reshape(b, t, d)
-        return dropout(dense(self.out, o, dt), cfg.dropout, deterministic)
+        return dropout(dense(self.out, o, dt), cfg.dropout, deterministic,
+                       generator)
 
 
 class ConformerBlock(nn.Module):
@@ -173,11 +220,11 @@ class ConformerBlock(nn.Module):
         self.ff2 = FeedForward(cfg)
         self.norm = nn.LayerNorm(cfg.dim, eps=LAYER_NORM_EPS)
 
-    def forward(self, x, pad_mask, deterministic: bool):
-        x = x + 0.5 * self.ff1(x, deterministic)
-        x = x + self.mhsa(x, pad_mask, deterministic)
-        x = x + self.conv(x, pad_mask, deterministic)
-        x = x + 0.5 * self.ff2(x, deterministic)
+    def forward(self, x, pad_mask, deterministic: bool, generator=None):
+        x = x + 0.5 * self.ff1(x, deterministic, generator)
+        x = x + self.mhsa(x, pad_mask, deterministic, generator)
+        x = x + self.conv(x, pad_mask, deterministic, generator)
+        x = x + 0.5 * self.ff2(x, deterministic, generator)
         return layer_norm(self.norm, x, self.cfg.dtype)
 
 
@@ -295,9 +342,11 @@ class ConformerEncoder(nn.Module):
         finish_init(self, generator, device)
 
     def forward(self, feats, feat_lengths, deterministic: bool = True,
-                pos_offset=0):
+                pos_offset=0, generator: Optional[torch.Generator] = None):
         """pos_offset: absolute output-frame index of feats' first frame
-        (in subsampled time), nonzero only for chunked streaming windows."""
+        (in subsampled time), nonzero only for chunked streaming windows.
+        generator: dropout's (on feats' device), needed when
+        deterministic=False and cfg.dropout > 0."""
         cfg = self.cfg
         dev = feats.device
         # Zero out padded input frames first: the strided subsampling convs
@@ -317,9 +366,11 @@ class ConformerEncoder(nn.Module):
         for block in self.blocks:
             if cfg.remat and torch.is_grad_enabled():
                 # Recompute the block in the backward instead of keeping its
-                # activations; the RNG state is restored for its dropout.
-                x = checkpoint(block, x, pad_mask, deterministic,
-                               use_reentrant=False)
+                # activations; the recompute redraws the forward's dropout
+                # masks from the generator's saved state.
+                x = checkpoint(block, x, pad_mask, deterministic, generator,
+                               use_reentrant=False,
+                               context_fn=lambda: _replay_draws(generator))
             else:
-                x = block(x, pad_mask, deterministic)
+                x = block(x, pad_mask, deterministic, generator)
         return x.float(), out_lengths

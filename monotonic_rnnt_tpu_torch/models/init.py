@@ -39,6 +39,8 @@ def init_like_flax(module: nn.Module,
                    generator: Optional[torch.Generator] = None) -> None:
     """Re-draw every parameter of `module` (its submodules in registration
     order) with flax's default initialiser for the layer it stands for."""
+    from .predictor import LstmCell  # predictor.py imports this module
+
     for m in module.modules():
         if isinstance(m, nn.Linear):
             lecun_normal_(m.weight, m.in_features, generator)
@@ -49,11 +51,10 @@ def init_like_flax(module: nn.Module,
         elif isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, 0.0, m.embedding_dim ** -0.5,
                             generator=generator)
-        elif isinstance(m, nn.LSTMCell):
+        elif isinstance(m, LstmCell):
             lecun_normal_(m.weight_ih, m.input_size, generator)
             for gate in m.weight_hh.split(m.hidden_size):  # i, f, g, o
                 nn.init.orthogonal_(gate, generator=generator)
-            nn.init.zeros_(m.bias_ih)
             nn.init.zeros_(m.bias_hh)
         else:
             continue

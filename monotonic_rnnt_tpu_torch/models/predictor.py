@@ -18,11 +18,12 @@ label:
 For the LSTM the state is flax's carry ``(c, h)``, in float32 whatever the
 compute dtype (flax's carry starts in the parameter dtype, and ``f * c``
 promotes); for the conv predictor it is a ring of the last ``context``
-token ids with a validity mask. The LSTM's parameters sit in an
-``nn.LSTMCell`` (gates i, f, g, o; ``bias_ih`` stays 0 under the flax
-converter, since flax's input kernels have no bias); the gates are formed
-here, as flax's ``OptimizedLSTMCell`` forms them, so that each matmul runs
-in the compute dtype.
+token ids with a validity mask. The LSTM's parameters are flax's
+``OptimizedLSTMCell``'s and no more (``LstmCell``): input kernels without a
+bias and hidden kernels with one, gates i, f, g, o stacked as
+``nn.LSTMCell`` stacks them. ``nn.LSTMCell`` carries a second bias, which
+would take its own optimiser step; the gates are formed here, as flax
+forms them, so that each matmul runs in the compute dtype.
 """
 
 from __future__ import annotations
@@ -58,20 +59,34 @@ def _embed(table: nn.Embedding, tokens, dtype):
     return F.embedding(tokens.long(), table.weight.to(dtype))
 
 
+class LstmCell(nn.Module):
+    """flax's OptimizedLSTMCell parameters: weight_ih [4*hidden, input] (no
+    bias), weight_hh [4*hidden, hidden] and bias_hh [4*hidden], gates i, f,
+    g, o along the first axis."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.input_size, self.hidden_size = input_size, hidden_size
+        self.weight_ih = nn.Parameter(torch.empty(4 * hidden_size, input_size))
+        self.weight_hh = nn.Parameter(torch.empty(4 * hidden_size,
+                                                  hidden_size))
+        self.bias_hh = nn.Parameter(torch.empty(4 * hidden_size))
+
+
 class LstmPredictor(nn.Module):
     def __init__(self, cfg: PredictorConfig, *,
                  generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
-        self.cell = nn.LSTMCell(cfg.embed_dim, cfg.dim)
+        self.cell = LstmCell(cfg.embed_dim, cfg.dim)
         self.out = nn.Linear(cfg.dim, cfg.dim)
         finish_init(self, generator, device)
 
     def _input_gates(self, tokens):
         dt = self.cfg.dtype
         return F.linear(_embed(self.embed, tokens, dt),
-                        self.cell.weight_ih.to(dt), self.cell.bias_ih.to(dt))
+                        self.cell.weight_ih.to(dt))
 
     def _advance(self, state, input_gates):
         """One LSTM step from the input's gate pre-activations."""

@@ -118,26 +118,34 @@ class MonotonicTransducer(nn.Module):
         return [x.to(dev) for x in xs]
 
     def forward(self, feats, feat_lengths, labels, label_lengths,
-                deterministic: bool = True):
-        """Returns per-sample monotonic RNN-T costs [B]."""
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """Returns per-sample monotonic RNN-T costs [B]. generator: the
+        dropout masks' (on the parameters' device), needed when
+        deterministic=False and the encoder's dropout is not 0 (flax's
+        rngs={"dropout": key})."""
         feats, feat_lengths, labels, label_lengths = self._inputs(
             feats, feat_lengths, labels, label_lengths)
         logits, enc_lengths = self.logits(feats, feat_lengths, labels,
-                                          deterministic)
+                                          deterministic, generator)
         # No silent clamping: if subsampling leaves fewer frames than labels
         # (T'_b < S_b) the loss raises (the module docstring).
         return monotonic_rnnt_loss(logits, labels, enc_lengths,
                                    label_lengths, blank_id=self.cfg.blank_id)
 
-    def logits(self, feats, feat_lengths, labels, deterministic: bool = True):
+    def logits(self, feats, feat_lengths, labels, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None):
         feats, feat_lengths, labels = self._inputs(feats, feat_lengths, labels)
-        enc, enc_lengths = self.encoder(feats, feat_lengths, deterministic)
+        enc, enc_lengths = self.encoder(feats, feat_lengths, deterministic,
+                                        generator=generator)
         pred = self.predictor(labels, deterministic)
         return self.joint(enc, pred), enc_lengths
 
-    def encode(self, feats, feat_lengths, deterministic: bool = True):
+    def encode(self, feats, feat_lengths, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None):
         feats, feat_lengths = self._inputs(feats, feat_lengths)
-        return self.encoder(feats, feat_lengths, deterministic)
+        return self.encoder(feats, feat_lengths, deterministic,
+                            generator=generator)
 
     @staticmethod
     def _select_state(emit, new_state, old_state):

@@ -208,8 +208,6 @@ def test_transducer_costs_and_grads_match_jax(kind):
     np.testing.assert_allclose(got_c.numpy(), want_c, rtol=1e-5)
     _, tcfg = _configs(kind)
     want = convert.transducer_params_from_flax(want_g, tcfg, device="cpu")
-    if kind == "lstm":  # bias_ih and bias_hh add alike: the same gradient
-        want["predictor.cell.bias_ih"] = want["predictor.cell.bias_hh"]
     assert set(got_g) == set(want)
     for name, g in got_g.items():
         w = want[name].double()
@@ -303,11 +301,11 @@ def test_joint_is_the_fused_joint_losses_joint_fn(route):
 
 # --- the port's counterparts of tests/test_models.py --------------------------------
 
-def _tiny_cfg(vocab=32, **enc):
+def _tiny_cfg(vocab=32, dropout=0.0, **enc):
     """tests/test_models.py's _tiny_cfg (bf16 compute), in the port."""
     return tt.TransducerConfig(
         encoder=tc.ConformerConfig(num_layers=1, dim=64, num_heads=2,
-                                   dropout=0.0, **enc),
+                                   dropout=dropout, **enc),
         predictor=tp.PredictorConfig(vocab_size=vocab, dim=64, embed_dim=32),
         joint_dim=64, vocab_size=vocab)
 
@@ -362,22 +360,66 @@ def test_causal_encoder_is_future_independent():
                       - full(b, flen)[0][:, :safe]).abs().max()) > 1e-4
 
 
-def test_remat_encoder_same_loss_and_grads():
-    """cfg.encoder.remat=True changes memory, not math: identical grads."""
+def _dropout_step(remat=False, rate=0.1, seed=1, deterministic=False,
+                  model=None):
+    """Costs and every gradient of the tiny model with encoder dropout
+    `rate`, its masks drawn from a generator seeded with `seed`."""
     batch = _t(*tiny_batch(batch=2, t=32, feat_dim=16, s=4, vocab=32))
+    if model is None:
+        model = _tiny_model(_tiny_cfg(remat=remat, dropout=rate))
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator().manual_seed(seed)
+    costs = model(*batch, deterministic=deterministic, generator=gen)
+    costs.mean().backward()
+    return costs.detach(), [p.grad for p in model.parameters()]
 
-    def loss_and_grads(remat):
-        model = _tiny_model(_tiny_cfg(remat=remat))
-        loss = model(*batch).mean()
-        loss.backward()
-        return float(loss.detach()), [p.grad for p in model.parameters()]
 
-    v0, g0 = loss_and_grads(False)
-    v1, g1 = loss_and_grads(True)
-    np.testing.assert_allclose(v0, v1, rtol=1e-6)
-    for a, b in zip(g0, g1, strict=True):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
-                                   atol=1e-6)
+def test_remat_encoder_same_loss_and_grads():
+    """cfg.encoder.remat=True changes memory, not math: identical grads,
+    also with dropout 0.1, whose recompute redraws the forward's masks from
+    the generator (torch.utils.checkpoint restores only the global RNG)."""
+    for rate in (0.0, 0.1):
+        c0, g0 = _dropout_step(remat=False, rate=rate)
+        c1, g1 = _dropout_step(remat=True, rate=rate)
+        np.testing.assert_allclose(c0.numpy(), c1.numpy(), rtol=1e-6)
+        for a, b in zip(g0, g1, strict=True):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+
+def test_dropout_masks_come_from_the_callers_generator():
+    """The same seed gives the same costs and gradients, another seed other
+    ones; deterministic=True draws nothing (the no-dropout numbers); the
+    global RNG is left as it was; and deterministic=False without a
+    generator raises, where it would otherwise draw from the global RNG."""
+    model = _tiny_model(_tiny_cfg(dropout=0.1))   # nn.Linear's init draws
+    before = torch.random.get_rng_state()
+    c1, g1 = _dropout_step(model=model)
+    c1b, g1b = _dropout_step(model=model)
+    c2, g2 = _dropout_step(seed=2, model=model)
+    assert torch.equal(torch.random.get_rng_state(), before)
+    assert torch.equal(c1, c1b)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g1b, strict=True))
+    assert not torch.equal(c1, c2)
+    assert any(not torch.equal(a, b) for a, b in zip(g1, g2, strict=True))
+    c_det, _ = _dropout_step(deterministic=True)
+    c_off, _ = _dropout_step(rate=0.0)
+    assert torch.equal(c_det, c_off) and not torch.equal(c_det, c1)
+    batch = _t(*tiny_batch(batch=2, t=32, feat_dim=16, s=4, vocab=32))
+    with pytest.raises(ValueError, match="Generator"):
+        _tiny_model(_tiny_cfg(dropout=0.1))(*batch, deterministic=False)
+
+
+def test_dropout_keeps_flax_scaling():
+    """A kept entry is x / (1 - rate), a dropped one 0, about rate of them
+    dropped; rate 0 or deterministic returns x itself."""
+    x = torch.full((200, 100), 3.0)
+    y = tc.dropout(x, 0.25, False, torch.Generator().manual_seed(0))
+    kept = y != 0
+    assert torch.equal(y[kept], torch.full_like(y[kept], 4.0))
+    assert abs(float((~kept).float().mean()) - 0.25) < 0.01
+    assert tc.dropout(x, 0.0, False, None) is x
+    assert tc.dropout(x, 0.5, True, None) is x
 
 
 # --- parameters, the converter and the public names -------------------------------
@@ -404,9 +446,6 @@ def test_generator_init_is_reproducible_with_flax_statistics():
                                                      device="cpu")
     for name, x in a.state_dict().items():
         ref = flax_state[name]
-        if name.endswith("bias_ih"):       # not a flax parameter: zero
-            assert not bool(x.any()), name
-            continue
         if bool((ref == ref.flatten()[0]).all()):      # zeros or ones
             assert torch.equal(x, ref), name
             continue
@@ -452,6 +491,37 @@ def test_generator_model_starts_at_the_tpu_runs_loss_scale():
         with torch.no_grad():
             loss = float(model(*batch).mean())
         assert 0.8 < loss / first < 1.25, f"seed {seed}: loss {loss:.2f}"
+
+
+@pytest.mark.parametrize("kind", ["lstm", "conv"])
+def test_port_parameters_are_the_flax_leaves_one_to_one(kind):
+    """Module by module (the converter's table), the port's parameters hold
+    exactly the flax leaves' elements: the same count per module, and every
+    leaf and every parameter in one module pair. Each flax leaf is one
+    parameter, but the LSTM stacks flax's 8 gate kernels and 4 gate biases
+    into weight_ih, weight_hh and bias_hh (gates i, f, g, o): one bias, not
+    nn.LSTMCell's two. So an optimiser holds the same moments."""
+    _, params, tm = _pair(kind)
+    _, tcfg = _configs(kind)
+    leaves = {"/".join(str(k.key) for k in path): int(np.size(x))
+              for path, x in jax.tree_util.tree_leaves_with_path(
+                  params["params"])}
+    named = {n: p.numel() for n, p in tm.named_parameters()}
+    seen_leaves, seen_params = set(), set()
+    for flax_mod, torch_mod, _ in convert._transducer_modules(tcfg):
+        mine = [k for k in leaves if k.startswith(flax_mod + "/")]
+        ours = [n for n in named if n.rsplit(".", 1)[0] == torch_mod]
+        assert sum(leaves[k] for k in mine) == sum(named[n] for n in ours), (
+            flax_mod, torch_mod)
+        if torch_mod == "predictor.cell":
+            assert sorted(n.rsplit(".", 1)[1] for n in ours) == [
+                "bias_hh", "weight_hh", "weight_ih"] and len(mine) == 12
+        else:
+            assert len(ours) == len(mine), (flax_mod, ours, mine)
+        seen_leaves.update(mine)
+        seen_params.update(ours)
+    assert seen_leaves == set(leaves) and seen_params == set(named)
+    assert sum(named.values()) == sum(leaves.values())
 
 
 def test_converter_rejects_params_the_config_does_not_name():

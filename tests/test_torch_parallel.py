@@ -11,6 +11,17 @@ together, against it: losses rtol 1e-5, gradients rtol 1e-4 / atol 1e-5
 (test_parallel.py's tolerances). On the CPU the port's kernel wrappers take
 their plain versions. The launch has its own 300 s timeout, so that a hung
 group fails the tests instead of the suite.
+
+The train steps (TRAIN_CASES: make_sharded_train_step and
+make_grad_accum_train_step(2, mesh) on (4,1), make_tp_sharded_train_step
+on (2,2) and (1,4), full and banded) start from
+the initial weights of JAX's create_train_state on the tiny config of
+tests/test_models.py (every dtype float32), which the fixture writes before
+the launch; each takes two steps (the first at lr 0) on tiny_batch(8), and
+each test holds the losses, grad_norms and parameters, put back together,
+against JAX's train_step (banded: the oracle step of
+test_tp_banded_train_step_matches_oracle) at tests/test_torch_train.py's
+tolerances (tests/torch_train_check.py).
 """
 
 import os
@@ -22,6 +33,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_train_check import close_params  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 WORLD = 4
@@ -100,6 +114,39 @@ def _fused_setup(seed=11, batch=4, t=10, s=3, v=16, de=6, dp_=5, j=8):
         "bv": rng.randn(v).astype(np.float32) * 0.1,
     }
     return enc, pred, labels, ilen, slen, params
+
+
+# (mesh, band shift or None): the train-step cases.
+TRAIN_CASES = {"train_dp_4x1": ((4, 1), None),
+               "train_accum_dp_4x1": ((4, 1), None),
+               "train_tp_2x2": ((2, 2), None),
+               "train_tp_1x4": ((1, 4), None),
+               "train_tp_banded_2x2": ((2, 2), 2),
+               "train_tp_banded_1x4": ((1, 4), 2)}
+TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS = 3e-3, 1, 2
+VOCAB_SPECS = {"joint.vocab_proj.weight": ("model", None),
+               "joint.vocab_proj.bias": ("model",)}
+
+
+def _train_batch():
+    """tiny_batch(batch=8, t=32, feat_dim=16, s=4, vocab=32), as numpy
+    draws it (monotonic_rnnt_tpu/data/synthetic.py)."""
+    rng = np.random.RandomState(0)
+    feats = rng.randn(8, 32, 16).astype(np.float32)
+    labels = rng.randint(1, 32, size=(8, 4)).astype(np.int32)
+    return (feats, np.full((8,), 32, np.int32), labels,
+            np.full((8,), 4, np.int32))
+
+
+def _train_alignment(labels, enc_lengths, slen, t_out, seed=5):
+    """test_tp_banded_train_step_matches_oracle's synthetic alignment."""
+    rng = np.random.RandomState(seed)
+    align = np.zeros((len(slen), t_out), np.int32)
+    for b in range(len(slen)):
+        pos = np.sort(rng.choice(int(enc_lengths[b]), size=int(slen[b]),
+                                 replace=False))
+        align[b, pos] = labels[b, :int(slen[b])]
+    return align
 
 
 def _fused_alignment(labels, ilen, slen, t, seed):
@@ -248,15 +295,110 @@ def _worker(rank: int, world: int, out_dir: Path) -> None:
                with_bands=True)
     fused_case("fused_banded", 21, 5, par.make_dp_tp_fused_banded_loss)
 
+    from monotonic_rnnt_tpu_torch import models as tm
+    from monotonic_rnnt_tpu_torch.models import train as ttrain
+
+    f32 = torch.float32
+    tcfg = tm.TransducerConfig(
+        encoder=tm.ConformerConfig(num_layers=1, dim=64, num_heads=2,
+                                   dropout=0.0, dtype=f32),
+        predictor=tm.PredictorConfig(vocab_size=32, dim=64, embed_dim=32,
+                                     dtype=f32),
+        joint_dim=64, vocab_size=32, dtype=f32)
+    batch = tuple(torch.from_numpy(a) for a in _train_batch())
+    init = torch.load(out_dir / "train_init.pt", weights_only=True)
+    for case, (shape, shift) in TRAIN_CASES.items():
+        mesh = meshes[shape]
+        state = ttrain.create_train_state(
+            tcfg, 0, batch, learning_rate=TRAIN_LR,
+            warmup_steps=TRAIN_WARMUP, device="cpu")
+        state.model.load_state_dict(init)
+        extra = ()
+        if case == "train_dp_4x1":
+            step = ttrain.make_sharded_train_step(mesh)
+        elif case == "train_accum_dp_4x1":    # 2 rows a rank, 1 a micro
+            step = ttrain.make_grad_accum_train_step(2, mesh)
+        else:
+            width = None
+            if shift is not None:
+                enc_len = tm.conformer.subsampled_length(tcfg.encoder,
+                                                         batch[1])
+                t_out = int(enc_len.max())
+                bands = mt.bands_from_alignment(torch.from_numpy(
+                    _train_alignment(_train_batch()[2], enc_len.numpy(),
+                                     batch[3].numpy(), t_out)),
+                    enc_len, batch[3], shift, 0)
+                width = int(mt.required_band_width(enc_len, batch[3], bands,
+                                                   t_out, 5))
+                extra = (bands,)
+                out[f"{case}.width"] = width
+            specs = ttrain.transducer_tp_specs(state.model)
+            out[f"{case}.n_sharded"] = sum("model" in sp
+                                           for sp in specs.values())
+            state = ttrain.shard_train_state(state, mesh)
+            step = ttrain.make_tp_sharded_train_step(
+                mesh, state.model, chunk_t=8, band_width=width)
+        for k in range(TRAIN_STEPS):
+            state, metrics = step(state, batch, *extra)
+            out[f"{case}.loss{k}"] = float(metrics["loss"])
+            out[f"{case}.grad_norm{k}"] = float(metrics["grad_norm"])
+            if k == 0:   # the first step's gradients, as they were clipped
+                scale = max(1.0, float(metrics["grad_norm"])
+                            / ttrain.CLIP_NORM)
+                for n, p in state.model.named_parameters():
+                    out[f"{case}.grad.{n}"] = (p.grad * scale).numpy()
+        for n, p in state.model.named_parameters():
+            out[f"{case}.param.{n}"] = p.detach().numpy()
+        if "_tp_" in case:    # the moments of the sharded leaves
+            out[f"{case}.sharded_moments"] = sum(
+                state.optimizer.state[p][key].shape == p.shape
+                for n, p in state.model.named_parameters()
+                if n in VOCAB_SPECS for key in ("exp_avg", "exp_avg_sq"))
+
     np.savez(out_dir / f"rank{rank}.npz", **out)
     dist.destroy_process_group()
 
 
 # --- the launch --------------------------------------------------------------------
 
+def _jax_train_state():
+    import jax
+    import jax.numpy as jnp
+
+    from monotonic_rnnt_tpu.models import train as jtrain
+
+    return jtrain.create_train_state(
+        _configs()[0], jax.random.PRNGKey(0),
+        tuple(jnp.asarray(a) for a in _train_batch()),
+        learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+
+
+def _configs():
+    """The tiny config of tests/test_models.py, every dtype float32: (JAX,
+    port)."""
+    import jax.numpy as jnp
+
+    from monotonic_rnnt_tpu import models as jm
+    from monotonic_rnnt_tpu_torch import models as tm
+
+    def make(mod, dt):
+        return mod.TransducerConfig(
+            encoder=mod.ConformerConfig(num_layers=1, dim=64, num_heads=2,
+                                        dropout=0.0, dtype=dt),
+            predictor=mod.PredictorConfig(vocab_size=32, dim=64,
+                                          embed_dim=32, dtype=dt),
+            joint_dim=64, vocab_size=32, dtype=dt)
+    return make(jm, jnp.float32), make(tm, torch.float32)
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
+    from monotonic_rnnt_tpu_torch import convert
+
     out = tmp_path_factory.mktemp("torch_parallel")
+    torch.save(convert.transducer_params_from_flax(
+        _jax_train_state().params, _configs()[1], device="cpu"),
+        out / "train_init.pt")
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
@@ -494,6 +636,119 @@ def test_fused_sharded_loss_matches_jax_mesh(ranks, case, seed, chunk_t):
     for name, spec in FUSED_GRADS.items():
         _close_grads(_assemble(ranks, f"{case}.{name}", spec, (2, 2)),
                      want[name])
+
+
+def _jax_train_reference(banded):
+    """JAX's two steps from the fixture's initial state: ([(loss,
+    grad_norm)], the params after them, the first step's gradients), by
+    train_step, or for banded by the oracle step of
+    test_tp_banded_train_step_matches_oracle (the mean banded loss on the
+    monolithic logits, then the state's optimiser)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from monotonic_rnnt_tpu import monotonic_rnnt_loss
+    from monotonic_rnnt_tpu.models import train as jtrain
+    from monotonic_rnnt_tpu.models.transducer import MonotonicTransducer
+    from monotonic_rnnt_tpu.ops.bands import bands_from_alignment
+
+    state = _jax_train_state()
+    feats, flen, labels, slen = (jnp.asarray(a) for a in _train_batch())
+    if not banded:
+        def loss_fn(p):
+            return jnp.mean(state.apply_fn({"params": p}, feats, flen, labels,
+                                           slen))
+    else:
+        model = MonotonicTransducer(_configs()[0])
+        enc, enc_len = model.apply({"params": state.params}, feats, flen,
+                                   True, method=lambda m, f, fl, d:
+                                   m.encode(f, fl, d))
+        align = _train_alignment(np.asarray(labels), np.asarray(enc_len),
+                                 np.asarray(slen), enc.shape[1])
+        bands = bands_from_alignment(jnp.asarray(align), enc_len, slen, 2, 0)
+
+        def loss_fn(p):
+            logits, el = model.apply({"params": p}, feats, flen, labels, True,
+                                     method=lambda m, f, fl, la, d:
+                                     m.logits(f, fl, la, d))
+            return jnp.mean(monotonic_rnnt_loss(
+                logits, labels, el, slen, bands=bands, backend="reference"))
+
+    first = jax.jit(jax.grad(loss_fn))(state.params)
+    metrics = []
+    if not banded:
+        step = jax.jit(jtrain.train_step)
+        run = state
+        for _ in range(TRAIN_STEPS):
+            run, m = step(run, (feats, flen, labels, slen))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        return metrics, run.params, first, state.params
+
+    @jax.jit
+    def oracle_step(params, opt_state):
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        updates, opt_state = state.tx.update(grads, opt_state, params)
+        return (optax.apply_updates(params, updates), opt_state, loss,
+                optax.global_norm(grads))
+
+    params, opt_state = state.params, state.opt_state
+    for _ in range(TRAIN_STEPS):
+        params, opt_state, loss, norm = oracle_step(params, opt_state)
+        metrics.append((float(loss), float(norm)))
+    return metrics, params, first, state.params
+
+
+@pytest.fixture(scope="module")
+def jax_train():
+    return {banded: _jax_train_reference(banded) for banded in (False, True)}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_sharded_train_step_matches_jax(ranks, jax_train, case):
+    """make_sharded_train_step, make_grad_accum_train_step with a mesh
+    and make_tp_sharded_train_step (full and banded) over two steps: every
+    rank's loss and grad_norm, and the
+    parameters put back together from the ranks (the replicated ones equal
+    on every rank), against JAX's steps on one device."""
+    from monotonic_rnnt_tpu_torch import convert
+
+    shape, shift = TRAIN_CASES[case]
+    metrics, params, grads0, start = jax_train[shift is not None]
+    for k, (loss, norm) in enumerate(metrics):
+        for r in ranks:
+            np.testing.assert_allclose(float(r[f"{case}.loss{k}"]), loss,
+                                       rtol=1e-5)
+            np.testing.assert_allclose(float(r[f"{case}.grad_norm{k}"]),
+                                       norm, rtol=1e-4)
+    tcfg = _configs()[1]
+    to_port = lambda tree: convert.transducer_params_from_flax(  # noqa
+        tree, tcfg, device="cpu")
+    want, want_g = to_port(params), to_port(grads0)
+    got, got_g = {}, {}
+    for name in want:
+        spec = VOCAB_SPECS.get(name, ()) if "_tp_" in case else ()
+        got[name] = torch.from_numpy(_assemble(
+            ranks, f"{case}.param.{name}", spec, shape))
+        got_g[name] = torch.from_numpy(_assemble(
+            ranks, f"{case}.grad.{name}", spec, shape))
+    close_params(got, want, to_port(start), got_g, want_g,
+                 [TRAIN_LR * min(1.0, k / TRAIN_WARMUP)
+                  for k in range(TRAIN_STEPS)])
+
+
+def test_tp_specs_shard_two_parameters_and_their_four_moments(ranks):
+    """transducer_tp_specs marks exactly the vocab projection's weight and
+    bias; after shard_train_state and the steps, their 4 AdamW moments
+    hold the shard's shape on every rank."""
+    for case, (shape, _) in TRAIN_CASES.items():
+        if "_tp_" not in case:
+            continue
+        for r in ranks:
+            assert int(r[f"{case}.n_sharded"]) == 2
+            assert int(r[f"{case}.sharded_moments"]) == 4, case
+            assert r[f"{case}.param.joint.vocab_proj.weight"].shape == (
+                32 // shape[1], 64)
 
 
 def test_local_batch_slice_contract(monkeypatch):
