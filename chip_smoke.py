@@ -167,6 +167,28 @@ chunk, the beta scan and grad_pass on those chunks and the alpha scan)
 and holds them against their plain versions on the same operands. The
 traced phase also traces one train_step a dtype.
 
+The decode phase (``run_decode``) drives the serving decoders at the model
+cell (decode_bench.py's defaults: K=4, max_labels 50; f32 and bf16):
+``beam_search_decode`` plain, with ``merge_paths``, and fused at weight 0.3
+with a BigramLm (a seeded log-softmax [V, V] table) and with an LstmLm of
+LstmLmConfig's widths; K=1 against ``greedy_decode``; in f32 each beam form
+against the CPU port on the same weights; each sample's merged top score
+against the marginal of its sequence (the model's logits through
+``monotonic_rnnt_loss``, cost-only: one stats_alpha_fused, held against its
+plain version, path decode_marginal); then the same widths made causal
+(attn_left_context 16) stream the batch in 32-frame chunks with
+``streaming_lookback`` of history (``streaming_step``, and
+``streaming_beam_step`` with the LstmLm), against that model's
+full-utterance greedy and beam decodes. No decoder may launch a kernel
+(paths decode, decode_lm, stream, stream_beam: 0). A decode that differs
+from its reference must part first at a frame whose reference margin (the
+top-2 logits; for beam, the smallest gap between adjacent candidates among
+the K+1 best) is below 1e-4, found by replaying both loops frame by frame;
+equal hypotheses' scores agree within 1e-6 + 1e-5|ref|. Then CUDA-event
+medians of 10 calls: each beam form's ms and x realtime (16 x 400 frames of
+10 ms), streaming greedy and streaming beam ms per chunk and x realtime.
+The traced phase traces one beam decode and one streaming chunk a dtype.
+
 The packed-layout, binding and alignment paths run last, so that every
 figure above is taken in the same state as without them. The alignment phase
 (``run_alignment``) runs ``viterbi_alignment`` on the banded case's full
@@ -290,12 +312,20 @@ Tolerances, each with its reason:
     bound is max(1e-4, 32 ulps of |ll|): 0.031 at T=1600, where |ll| ~ 1.1e4
     and the card showed 0.0097 (~10 ulps); banded vs full occupancy relative L2
     <= 2e-3, the long-T bound between two f32 routes; the realigned
-    binding loss vs the banded loss as costs above.
+    binding loss vs the banded loss as costs above;
+  * the decoders: hypotheses equal token for token, or first apart at a
+    frame whose reference margin is below 1e-4 (phase_model_decode's rule:
+    two sides' matmuls round apart, ~1e-6 in a logit); the scores of equal
+    hypotheses |d| <= 1e-6 + 1e-5|ref| (100 frames of ~-7 log-probs each
+    carry that rounding); a merged score at most the marginal + 1e-4 (the
+    loss tests' cost bound: a sum over a subset of the paths can only be
+    lower).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -2435,77 +2465,126 @@ def compare_model_grads(got, ref, what, rel):
     return errs
 
 
-def greedy_frames(model, feats, flen, max_labels):
-    """model.greedy_decode's loop replayed frame by frame, the same calls in
-    the same order, keeping each frame's argmax and the margin between its
-    two largest logits: (hyp, n_hyp, tokens [B, T'], margins [B, T'])."""
+# A decode that parts from its reference must part at a frame whose
+# reference margin (greedy: top-2 logits; beam: the smallest gap between
+# adjacent candidates among the K+1 best) is below this: there two sides'
+# matmuls, which round apart by ~1e-6 in a logit, may choose apart.
+DECODE_MARGIN = 1e-4
+# Scores of equal hypotheses: two sides' joints round apart, and the
+# per-frame log-probs (~-7 each) sum over 100 frames.
+DECODE_SCORE_RTOL = 1e-5
+
+
+def full_frames(model, feats, flen):
+    """The encodings a full-utterance decode reads, and each frame's
+    active flags [B, T']."""
     with torch.no_grad():
         enc, enc_len = model.encode(feats, flen)
-        batch, t_out, _ = enc.shape
-        dev = enc.device
-        pred = model.predictor
-        state, ctx = pred.step(pred.init_state(batch),
-                               torch.zeros(batch, dtype=torch.int32,
-                                           device=dev))
-        hyp = torch.zeros((batch, max_labels), dtype=torch.int32, device=dev)
-        n_hyp = torch.zeros(batch, dtype=torch.int32, device=dev)
-        slots = torch.arange(max_labels, device=dev)[None, :]
-        tokens, margins = [], []
-        for t in range(t_out):
-            logit = model.joint(enc[:, t:t + 1], ctx[:, None, :])[:, 0, 0]
-            tok = torch.argmax(logit, dim=-1).to(torch.int32)
-            top2 = logit.topk(2, dim=-1).values
-            tokens.append(tok)
+    t_idx = torch.arange(enc.shape[1], device=enc.device)
+    return enc, t_idx[None, :] < enc_len[:, None]
+
+
+def greedy_replay(model, frames):
+    """greedy_decode's loop replayed on `frames` (model._greedy_frame_step,
+    the same calls in the same order): ((hyp, n_hyp), the hypothesis and
+    its length after each frame [B, cap+1], each frame's top-2 logit margin
+    [B, T'])."""
+    enc, active = frames
+    b, dev = enc.shape[0], enc.device
+    with torch.no_grad():
+        carry = (torch.zeros((b, MODEL_MAX_LABELS), dtype=torch.int32,
+                             device=dev),
+                 torch.zeros(b, dtype=torch.int32, device=dev),
+                 *model._bos_context(b))
+        slots = torch.arange(MODEL_MAX_LABELS, device=dev)[None, :]
+        steps, margins = [], []
+        for t in range(enc.shape[1]):
+            logit = model.joint(enc[:, t:t + 1], carry[3][:, None, :])
+            top2 = logit[:, 0, 0].topk(2, dim=-1).values
             margins.append(top2[:, 0] - top2[:, 1])
-            emit = ((tok != model.cfg.blank_id) & (t < enc_len)
-                    & (n_hyp < max_labels))
-            hyp = torch.where(emit[:, None] & (slots == n_hyp[:, None]),
-                              tok[:, None], hyp)
-            n_hyp = n_hyp + emit.to(torch.int32)
-            new_state, new_ctx = pred.step(state, tok)
-            state = model._select_state(emit, new_state, state)
-            ctx = torch.where(emit[:, None], new_ctx, ctx)
-    return hyp, n_hyp, torch.stack(tokens, 1), torch.stack(margins, 1)
+            carry, _, _ = model._greedy_frame_step(carry, enc[:, t:t + 1],
+                                                   active[:, t], slots)
+            steps.append(torch.cat([carry[0], carry[1][:, None]], 1))
+    return carry[:2], steps, torch.stack(margins, 1)
+
+
+def hold_decode(got, ref, replays, what, failures):
+    """A decode `got` ((hyp, n) or (tokens, n, scores)) against its
+    reference `ref`: samples with equal hypotheses pass, their scores within
+    DECODE_SCORE_RTOL; a sample that differs must part first at a frame
+    where ref's replay margin is below DECODE_MARGIN. replays() ->
+    ((result, steps, _) of got's side, (result, steps, margins) of ref's),
+    run only where a sample differs, and their results must equal the
+    decodes'. Failures go to `failures`; returns a note."""
+    got = [x.cpu() for x in got]
+    ref = [x.cpu() for x in ref]
+    differ = (got[0] != ref[0]).flatten(1).any(1) | (got[1] != ref[1]).view(
+        len(got[1]), -1).any(1)
+    same = ~differ
+    note = f"{int(same.sum())} of {len(same)} samples equal"
+    if len(got) == 3 and bool(same.any()):
+        err = float(torch.where(got[2][same] == ref[2][same], 0.0,
+                                (got[2][same] - ref[2][same]).abs()).max())
+        share = worst_share(got[2][same], ref[2][same], 1e-6,
+                            DECODE_SCORE_RTOL)
+        note += f", their scores max|d| {err:.3g} ({share:.3f} of rtol)"
+        if not share <= 1.0:
+            failures.append(f"{what}: scores max|d| {err:.3g} beyond 1e-6 "
+                            f"+ {DECODE_SCORE_RTOL}|ref|")
+    if not bool(differ.any()):
+        return note
+    (g_res, g_steps, _), (r_res, r_steps, margins) = replays()
+    for side, res, dec in (("got", g_res, got), ("ref", r_res, ref)):
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(res, dec)):
+            failures.append(f"{what}: the {side} side's replay does not "
+                            "give its decode")
+    margins = margins.cpu()
+    parts = []
+    for b in torch.nonzero(differ)[:, 0].tolist():
+        frames = [t for t in range(min(len(g_steps), len(r_steps)))
+                  if not torch.equal(g_steps[t][b].cpu(), r_steps[t][b].cpu())]
+        if frames:
+            f0, margin = frames[0], float(margins[b, frames[0]])
+        elif len(ref) == 3:   # apart only in the final best-first order
+            s = ref[2][b][torch.isfinite(ref[2][b])]
+            f0, margin = "final", float((s[:-1] - s[1:]).abs().min())
+        else:                 # no frame parts: the replays missed it
+            f0, margin = "none", math.inf
+        parts.append(f"sample {b} parts at frame {f0}, margin {margin:.3g}")
+        if not margin < DECODE_MARGIN:
+            failures.append(f"{what}: sample {b} parts from the reference at "
+                            f"frame {f0}, where its margin is {margin:.3g} >= "
+                            f"{DECODE_MARGIN}")
+    return note + " (" + "; ".join(parts) + ")"
 
 
 def phase_model_decode(mt, model, cpu_model, batch, cpu_batch):
     """Greedy decode on the card (no kernel launch) against the CPU: the
     same hypotheses token for token, or, where a sample's differ, the first
-    frame whose argmax differs has a CPU top-2 margin below 1e-4."""
+    frame where the two parts has a CPU top-2 margin below 1e-4."""
     K = mt.K
     feats, flen = batch[:2]
     K.reset_launch_counts()
     hyp, n_hyp = model.greedy_decode(feats, flen, MODEL_MAX_LABELS)
     torch.cuda.synchronize()
     check(launched(K) == {}, f"greedy decode launches {launched(K)}")
-    c_hyp, c_n, c_tok, c_margin = greedy_frames(cpu_model, *cpu_batch[:2],
-                                                MODEL_MAX_LABELS)
+    c_frames = full_frames(cpu_model, *cpu_batch[:2])
+    c_replay = greedy_replay(cpu_model, c_frames)
     ref_hyp, ref_n = cpu_model.greedy_decode(*cpu_batch[:2],
                                              MODEL_MAX_LABELS)
-    check(torch.equal(c_hyp, ref_hyp) and torch.equal(c_n, ref_n),
+    check(all(torch.equal(a, b) for a, b in zip(c_replay[0],
+                                                (ref_hyp, ref_n))),
           "the frame-by-frame replay gives greedy_decode's hypotheses")
-    differ = (hyp.cpu() != c_hyp).any(1) | (n_hyp.cpu() != c_n)
-    notes = []
-    if bool(differ.any()):
-        _, _, g_tok, _ = greedy_frames(model, feats, flen, MODEL_MAX_LABELS)
-        for b in torch.nonzero(differ)[:, 0].tolist():
-            frames = torch.nonzero(g_tok[b].cpu() != c_tok[b])[:, 0]
-            check(len(frames) > 0, f"decode sample {b}: hypotheses differ "
-                  "with every frame's argmax equal")
-            f0 = int(frames[0])
-            margin = float(c_margin[b, f0])
-            notes.append(f"sample {b} frame {f0} CPU top-2 margin {margin:.3g}")
-            check(margin < 1e-4, f"greedy decode sample {b} differs from the "
-                  f"CPU's at frame {f0}, where the CPU's top-2 margin is "
-                  f"{margin:.3g} >= 1e-4")
-    enc_len = mt.models.conformer.subsampled_length(model.cfg.encoder,
-                                                    cpu_batch[1])
-    valid = torch.arange(c_margin.shape[1])[None, :] < enc_len[:, None]
+    failures = []
+    note = hold_decode(
+        (hyp, n_hyp), (ref_hyp, ref_n),
+        lambda: (greedy_replay(model, full_frames(model, feats, flen)),
+                 c_replay), "greedy decode card vs CPU", failures)
+    check(not failures, "; ".join(failures))
     log(f"model greedy decode (max_labels {MODEL_MAX_LABELS}): launches "
-        f"none; card vs CPU hypotheses equal in {int((~differ).sum())} of "
-        f"{len(differ)} samples" + (f" ({'; '.join(notes)})" if notes else "")
-        + f"; lengths {n_hyp.tolist()}; smallest CPU top-2 margin on a valid "
-        f"frame {float(c_margin[valid].min()):.3g}")
+        f"none; card vs CPU hypotheses: {note}; lengths {n_hyp.tolist()}; "
+        f"smallest CPU top-2 margin on a valid frame "
+        f"{float(c_replay[2][c_frames[1]].min()):.3g}")
     return hyp, n_hyp
 
 
@@ -3064,6 +3143,368 @@ def run_train(mt, gpu, model_figures):
     return ({"train": {"stats_alpha_fused": 1, "beta_grad_fused": 1},
              "train_fused_joint": fused_launches},
             {"train": errs, "train_fused_joint": fused_errs}, figures)
+
+
+# --- the serving decoders (Models C) --------------------------------------------
+
+# benchmarks/decode_bench.py's defaults on the model cell: beam 4; its
+# streaming model the same width with causal=True and a 16-frame attention
+# window, fed 32-frame chunks with streaming_lookback(cfg) = 488 frames of
+# history (so a window of 520 frames). The LMs: a seeded log-softmax
+# [V, V] bigram table, and an LstmLm of LstmLmConfig's widths in the
+# model's dtype, each fused at weight 0.3.
+DECODE_BEAM = 4
+DECODE_LM_WEIGHT = 0.3
+STREAM_CHUNK = 32
+STREAM_LEFT = 16
+# Merged mass is a sum over a subset of the sequence's paths: at most its
+# marginal, up to the rounding of the two routes (the loss tests' 1e-4).
+MARGINAL_ATOL = 1e-4
+
+
+def stream_model(mt, dtype, device):
+    """The model cell made causal with a bounded window, same seed."""
+    cfg = model_config(mt, dtype)
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, causal=True, attn_left_context=STREAM_LEFT))
+    return mt.models.MonotonicTransducer(
+        cfg, MODEL_BATCH[3], generator=torch.Generator().manual_seed(SEED),
+        device=device)
+
+
+def decode_lms(mt, dtype, device):
+    """The two LMs, drawn on the CPU from seeded generators (the card's and
+    the CPU's are the same)."""
+    lm = mt.lm
+    table = torch.log_softmax(torch.randn(
+        MODEL_VOCAB, MODEL_VOCAB,
+        generator=torch.Generator().manual_seed(SEED + 1)), dim=-1)
+    lstm = lm.LstmLm(lm.LstmLmConfig(vocab_size=MODEL_VOCAB, dtype=dtype),
+                     generator=torch.Generator().manual_seed(SEED + 2),
+                     device=device)
+    return {"bigram": lm.BigramLm(table, device=device),
+            "lstm_lm": lm.ModuleLmAdapter(lstm)}
+
+
+def decode_forms(lms):
+    """beam_search_decode's keywords of each beam form, by name (paths
+    decode: the first two, decode_lm: the LM-fused two)."""
+    w = DECODE_LM_WEIGHT
+    return {"beam": {}, "beam_merge": {"merge_paths": True},
+            "beam_bigram": {"lm": lms["bigram"], "lm_weight": w},
+            "beam_lstm_lm": {"lm": lms["lstm_lm"], "lm_weight": w}}
+
+
+def no_launch(mt, what, fn):
+    """fn() with the launch counts reset before it; fails if it launched a
+    kernel."""
+    mt.K.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    check(launched(mt.K) == {}, f"{what} launches {launched(mt.K)}")
+    return out
+
+
+def stream_chunks(feats, flen):
+    """feats cut into STREAM_CHUNK-frame chunks with their valid counts;
+    the last is zero-padded, and a stream that ended gets zero-valid
+    chunks."""
+    t = feats.shape[1]
+    padded = torch.nn.functional.pad(
+        feats, (0, 0, 0, -(-t // STREAM_CHUNK) * STREAM_CHUNK - t))
+    return [(padded[:, i:i + STREAM_CHUNK],
+             torch.clamp(flen - i, 0, STREAM_CHUNK).to(torch.int32))
+            for i in range(0, padded.shape[1], STREAM_CHUNK)]
+
+
+def stream_frames(model, chunks, lookback):
+    """The encodings the streaming steps decode, from model._stream_window
+    chunk by chunk as they call it, and each frame's active flags."""
+    b, _, f = chunks[0][0].shape
+    state = model._stream_state_base(b, f, lookback)
+    encs, acts = [], []
+    with torch.no_grad():
+        for chunk, cv in chunks:
+            enc, abs0, out_total, updates = model._stream_window(state,
+                                                                 chunk, cv)
+            state = {**state, **updates}
+            k = torch.arange(enc.shape[1], device=enc.device)
+            encs.append(enc)
+            acts.append(abs0 + k[None, :] < out_total[:, None])
+    return torch.cat(encs, 1), torch.cat(acts, 1)
+
+
+def beam_replay(model, frames, beam, merge_paths=False, lm=None,
+                lm_weight=0.0):
+    """beam_search_decode's loop replayed on `frames` (model's
+    _beam_frame_step, the same calls in the same order): (its result, the
+    tokens and lengths after each frame [B, K*(cap+1)], each frame's
+    smallest gap between adjacent candidates among a sample's K+1 best
+    [B, T'] (inf between non-finite ones))."""
+    enc, active = frames
+    with torch.no_grad():
+        carry = model._beam_init_carry(enc.shape[0], beam, MODEL_MAX_LABELS,
+                                       lm)
+        steps, gaps = [], []
+        for t in range(enc.shape[1]):
+            cand = model._beam_candidates(carry, enc[:, t], active[:, t],
+                                          lm=lm, lm_weight=lm_weight)
+            top = cand.flatten(1).sort(dim=1, descending=True).values
+            gap = top[:, :beam] - top[:, 1:beam + 1]
+            gaps.append(torch.where(torch.isfinite(gap), gap,
+                                    math.inf).min(1).values)
+            carry = model._beam_frame_step(
+                carry, enc[:, t], active[:, t], merge_paths=merge_paths,
+                lm=lm, lm_weight=lm_weight)
+            steps.append(torch.cat([carry[0].flatten(1), carry[1]], 1))
+    return (model._beam_result(carry, merge_paths), steps,
+            torch.stack(gaps, 1))
+
+
+def compare_stats_alpha(mt, cap, what):
+    """A Capture's stats_alpha_fused calls against the plain version on the
+    same operands; returns the max |d|."""
+    K = mt.K
+    calls = cap.calls["stats_alpha_fused"]
+    check(len(calls) == len(cap.keep["stats_alpha_fused"]),
+          f"{what}: stats_alpha_fused made {len(calls)} of the calls")
+    errs = []
+    with torch.no_grad():
+        for _, args, kwargs in calls:
+            got = K.stats_alpha_fused(*args, **kwargs)
+            ref = K.stats_alpha_fused_plain(*args, **kwargs)
+            errs += [assert_close(g, r, 1e-5, 1e-6, f"{what} stats {n}")
+                     for n, g, r in zip(("denom", "lp_blank", "lp_label"),
+                                        got, ref)]
+            errs.append(assert_close(got[3], ref[3], 1e-4, 1e-5,
+                                     f"{what} alphas"))
+    torch.cuda.synchronize()
+    return max(errs)
+
+
+def phase_decode_marginal(mt, model, batch, merged, what, failures):
+    """Each sample's merged top score against the marginal of its sequence:
+    the model's logits on that sequence through monotonic_rnnt_loss,
+    cost-only on the card (one stats_alpha_fused, kept and held against its
+    plain version). Returns (max |d| of row 1, the smallest slack)."""
+    feats, flen = batch[:2]
+    tok, n, score = merged
+    seq, nb = tok[:, 0], n[:, 0]
+    slots = torch.arange(seq.shape[1], device=seq.device)[None, :]
+    labels = torch.where(slots < nb[:, None], seq, 1)   # any label pads
+    with torch.no_grad():
+        logits, enc_len = model.logits(feats, flen, labels)
+    with Capture(mt.fused, {"stats_alpha_fused": {0}}) as cap:
+        mt.K.reset_launch_counts()
+        with torch.no_grad():
+            cost = mt.monotonic_rnnt_loss(logits, labels, enc_len, nb)
+        torch.cuda.synchronize()
+        runs = launched(mt.K)
+    check(runs == {"stats_alpha_fused": 1},
+          f"{what} marginal cost-only loss launches {runs}")
+    err = compare_stats_alpha(mt, cap, f"{what} decode_marginal")
+    slack = (-cost) + MARGINAL_ATOL - score[:, 0]
+    if not bool((slack >= 0).all()):
+        b = int(slack.argmin())
+        failures.append(f"{what}: sample {b}'s merged score "
+                        f"{float(score[b, 0]):.6g} exceeds its marginal "
+                        f"{-float(cost[b]):.6g} + {MARGINAL_ATOL}")
+    del logits
+    return err, float(slack.min())
+
+
+def phase_stream(mt, model, batch, lms, failures):
+    """Streaming greedy and streaming beam (LstmLm fused) over every chunk
+    of the batch, against the full-utterance decodes on the card."""
+    feats, flen = batch[:2]
+    name = dtype_name(model.cfg.dtype)
+    lookback = mt.models.conformer.streaming_lookback(model.cfg.encoder)
+    chunks = stream_chunks(feats, flen)
+    b, _, f = feats.shape
+    lm, w = lms["lstm_lm"], DECODE_LM_WEIGHT
+
+    def greedy_stream():
+        state = model.streaming_init(b, f, lookback, MODEL_MAX_LABELS)
+        emitted = []
+        for chunk, cv in chunks:
+            state, out = model.streaming_step(state, chunk, cv)
+            emitted.append(out)
+        return state, torch.cat(emitted, 1)
+
+    def beam_stream():
+        state = model.streaming_beam_init(b, f, lookback, MODEL_MAX_LABELS,
+                                          DECODE_BEAM, lm)
+        for chunk, cv in chunks:
+            state, beam = model.streaming_beam_step(state, chunk, cv, lm=lm,
+                                                    lm_weight=w)
+        return state, beam
+
+    full = no_launch(mt, f"stream model {name} greedy decode",
+                     lambda: model.greedy_decode(feats, flen,
+                                                 MODEL_MAX_LABELS))
+    full_beam = no_launch(mt, f"stream model {name} beam decode",
+                          lambda: model.beam_search_decode(
+                              feats, flen, MODEL_MAX_LABELS, DECODE_BEAM,
+                              lm=lm, lm_weight=w))
+    g_state, emitted = no_launch(mt, f"streaming greedy {name}",
+                                 greedy_stream)
+    b_state, beam = no_launch(mt, f"streaming beam {name}", beam_stream)
+    check(g_state["n_seen"] == len(chunks) * STREAM_CHUNK,
+          f"streaming greedy {name} n_seen {g_state['n_seen']}")
+    hyp, n_hyp = g_state["hyp"], g_state["n_hyp"]
+    for i in range(b):
+        toks = emitted[i][emitted[i] != model.cfg.blank_id]
+        check(torch.equal(toks, hyp[i, :int(n_hyp[i])]),
+              f"streaming greedy {name} sample {i}: the chunks' emitted ids "
+              "are not its hypothesis")
+    s_frames = lambda: stream_frames(model, chunks, lookback)
+    f_frames = lambda: full_frames(model, feats, flen)
+    notes = [
+        "greedy " + hold_decode(
+            (hyp, n_hyp), full,
+            lambda: (greedy_replay(model, s_frames()),
+                     greedy_replay(model, f_frames())),
+            f"streaming greedy {name} vs full", failures),
+        "beam " + hold_decode(
+            beam, full_beam,
+            lambda: (beam_replay(model, s_frames(), DECODE_BEAM, lm=lm,
+                                 lm_weight=w),
+                     beam_replay(model, f_frames(), DECODE_BEAM, lm=lm,
+                                 lm_weight=w)),
+            f"streaming beam {name} vs full", failures)]
+    log(f"stream {name} ({len(chunks)} chunks of {STREAM_CHUNK} frames, "
+        f"lookback {lookback}): launches none; vs the full-utterance "
+        f"decodes on the card: " + "; ".join(notes) + f"; greedy lengths "
+        f"{n_hyp.tolist()}")
+
+    mid = len(chunks) // 2
+    g_mid = stream_state_after(chunks, mid, lambda: model.streaming_init(
+        b, f, lookback, MODEL_MAX_LABELS), model.streaming_step)
+    b_mid = stream_state_after(chunks, mid, lambda: model.streaming_beam_init(
+        b, f, lookback, MODEL_MAX_LABELS, DECODE_BEAM, lm),
+        lambda st, ch, cv: model.streaming_beam_step(st, ch, cv, lm=lm,
+                                                     lm_weight=w))
+    chunk, cv = chunks[mid]
+    return {"stream_ms_per_chunk": cuda_ms(
+                lambda: model.streaming_step(g_mid, chunk, cv),
+                reps=MODEL_REPS, warmup=2),
+            "stream_beam_ms_per_chunk": cuda_ms(
+                lambda: model.streaming_beam_step(b_mid, chunk, cv, lm=lm,
+                                                  lm_weight=w),
+                reps=MODEL_REPS, warmup=2)}
+
+
+def stream_state_after(chunks, k, init, step):
+    """The streaming state after the first k chunks."""
+    state = init()
+    for chunk, cv in chunks[:k]:
+        state, _ = step(state, chunk, cv)
+    return state
+
+
+def run_decode(mt, gpu):
+    """The serving decoders at the model cell on the card, f32 and bf16:
+    beam search (K=4) plain, with merge_paths, and fused with a BigramLm and
+    an LstmLm; K=1 against greedy_decode; in f32 each beam form against the
+    CPU port on the same weights; the merged scores against the loss's
+    marginal (row 1, held against its plain version); streaming greedy and
+    streaming beam against the full decodes of the causal model; no decoder
+    launches a kernel. Then each form timed. Returns (launches by path,
+    max |d| by path, figures by dtype)."""
+    batch = model_batch(DEVICE)
+    feats, flen = batch[:2]
+    b, t = feats.shape[:2]
+    audio_s = b * t * 0.01                  # 10 ms a frame
+    chunk_audio_s = b * STREAM_CHUNK * 0.01
+    failures, figures, marginal_errs = [], {}, []
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        model = make_model(mt, dtype, DEVICE)
+        lms = decode_lms(mt, dtype, DEVICE)
+        forms = decode_forms(lms)
+        results = {form: no_launch(
+            mt, f"{form} {name}", lambda kw=kw: model.beam_search_decode(
+                feats, flen, MODEL_MAX_LABELS, DECODE_BEAM, **kw))
+            for form, kw in forms.items()}
+        for form, (tok, n, score) in results.items():
+            check(tuple(tok.shape) == (b, DECODE_BEAM, MODEL_MAX_LABELS)
+                  and bool(torch.isfinite(score[:, 0]).all())
+                  and bool((score[:, :-1] >= score[:, 1:]).all()),
+                  f"{form} {name}: shapes, finite best scores, best-first")
+        greedy = no_launch(mt, f"greedy {name}", lambda: model.greedy_decode(
+            feats, flen, MODEL_MAX_LABELS))
+        beam1 = no_launch(mt, f"beam K=1 {name}",
+                          lambda: model.beam_search_decode(
+                              feats, flen, MODEL_MAX_LABELS, 1))
+        frames = lambda: full_frames(model, feats, flen)
+
+        def k1_replays():
+            (tok, n, _), steps, gaps = beam_replay(model, frames(), 1)
+            return (((tok[:, 0], n[:, 0]), steps, gaps),
+                    greedy_replay(model, frames()))
+
+        notes = ["K=1 vs greedy: " + hold_decode(
+            (beam1[0][:, 0], beam1[1][:, 0]), greedy, k1_replays,
+            f"beam K=1 {name} vs greedy", failures)]
+        check(bool((results["beam_merge"][2][:, 0]
+                    >= results["beam"][2][:, 0] - 1e-5).all()),
+              f"beam {name}: a merged score below its best path's")
+        if dtype == torch.float32:
+            cpu_batch = model_batch("cpu")
+            cpu_model = make_model(mt, dtype, "cpu")
+            cpu_forms = decode_forms(decode_lms(mt, dtype, "cpu"))
+            cpu_frames = lambda: full_frames(cpu_model, *cpu_batch[:2])
+            for form, kw in forms.items():
+                cpu_kw = cpu_forms[form]
+                ref = cpu_model.beam_search_decode(
+                    *cpu_batch[:2], MODEL_MAX_LABELS, DECODE_BEAM, **cpu_kw)
+                notes.append(f"{form} card vs CPU: " + hold_decode(
+                    results[form], ref,
+                    lambda kw=kw, cpu_kw=cpu_kw: (
+                        beam_replay(model, frames(), DECODE_BEAM, **kw),
+                        beam_replay(cpu_model, cpu_frames(), DECODE_BEAM,
+                                    **cpu_kw)),
+                    f"{form} f32 card vs CPU", failures))
+            del cpu_model
+        err, slack = phase_decode_marginal(mt, model, batch,
+                                           results["beam_merge"], name,
+                                           failures)
+        marginal_errs.append(err)
+        notes.append(f"merged top scores <= the marginal + {MARGINAL_ATOL} "
+                     f"(smallest slack {slack:.4g}; row 1 vs plain max|d| "
+                     f"{err:.3g})")
+        lengths = {form: r[1][:, 0].tolist() for form, r in results.items()}
+        log(f"decode {name} at B={b}, {t} frames, K={DECODE_BEAM}, "
+            f"max_labels {MODEL_MAX_LABELS}: launches none; "
+            + "; ".join(notes) + f"; best lengths {json.dumps(lengths)}")
+        figs = {}
+        for form, kw in forms.items():
+            ms = cuda_ms(lambda kw=kw: model.beam_search_decode(
+                feats, flen, MODEL_MAX_LABELS, DECODE_BEAM, **kw),
+                reps=MODEL_REPS, warmup=1)
+            figs[f"{form}_ms"] = ms
+            figs[f"{form}_x_realtime"] = audio_s / (ms / 1e3)
+        del model, results
+        torch.cuda.empty_cache()
+        s_model = stream_model(mt, dtype, DEVICE)
+        s_figs = phase_stream(mt, s_model, batch,
+                              decode_lms(mt, dtype, DEVICE), failures)
+        for key in ("stream", "stream_beam"):
+            s_figs[f"{key}_x_realtime"] = chunk_audio_s / (
+                s_figs[f"{key}_ms_per_chunk"] / 1e3)
+        figs.update(s_figs)
+        figures[name] = figs
+        log(f"decode {name} timing ({gpu}): " + json.dumps(figs))
+        del s_model
+        torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    log(f"decode phase {time.perf_counter() - t0:.1f} s")
+    launches = {p: {} for p in ("decode", "decode_lm", "stream",
+                                "stream_beam")}
+    launches["decode_marginal"] = {"stats_alpha_fused": len(marginal_errs)}
+    return (launches, {"decode_marginal": {
+        "stats_alpha_fused": max(marginal_errs)}}, figures)
 
 
 # --- the sharded losses ---------------------------------------------------------
@@ -4133,6 +4574,38 @@ def phase_model_trace(mt):
     return out
 
 
+def phase_decode_trace(mt):
+    """One beam decode (K=4) of the model cell and one streaming greedy
+    chunk from the middle of the stream, f32 and bf16, traced (trace_step):
+    the decoders' device ops, and how busy the card is."""
+    feats, flen = model_batch(DEVICE)[:2]
+    b, _, f = feats.shape
+    chunks = stream_chunks(feats, flen)
+    mid = len(chunks) // 2
+    chunk, cv = chunks[mid]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        model = make_model(mt, dtype, DEVICE)
+        out[f"beam {name}"] = trace_step(
+            mt, lambda: model.beam_search_decode(feats, flen,
+                                                 MODEL_MAX_LABELS,
+                                                 DECODE_BEAM),
+            f"beam decode K={DECODE_BEAM}, {name}")
+        del model
+        s_model = stream_model(mt, dtype, DEVICE)
+        lookback = mt.models.conformer.streaming_lookback(s_model.cfg.encoder)
+        state = stream_state_after(
+            chunks, mid, lambda: s_model.streaming_init(
+                b, f, lookback, MODEL_MAX_LABELS), s_model.streaming_step)
+        out[f"stream {name}"] = trace_step(
+            mt, lambda: s_model.streaming_step(state, chunk, cv),
+            f"streaming greedy chunk {mid}, {name}")
+        del s_model, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def trace_step(mt, step, what):
     """One call of step() under the port's device_trace (torch.profiler, CPU
     and CUDA, a Chrome trace into a temporary directory, its name and size
@@ -4498,7 +4971,7 @@ class _Port:
         from monotonic_rnnt_tpu_torch.ops import (alignment, banded, bands,
                                                   chunked, chunked_banded,
                                                   collective, helpers, loss)
-        from monotonic_rnnt_tpu_torch.models import train
+        from monotonic_rnnt_tpu_torch.models import lm, train
         from monotonic_rnnt_tpu_torch.parallel import sharding
         from monotonic_rnnt_tpu_torch.ops.cuda import (_build, banded_kernels,
                                                        fused, kernels,
@@ -4525,7 +4998,7 @@ class _Port:
         self.ST, self.interop, self.profiling = stream, interop, profiling
         self.models, self.loss, self.cuda_banded = models, loss, cuda_banded
         self.alignment = alignment
-        self.train = train
+        self.train, self.lm = train, lm
         for name in ("pack_acts", "unpack_acts", "monotonic_rnnt_loss_packed",
                      "viterbi_alignment", "viterbi_alignment_banded",
                      "occupancy_posteriors", "occupancy_posteriors_banded",
@@ -4601,6 +5074,7 @@ def main() -> int:
     del band_keep
     model_launches, model_errs, model_figures = run_model(mt, gpu)
     train_launches, train_errs, _ = run_train(mt, gpu, model_figures)
+    decode_launches, decode_errs, _ = run_decode(mt, gpu)
     # The alignment, packed and traced phases run last, so that the figures
     # above are taken as without them (a profiler session or thousands of
     # small ops could leave host state behind that slows later host-bound
@@ -4621,15 +5095,16 @@ def main() -> int:
     phase_trace(mt, main_inputs, weights)
     del main_inputs, restricted
     phase_model_trace(mt)
+    phase_decode_trace(mt)
     torch.cuda.empty_cache()
     # Every path's launches and kept calls' max |d|; by_path takes, for
     # each kernel row, the paths that ran it.
     path_launches = {"split": split_launches, **fused_launches,
                      **sharded_launches, **packed_launches, **align_launches,
-                     **model_launches, **train_launches}
+                     **model_launches, **train_launches, **decode_launches}
     path_errs = {"split": {"grad_pass": split_errs[torch.float32][
         "grad_pass"]}, **fused_errs, **sharded_errs, **packed_errs,
-        **align_errs, **model_errs, **train_errs}
+        **align_errs, **model_errs, **train_errs, **decode_errs}
     split_kernels = split_kernel_entries(split_errs, split_launches,
                                          split_rows)
     for entries, base in ((kernels, "padded"), (band_kernels, "banded"),
@@ -4650,7 +5125,9 @@ def main() -> int:
     kernels += band_kernels + split_kernels + [partial_entry] + stream_entries
     for e in kernels:   # the model's paths, on every row (0: not on it)
         for path in ("model", "model_fused_joint", "train",
-                     "train_fused_joint", "train_dp", "train_tp"):
+                     "train_fused_joint", "train_dp", "train_tp", "decode",
+                     "decode_lm", "stream", "stream_beam",
+                     "decode_marginal"):
             e["launches_by_path"].setdefault(path, 0)
         unheld = [p for p, n in e["launches_by_path"].items()
                   if n and p not in e["max_abs_err_by_path"]]

@@ -183,6 +183,28 @@ def _transducer_modules(cfg):
     return mods
 
 
+def _state_from_flax(params, modules, device) -> Dict[str, torch.Tensor]:
+    """The state_dict of `modules` ((flax path, torch path, layout rule)
+    each) from a flax parameter tree; raises ValueError if a flax leaf is
+    left over or a module is missing."""
+    dev = _device(device)
+    leaves = _flax_leaves(params.get("params", params))
+    state = {}
+    for flax_mod, torch_mod, rule in modules:
+        mine = {path[len(flax_mod) + 1:]: leaf for path, leaf in leaves.items()
+                if path.startswith(flax_mod + "/")}
+        if not mine:
+            raise ValueError(f"flax params hold no module {flax_mod!r}")
+        for name, arr in rule(mine).items():
+            state[f"{torch_mod}.{name}"] = _float_tensor(arr).to(dev)
+        for path in mine:
+            del leaves[f"{flax_mod}/{path}"]
+    if leaves:
+        raise ValueError("flax params the config does not name: "
+                         + ", ".join(sorted(leaves)))
+    return state
+
+
 def transducer_params_from_flax(params, cfg, device="cuda"
                                 ) -> Dict[str, torch.Tensor]:
     """A flax MonotonicTransducer's parameters as the port's state_dict.
@@ -195,21 +217,25 @@ def transducer_params_from_flax(params, cfg, device="cuda"
     accepts; each leaf keeps its dtype. Raises ValueError if a flax leaf is
     left over or missing.
     """
-    dev = _device(device)
-    leaves = _flax_leaves(params.get("params", params))
-    state = {}
-    for flax_mod, torch_mod, rule in _transducer_modules(cfg):
-        mine = {path[len(flax_mod) + 1:]: leaf for path, leaf in leaves.items()
-                if path.startswith(flax_mod + "/")}
-        if not mine:
-            raise ValueError(f"flax params hold no module {flax_mod!r}")
-        for name, arr in rule(mine).items():
-            state[f"{torch_mod}.{name}"] = _float_tensor(arr).to(dev)
-        for path in mine:
-            del leaves[f"{flax_mod}/{path}"]
-    if leaves:
-        raise ValueError("flax params the config does not name: "
-                         + ", ".join(sorted(leaves)))
+    return _state_from_flax(params, _transducer_modules(cfg), device)
+
+
+def lstm_lm_params_from_flax(params, cfg, device="cuda"
+                             ) -> Dict[str, torch.Tensor]:
+    """A flax ``models/lm.py`` LstmLm's parameters as the port's
+    ``models.lm.LstmLm`` state_dict, by the transducer's layout rules
+    (embedding, OptimizedLSTMCell, Dense). cfg: the port's ``LstmLmConfig``,
+    whose widths the parameters must have. Raises ValueError if a flax leaf
+    is left over or missing, or a width differs from cfg's."""
+    state = _state_from_flax(params, [("embed", "embed", _embed),
+                                      ("cell", "cell", _lstm),
+                                      ("out", "out", _dense)], device)
+    v, d, e = cfg.vocab_size, cfg.dim, cfg.embed_dim
+    for name, want in (("embed.weight", (v, e)), ("cell.weight_ih", (4 * d, e)),
+                       ("cell.weight_hh", (4 * d, d)), ("out.weight", (v, d))):
+        if tuple(state[name].shape) != want:
+            raise ValueError(f"flax LM {name} has shape "
+                             f"{tuple(state[name].shape)}, the config {want}")
     return state
 
 

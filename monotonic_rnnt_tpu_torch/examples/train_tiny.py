@@ -1,14 +1,13 @@
 """End-to-end example: train a tiny Conformer-transducer with the monotonic
-RNN-T loss on synthetic data, then decode greedily.
+RNN-T loss on synthetic data, then decode greedily and with beam search.
 
 The port's counterpart of ``examples/train_tiny.py``: the same data,
 config and optimiser settings, through ``models.train.create_train_state``
-and ``train_step`` on one device (the card unless --device cpu). The JAX
-example also beam-searches the last batch; the port's beam search is not
-ported yet, so this one decodes greedily only.
+and ``train_step`` on one device (the card unless --device cpu), and the
+same greedy and beam decode of the last batch.
 
   python -m monotonic_rnnt_tpu_torch.examples.train_tiny [--steps 30]
-      [--batch 8] [--device cpu]
+      [--batch 8] [--beam 4] [--device cpu]
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--beam", type=int, default=4)
     p.add_argument("--overfit", action="store_true",
                    help="repeat one batch: the loss should collapse and "
                         "greedy decoding reproduce the targets")
@@ -108,12 +108,15 @@ def main(argv=None):
             "loss_curve": curve, "label_acc_curve": acc_curve,
         }, indent=1) + "\n")
 
-    # Decode the last batch greedily (beam search: not ported yet).
+    # Decode the last batch, greedy and beam.
     feats, flen, labels, slen = tensors(batch_np)
     hyp, n_hyp = model.greedy_decode(feats, flen, 6)
+    tok, n_b, score = model.beam_search_decode(feats, flen, 6, args.beam)
     for b in range(min(2, hyp.shape[0])):
         print(f"sample {b}: target {labels[b, :int(slen[b])].tolist()} | "
-              f"greedy {hyp[b, :int(n_hyp[b])].tolist()}")
+              f"greedy {hyp[b, :int(n_hyp[b])].tolist()} | "
+              f"beam-{args.beam} {tok[b, 0, :int(n_b[b, 0])].tolist()} "
+              f"(logp {float(score[b, 0]):.2f})")
 
 
 if __name__ == "__main__":

@@ -72,6 +72,25 @@ class LstmCell(nn.Module):
                                                   hidden_size))
         self.bias_hh = nn.Parameter(torch.empty(4 * hidden_size))
 
+    def zero_state(self, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """flax's initial carry (c, h): zeros, float32."""
+        zeros = torch.zeros((batch, self.hidden_size), dtype=torch.float32,
+                            device=self.weight_hh.device)
+        return zeros, zeros
+
+    def input_gates(self, emb, dtype):
+        """The input's gate pre-activations [..., 4*hidden] (no bias)."""
+        return F.linear(emb.to(dtype), self.weight_ih.to(dtype))
+
+    def advance(self, state, input_gates, dtype):
+        """One LSTM step from the input's gate pre-activations."""
+        c, h = state
+        gates = input_gates + F.linear(h.to(dtype), self.weight_hh.to(dtype),
+                                       self.bias_hh.to(dtype))
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return c, torch.sigmoid(o) * torch.tanh(c)
+
 
 class LstmPredictor(nn.Module):
     def __init__(self, cfg: PredictorConfig, *,
@@ -85,32 +104,19 @@ class LstmPredictor(nn.Module):
 
     def _input_gates(self, tokens):
         dt = self.cfg.dtype
-        return F.linear(_embed(self.embed, tokens, dt),
-                        self.cell.weight_ih.to(dt))
-
-    def _advance(self, state, input_gates):
-        """One LSTM step from the input's gate pre-activations."""
-        dt = self.cfg.dtype
-        c, h = state
-        gates = input_gates + F.linear(h.to(dt), self.cell.weight_hh.to(dt),
-                                       self.cell.bias_hh.to(dt))
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        return c, torch.sigmoid(o) * torch.tanh(c)
+        return self.cell.input_gates(_embed(self.embed, tokens, dt), dt)
 
     def forward(self, labels, deterministic: bool = True):
         gates = self._input_gates(_shift_with_bos(labels))   # [B, S+1, 4D]
         state = self.init_state(labels.shape[0])
         hs = []
         for k in range(gates.shape[1]):
-            state = self._advance(state, gates[:, k])
+            state = self.cell.advance(state, gates[:, k], self.cfg.dtype)
             hs.append(state[1])
         return dense(self.out, torch.stack(hs, dim=1), self.cfg.dtype).float()
 
     def init_state(self, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        zeros = torch.zeros((batch, self.cfg.dim), dtype=torch.float32,
-                            device=self.out.weight.device)
-        return zeros, zeros
+        return self.cell.zero_state(batch)
 
     def step(self, state, tokens: torch.Tensor):
         """Advance with one token per sample. tokens [B] int (0 = BOS).
@@ -118,7 +124,8 @@ class LstmPredictor(nn.Module):
         Returns (new_state, ctx [B, dim] f32): ctx is the context vector
         *after* consuming `tokens` (position len(history) in forward terms).
         """
-        state = self._advance(state, self._input_gates(tokens))
+        state = self.cell.advance(state, self._input_gates(tokens),
+                                  self.cfg.dtype)
         return state, dense(self.out, state[1], self.cfg.dtype).float()
 
 

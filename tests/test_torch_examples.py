@@ -1,13 +1,16 @@
 """Smoke tests of the port's examples (monotonic_rnnt_tpu_torch/examples),
 as tests/test_examples.py runs the JAX package's: each runs end to end on
 the CPU at a tiny step count and prints or writes sane output. Unmarked:
-they are the port's guard that its training entry points run as a user
-calls them."""
+they are the port's guard that its training and serving entry points run
+as a user calls them."""
 
 import json
 import math
 
-from monotonic_rnnt_tpu_torch.examples import realign_restrict, train_tiny
+import re
+
+from monotonic_rnnt_tpu_torch.examples import (realign_restrict,
+                                               streaming_demo, train_tiny)
 
 
 def test_train_tiny_example(tmp_path, capfd):
@@ -19,7 +22,9 @@ def test_train_tiny_example(tmp_path, capfd):
     losses = [p["loss"] for p in rec["loss_curve"]]
     assert losses and all(math.isfinite(x) for x in losses)
     assert rec["steps"] == 4 and rec["device"] == "cpu"
-    assert "greedy" in capfd.readouterr().out
+    out = capfd.readouterr().out
+    assert "greedy" in out and "beam-4" in out
+    assert re.search(r"beam-4 \[[^\]]*\] \(logp -?\d+\.\d+\)", out)
 
 
 def test_train_tiny_overfits_one_batch(tmp_path):
@@ -30,6 +35,18 @@ def test_train_tiny_overfits_one_batch(tmp_path):
                      "--device", "cpu", "--json-out", str(out)])
     rec = json.loads(out.read_text())
     assert rec["loss_last"] < 0.5 * rec["loss_first"], rec["loss_curve"]
+
+
+def test_streaming_demo_example(capfd):
+    """tests/test_examples.py::test_streaming_demo_example on the port: the
+    streaming decode equals the full-utterance decode, over labels."""
+    rc = streaming_demo.main(["--steps", "40", "--chunk", "16",
+                              "--device", "cpu"])
+    assert rc in (None, 0)
+    out = capfd.readouterr().out
+    assert "streaming == full-utterance greedy decode: exact" in out
+    decoded = re.findall(r"-> decoded \[([^\]]*)\]", out)
+    assert any(d.strip() for d in decoded), "demo emitted no labels"
 
 
 def test_realign_restrict_example(capfd):
