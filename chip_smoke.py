@@ -189,6 +189,27 @@ medians of 10 calls: each beam form's ms and x realtime (16 x 400 frames of
 10 ms), streaming greedy and streaming beam ms per chunk and x realtime.
 The traced phase traces one beam decode and one streaming chunk a dtype.
 
+The serving phase (``run_serving``, after the decode phase, before the
+alignment phase) prints the port's provenance stamp, then exports the padded
+loss with ``serving.export_loss(backend="cuda")`` at the benchmark lattice in
+f32 and bf16 and imports it from the bytes: the imported call launches rows
+1 and 2 once each (the torch.library operators; their CUDA implementations'
+operands are kept and held against the plain versions, path export) and
+its costs and gradients equal a live ``rnnt_loss_cuda(with_grads=True)`` bit
+for bit; it prints the export's and import's seconds, the blob's bytes, the
+imported and the live call's CUDA-event medians of 20, timed in turns, and
+the padded ``fwd_bwd_ms`` of the timing phase. The reference artifact at
+tests/test_serving.py's [3, 12, 5, 11] runs on the card against the oracle;
+``export_greedy_decoder`` at the model cell (f32, the weights an argument)
+against the live ``greedy_decode`` token for token; and
+``export_streaming_decoder`` at the streaming cell over the lookback's
+chunks and four more (every chunk's emitted ids against the live
+``streaming_step``), each timed against its live decoder in turns. Last,
+one training step of the padded loss with debug_space, debug_fwdbwd,
+check_fwd_bwd, debug_grads and debug_time on: each line printed, row 2's
+betas handed to emit_loss_debug with no mismatch, the step's rows 1-2 calls
+held against the plain versions (path export_debug).
+
 The packed-layout, binding and alignment paths run last, so that every
 figure above is taken in the same state as without them. The alignment phase
 (``run_alignment``) runs ``viterbi_alignment`` on the banded case's full
@@ -313,6 +334,12 @@ Tolerances, each with its reason:
     and the card showed 0.0097 (~10 ulps); banded vs full occupancy relative L2
     <= 2e-3, the long-T bound between two f32 routes; the realigned
     binding loss vs the banded loss as costs above;
+  * the export artifacts: the cuda loss bit for bit against the live
+    rnnt_loss_cuda (the same two kernels on the same operands; row 2's
+    tickets decide which CTA writes a row, not its value); the reference
+    artifact against the oracle as tests/test_serving.py holds it (costs
+    1e-6 relative, gradients 1e-6 + 1e-7); the decoder artifacts token for
+    token against the live decoders on the card (the same ops);
   * the decoders: hypotheses equal token for token, or first apart at a
     frame whose reference margin is below 1e-4 (phase_model_decode's rule:
     two sides' matmuls round apart, ~1e-6 in a logit); the scores of equal
@@ -326,6 +353,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import statistics
@@ -570,12 +598,14 @@ def compare_captured(mt, cap, what):
     return errs
 
 
-def compare_captured_rows12(mt, cap, what):
+def compare_captured_rows12(mt, cap, what,
+                            names=("stats_alpha_fused", "beta_grad_fused")):
     """Rows 1-2's captured calls (a Capture on mt.fused keeping the same
-    call indices of stats_alpha_fused and beta_grad_fused) against their
-    plain versions on the operands the path built (compare_kernels);
-    returns each wrapper's max |d| over its captured calls."""
-    sa, bg = cap.calls["stats_alpha_fused"], cap.calls["beta_grad_fused"]
+    call indices of stats_alpha_fused and beta_grad_fused, or on mt.K of
+    the operators' CUDA implementations, `names`) against their plain
+    versions on the operands the path built (compare_kernels); returns
+    each wrapper's max |d| over its captured calls."""
+    sa, bg = cap.calls[names[0]], cap.calls[names[1]]
     for name, calls in cap.calls.items():
         check(len(calls) == len(cap.keep[name]), f"{what}: {name} made "
               f"{len(calls)} of the calls {sorted(cap.keep[name])}")
@@ -3507,6 +3537,265 @@ def run_decode(mt, gpu):
         "stats_alpha_fused": max(marginal_errs)}}, figures)
 
 
+# --- export and the debug flags -------------------------------------------------
+
+SERVING_REF_CASE = (3, 12, 5, 11)   # tests/test_serving.py's loss batch
+SERVING_STREAM_EXTRA = 4            # chunks streamed past the lookback's
+# The operators' CUDA implementations, where an exported graph's row 1-2
+# calls arrive (the artifact calls torch.ops.mrnnt, not the wrappers).
+SERVING_OPS = ("stats_alpha_cuda", "beta_grad_cuda")
+
+
+def turns_ms(fns, reps: int = TIMING_REPS, warmup: int = 3) -> list:
+    """Each fn's median CUDA-event ms over `reps` rounds, the fns timed in
+    turns within a round (fn 0, fn 1, ..., then again), each call from an
+    idle card."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, out in zip(fns, times):
+            out += cuda_times(fn, 1, warmup=0)
+    return [statistics.median(t) for t in times]
+
+
+def ops_capture(mt, call):
+    """A Capture of rows 1-2's operator call `call` at its CUDA
+    implementation (every route: a live wrapper or an exported graph)."""
+    return Capture(mt.K, {name: {call} for name in SERVING_OPS})
+
+
+def serving_loss(mt, main_inputs, dtype, e2e):
+    """export_loss(backend='cuda') at the padded lattice in `dtype`: the
+    imported call against a live rnnt_loss_cuda bit for bit, its row 1-2
+    calls against their plain versions, and the times. Returns (max |d|
+    by row, figures)."""
+    logits, labels, ilen, slen = main_inputs
+    name = dtype_name(dtype)
+    args = (logits.to(dtype), labels, ilen, slen)
+    t0 = time.perf_counter()
+    blob = mt.serving.export_loss(*args, backend="cuda", device=DEVICE)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_fn = mt.serving.import_fn(blob)
+    import_s = time.perf_counter() - t0
+    live = lambda: mt.fused.rnnt_loss_cuda(*args)
+    want_c, want_g = live()
+    mt.K.reset_launch_counts()
+    with ops_capture(mt, 0) as cap:
+        got_c, got_g = loss_fn(*args)
+        torch.cuda.synchronize()
+    check(launched(mt.K) == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+          f"export {name}: the imported call launched {launched(mt.K)}")
+    check(got_g.dtype == dtype, f"export {name}: grads {got_g.dtype}")
+    check(torch.equal(got_c, want_c) and torch.equal(got_g, want_g),
+          f"export {name}: the artifact's costs and gradients differ from "
+          "the live rnnt_loss_cuda (max |d| "
+          f"{float((got_c - want_c).abs().max()):.3g}, "
+          f"{float((got_g.float() - want_g.float()).abs().max()):.3g})")
+    errs = compare_captured_rows12(mt, cap, f"export {name}",
+                                   names=SERVING_OPS)
+    imported_ms, live_ms = turns_ms([lambda: loss_fn(*args), live])
+    figs = {"export_s": export_s, "import_s": import_s, "blob_bytes":
+            len(blob), "imported_ms": imported_ms, "live_ms": live_ms,
+            "padded_fwd_bwd_ms": e2e[name]["fwd_bwd_ms"]}
+    log(f"export {name} loss at B={B},T={T},S={S},V={V}: the imported call "
+        f"equals the live rnnt_loss_cuda bit for bit; launches one of each "
+        f"row; {json.dumps(figs)}")
+    return errs, figs
+
+
+def serving_reference(mt):
+    """export_loss(backend='reference') at tests/test_serving.py's batch on
+    the card against the oracle (rtol 1e-6, grads 1e-6 + 1e-7, the JAX
+    test's bounds); no kernel launches."""
+    b, t, s, v = SERVING_REF_CASE
+    rng = np.random.RandomState(SEED)
+    as_t = lambda a: torch.from_numpy(a).to(DEVICE)
+    args = (as_t(rng.randn(b, t, s + 1, v).astype(np.float32)),
+            as_t(rng.randint(1, v, (b, s)).astype(np.int32)),
+            as_t(rng.randint(s + 1, t + 1, (b,)).astype(np.int32)),
+            as_t(rng.randint(1, s + 1, (b,)).astype(np.int32)))
+    t0 = time.perf_counter()
+    loss_fn = mt.serving.import_fn(mt.serving.export_loss(*args,
+                                                          device=DEVICE))
+    export_s = time.perf_counter() - t0
+    got_c, got_g = no_launch(mt, "reference artifact",
+                             lambda: loss_fn(*args))
+    want_c, want_g = mt.rnnt_loss_reference(*args)
+    e_c = assert_close(got_c, want_c, 0.0, 1e-6, "reference artifact costs")
+    e_g = assert_close(got_g, want_g, 1e-7, 1e-6, "reference artifact grads")
+    log(f"export reference loss at B,T,S,V={SERVING_REF_CASE} on the card: "
+        f"vs the oracle costs max|d| {e_c:.3g}, grads {e_g:.3g}; launches "
+        f"none; export+import {export_s:.2f} s")
+
+
+def serving_greedy(mt):
+    """export_greedy_decoder at the model cell (f32), its weights an
+    argument: the imported decoder's tokens against the live greedy_decode."""
+    model = make_model(mt, torch.float32, DEVICE)
+    feats, flen = model_batch(DEVICE)[:2]
+    params = dict(model.named_parameters())
+    t0 = time.perf_counter()
+    blob = mt.serving.export_greedy_decoder(model, params, feats, flen,
+                                            MODEL_MAX_LABELS, device=DEVICE)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoder = mt.serving.import_fn(blob)
+    import_s = time.perf_counter() - t0
+    hyp, n_hyp = no_launch(mt, "greedy artifact",
+                           lambda: decoder(params, feats, flen))
+    want, want_n = model.greedy_decode(feats, flen, MODEL_MAX_LABELS)
+    check(torch.equal(hyp, want) and torch.equal(n_hyp, want_n),
+          "greedy artifact: tokens differ from the live greedy_decode")
+    imported_ms, live_ms = turns_ms(
+        [lambda: decoder(params, feats, flen),
+         lambda: model.greedy_decode(feats, flen, MODEL_MAX_LABELS)],
+        reps=MODEL_REPS, warmup=1)
+    figs = {"export_s": export_s, "import_s": import_s,
+            "blob_bytes": len(blob), "imported_ms": imported_ms,
+            "live_ms": live_ms}
+    log(f"export greedy decoder at the model cell (B={feats.shape[0]}, "
+        f"{feats.shape[1]} frames, f32): tokens equal the live decode in "
+        f"every sample (lengths {n_hyp.tolist()}); launches none; "
+        + json.dumps(figs))
+    return figs
+
+
+def serving_stream(mt):
+    """export_streaming_decoder at the streaming cell: the lookback's
+    chunks and SERVING_STREAM_EXTRA more (seeded frames, the last chunks
+    partly valid) through the imported step and the live streaming_step,
+    each chunk's emitted ids equal; then the ms a chunk once the lookback
+    is full."""
+    model = stream_model(mt, torch.float32, DEVICE)
+    b, f = MODEL_BATCH[0], MODEL_BATCH[3]
+    lookback = mt.models.conformer.streaming_lookback(model.cfg.encoder)
+    frames = (-(-lookback // STREAM_CHUNK) + SERVING_STREAM_EXTRA) * (
+        STREAM_CHUNK)
+    rng = np.random.RandomState(SEED + 3)
+    feats = torch.from_numpy(rng.randn(b, frames, f).astype(
+        np.float32)).to(DEVICE)
+    flen = torch.from_numpy(rng.randint(frames - 3 * STREAM_CHUNK,
+                                        frames + 1, b).astype(np.int32))
+    chunks = stream_chunks(feats, flen.to(DEVICE))
+    params = dict(model.named_parameters())
+    t0 = time.perf_counter()
+    blob, state = mt.serving.export_streaming_decoder(
+        model, params, b, f, STREAM_CHUNK, MODEL_MAX_LABELS, device=DEVICE)
+    step = mt.serving.import_fn(blob)
+    export_s = time.perf_counter() - t0
+    live = model.streaming_init(b, f, lookback, MODEL_MAX_LABELS)
+    states = []
+    mt.K.reset_launch_counts()
+    for i, (chunk, cv) in enumerate(chunks):
+        states.append((state, live))
+        state, got = step(params, state, chunk, cv)
+        live, want = model.streaming_step(live, chunk, cv)
+        check(torch.equal(got, want), f"streaming artifact: chunk {i}'s "
+              "emitted ids differ from the live streaming_step")
+    torch.cuda.synchronize()
+    check(launched(mt.K) == {}, f"streaming launches {launched(mt.K)}")
+    check(torch.equal(state["hyp"], live["hyp"])
+          and int(state["n_seen"]) == len(chunks) * STREAM_CHUNK,
+          "streaming artifact: final state differs")
+    k = len(chunks) - 2                       # the lookback is full here
+    (s_k, l_k), (chunk, cv) = states[k], chunks[k]
+    imported_ms, live_ms = turns_ms(
+        [lambda: step(params, s_k, chunk, cv),
+         lambda: model.streaming_step(l_k, chunk, cv)],
+        reps=MODEL_REPS, warmup=2)
+    figs = {"export_import_s": export_s, "blob_bytes": len(blob),
+            "imported_ms_per_chunk": imported_ms,
+            "live_ms_per_chunk": live_ms}
+    log(f"export streaming decoder ({len(chunks)} chunks of {STREAM_CHUNK} "
+        f"frames, lookback {lookback}, f32): every chunk's emitted ids "
+        f"equal the live step's; launches none; {json.dumps(figs)}")
+    return figs
+
+
+def serving_debug(mt, main_inputs, weights):
+    """One training step of the padded loss at the benchmark lattice with
+    debug_space, debug_fwdbwd, check_fwd_bwd, debug_grads and debug_time
+    on: each prints its line; row 2's betas reach emit_loss_debug and
+    agree with ll_fwd (no mismatch). Returns the step's launches and its
+    rows 1-2 calls' max |d| against the plain versions."""
+    logits, labels, ilen, slen = main_inputs
+    seen = []
+    real = mt.fused.emit_loss_debug
+
+    def keep(*a):
+        seen.append(a)
+        real(*a)
+
+    flags = dict(debug_space=True, debug_fwdbwd=True, check_fwd_bwd=True,
+                 debug_grads=True, debug_time=True)
+    out = io.StringIO()
+    x = logits.detach().clone().requires_grad_(True)
+    mt.K.reset_launch_counts()
+    mt.fused.emit_loss_debug = keep
+    try:
+        with mt.config_override(**flags), rows12_capture(mt, 0) as cap, \
+                contextlib.redirect_stdout(out):
+            costs = mt.monotonic_rnnt_loss(x, labels, ilen, slen)
+            (costs * weights).sum().backward()
+            torch.cuda.synchronize()
+    finally:
+        mt.fused.emit_loss_debug = real
+    launches = launched(mt.K)
+    check(launches == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+          f"debug step launches {launches}")
+    text = out.getvalue()
+    for must in ("mrnnt space: pipeline=dp-fused-deferred-fwd",
+                 "mrnnt space: pipeline=dp-fused-deferred-bwd",
+                 "mrnnt fwdbwd: ll_fwd=", "mrnnt grads: min=",
+                 "[mrnnt] monotonic_rnnt_loss[cuda]: "):
+        check(must in text, f"debug flags: no line '{must}' in {text!r}")
+    check("mismatch" not in text, f"debug flags: {text!r}")
+    (ll_fwd, ll_bwd, _), = seen
+    gap = float((ll_fwd - ll_bwd).abs().max())
+    errs = compare_captured_rows12(mt, cap, "debug step")
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("mrnnt space", "[mrnnt]"))]
+    log(f"debug flags on the card: {' | '.join(lines)}; fwdbwd and grads "
+        f"lines printed, no mismatch; max |ll_fwd - ll_bwd| (row 2's "
+        f"betas[:, 0, 0]) {gap:.3g}")
+    return launches, errs
+
+
+def run_serving(mt, gpu, main_inputs, weights, e2e):
+    """The export path and the debug flags on the card: the provenance
+    stamp; the cuda loss artifact at the padded lattice in f32 and bf16
+    (bit for bit against the live loss, its row 1-2 calls held against the
+    plain versions, timed against the live call in turns); the reference
+    artifact; the greedy artifact at the model cell and the streaming
+    artifact at the streaming cell against the live decoders; the debug
+    flags on one training step. Returns (launches by path, max |d| by
+    path, figures)."""
+    t0 = time.perf_counter()
+    log("provenance: " + json.dumps(mt.provenance.provenance_stamp(
+        seed=SEED, device=DEVICE)))
+    errs, figures = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        e, figures[dtype_name(dtype)] = serving_loss(mt, main_inputs, dtype,
+                                                     e2e)
+        errs = {k: max(v, errs.get(k, 0.0)) for k, v in e.items()}
+    serving_reference(mt)
+    figures["greedy"] = serving_greedy(mt)
+    torch.cuda.empty_cache()
+    figures["stream"] = serving_stream(mt)
+    torch.cuda.empty_cache()
+    debug_launches, debug_errs = serving_debug(mt, main_inputs, weights)
+    log(f"serving timing ({gpu}): " + json.dumps(figures))
+    log(f"serving phase {time.perf_counter() - t0:.1f} s")
+    launches = {"export": {"stats_alpha_fused": 2, "beta_grad_fused": 2},
+                "export_debug": debug_launches}
+    return (launches, {"export": errs, "export_debug": debug_errs},
+            figures)
+
+
 # --- the sharded losses ---------------------------------------------------------
 
 SHARDED_WORLD = 4
@@ -4977,7 +5266,8 @@ class _Port:
                                                        fused, kernels,
                                                        split_kernels, stream)
         from monotonic_rnnt_tpu_torch.ops.cuda import banded as cuda_banded
-        from monotonic_rnnt_tpu_torch.utils import profiling
+        from monotonic_rnnt_tpu_torch import serving
+        from monotonic_rnnt_tpu_torch.utils import profiling, provenance
 
         pkg_dir = Path(pkg.__file__).resolve().parent
         if pkg_dir.parent != ROOT:
@@ -4988,6 +5278,7 @@ class _Port:
         self.rnnt_loss_fused_joint = pkg.rnnt_loss_fused_joint
         self.rnnt_loss_fused_joint_banded = pkg.rnnt_loss_fused_joint_banded
         self.config_override = pkg.config_override
+        self.rnnt_loss_reference = pkg.rnnt_loss_reference
         self.convert, self.build, self.fused, self.K = (convert, _build, fused,
                                                         kernels)
         self.bands, self.banded, self.BK = bands, banded, banded_kernels
@@ -4999,6 +5290,7 @@ class _Port:
         self.models, self.loss, self.cuda_banded = models, loss, cuda_banded
         self.alignment = alignment
         self.train, self.lm = train, lm
+        self.serving, self.provenance = serving, provenance
         for name in ("pack_acts", "unpack_acts", "monotonic_rnnt_loss_packed",
                      "viterbi_alignment", "viterbi_alignment_banded",
                      "occupancy_posteriors", "occupancy_posteriors_banded",
@@ -5081,6 +5373,8 @@ def main() -> int:
     # steps).
     main_inputs, restricted, band_case = moved(parked, DEVICE)
     del parked
+    serving_launches, serving_errs, _ = run_serving(mt, gpu, main_inputs,
+                                                    weights, e2e)
     align_launches, align_errs, align_timing = run_alignment(mt, band_case)
     ratio = (align_timing["viterbi_full_ms"]
              / band_e2e["float32"]["banded_fwd_bwd_ms"])
@@ -5101,10 +5395,12 @@ def main() -> int:
     # each kernel row, the paths that ran it.
     path_launches = {"split": split_launches, **fused_launches,
                      **sharded_launches, **packed_launches, **align_launches,
-                     **model_launches, **train_launches, **decode_launches}
+                     **model_launches, **train_launches, **decode_launches,
+                     **serving_launches}
     path_errs = {"split": {"grad_pass": split_errs[torch.float32][
         "grad_pass"]}, **fused_errs, **sharded_errs, **packed_errs,
-        **align_errs, **model_errs, **train_errs, **decode_errs}
+        **align_errs, **model_errs, **train_errs, **decode_errs,
+        **serving_errs}
     split_kernels = split_kernel_entries(split_errs, split_launches,
                                          split_rows)
     for entries, base in ((kernels, "padded"), (band_kernels, "banded"),
@@ -5127,7 +5423,7 @@ def main() -> int:
         for path in ("model", "model_fused_joint", "train",
                      "train_fused_joint", "train_dp", "train_tp", "decode",
                      "decode_lm", "stream", "stream_beam",
-                     "decode_marginal"):
+                     "decode_marginal", "export", "export_debug"):
             e["launches_by_path"].setdefault(path, 0)
         unheld = [p for p, n in e["launches_by_path"].items()
                   if n and p not in e["max_abs_err_by_path"]]

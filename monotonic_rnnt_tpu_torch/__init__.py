@@ -12,6 +12,11 @@ alignment and the occupancy posteriors. ``interop`` holds the reference's
 PyTorch binding surface, ``native`` the C++ engine it runs on CPU tensors.
 ``models`` holds the Conformer transducer whose loss step runs on the padded
 loss, ``data`` the synthetic batches, ``utils.metrics`` the edit distance.
+``serving`` exports the losses and the decoders as ``torch.export``
+artifacts; ``interop.tf_binding`` and ``interop.returnn_op`` hold the
+TensorFlow surface. ``utils.config`` holds the runtime flags (the debug
+flags read by ``utils.debug``), ``utils.provenance`` the stamp for
+measurements.
 """
 
 from .ops.alignment import (ViterbiResult, occupancy_posteriors,
@@ -29,6 +34,8 @@ from .ops.packing import monotonic_rnnt_loss_packed, pack_acts, unpack_acts
 from .ops.reference import rnnt_loss_reference
 from .utils.config import config_override, get_config, update_config
 from .utils.status import RnntError, Status
+
+__version__ = "0.3.0"
 
 __all__ = [
     "BandLayout",

@@ -316,7 +316,11 @@ def streaming_lookback(cfg: ConformerConfig) -> int:
 
 def sinusoidal_positions(t: int, dim: int, offset=0,
                          device=None) -> torch.Tensor:
-    """[t, dim] fixed sinusoidal position encodings (f32), from `offset`."""
+    """[t, dim] fixed sinusoidal position encodings (f32), from `offset`.
+
+    `offset` may be a 0-d tensor on `device`: chunked streaming recomputes
+    a sliding window whose absolute start moves with the stream.
+    """
     pos = (torch.arange(t, dtype=torch.float32, device=device)
            + offset)[:, None]
     half = dim // 2
@@ -344,7 +348,8 @@ class ConformerEncoder(nn.Module):
     def forward(self, feats, feat_lengths, deterministic: bool = True,
                 pos_offset=0, generator: Optional[torch.Generator] = None):
         """pos_offset: absolute output-frame index of feats' first frame
-        (in subsampled time), nonzero only for chunked streaming windows.
+        (in subsampled time; an int or a 0-d tensor), nonzero only for
+        chunked streaming windows.
         generator: dropout's (on feats' device), needed when
         deterministic=False and cfg.dropout > 0."""
         cfg = self.cfg

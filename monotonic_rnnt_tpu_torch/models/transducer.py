@@ -217,9 +217,11 @@ class MonotonicTransducer(nn.Module):
     def _stream_state_base(self, batch: int, feat_dim: int, lookback: int):
         """Shared frame-window state (buffer / n_seen / valid) + validation.
 
-        n_seen (input frames pushed) is the same for every stream, so it is
-        a Python int, known on the host: a chunk's window offsets need no
-        copy from the device."""
+        n_seen (input frames pushed, the same for every stream) is a 0-d
+        int32 tensor on the model's device, as in JAX: a chunk's window
+        and emitted slice are index arithmetic on it, so one exported
+        streaming_step serves every chunk, and no chunk copies it to the
+        host."""
         sub = self.cfg.encoder.subsample_factor
         if lookback % sub:
             raise ValueError(f"lookback {lookback} not a multiple of the "
@@ -227,7 +229,7 @@ class MonotonicTransducer(nn.Module):
         dev = self.joint.vocab_proj.weight.device
         return {"buffer": torch.zeros((batch, lookback, feat_dim),
                                       dtype=torch.float32, device=dev),
-                "n_seen": 0,
+                "n_seen": torch.zeros((), dtype=torch.int32, device=dev),
                 "valid": torch.zeros((batch,), dtype=torch.int32,
                                      device=dev)}
 
@@ -255,17 +257,23 @@ class MonotonicTransducer(nn.Module):
             (chunk_valid,) = self._inputs(chunk_valid)
         lookback = state["buffer"].shape[1]
         n_seen = state["n_seen"]
+        dev = n_seen.device
 
-        avail = min(n_seen, lookback)                    # multiple of sub
+        avail = torch.clamp(n_seen, max=lookback)       # multiple of sub
         history = torch.cat([state["buffer"], feat_chunk.float()], dim=1)
-        window = torch.roll(history, -(lookback - avail), dims=1)
+        # JAX's roll by -(lookback - avail), as a gather by index.
+        rolled = ((torch.arange(lookback + chunk_t, device=dev)
+                   + (lookback - avail)) % (lookback + chunk_t))
+        window = history.index_select(1, rolled)
         s0 = n_seen - avail                              # abs frame of w[0]
         valid_new = state["valid"] + chunk_valid.to(torch.int32)
-        win_lengths = torch.clamp(valid_new - s0, 0, avail + chunk_t)
+        win_lengths = torch.minimum(torch.clamp(valid_new - s0, min=0),
+                                    avail + chunk_t)
 
         enc_win, _ = self.encoder(window, win_lengths, True,
                                   pos_offset=s0 // sub)
-        emit_enc = enc_win[:, avail // sub:avail // sub + chunk_t // sub]
+        emit = avail // sub + torch.arange(chunk_t // sub, device=dev)
+        emit_enc = enc_win.index_select(1, emit)
         out_total = subsampled_length(enc_cfg, valid_new)   # [B]
         updates = {"buffer": history[:, chunk_t:],
                    "n_seen": n_seen + chunk_t, "valid": valid_new}
@@ -280,7 +288,7 @@ class MonotonicTransducer(nn.Module):
         with conformer.streaming_lookback(cfg.encoder); it must be a
         multiple of the subsample factor. The state is a dict with JAX's
         keys (buffer, n_seen, valid, pstate, ctx, hyp, n_hyp), n_seen a
-        Python int.
+        0-d int32 tensor.
         """
         dev = self.joint.vocab_proj.weight.device
         pstate, ctx = self._bos_context(batch)

@@ -40,7 +40,7 @@ from .bands import (BandLayout, Bands, LatticeMasks, band_final_slot,
                     compute_band_layout)
 from .helpers import (NEG_INF, extend_labels, log_sum_exp, mask_to_additive,
                       select_label_logits, shift_left_s, shift_right_s)
-from .loss import _resolve_backend
+from .loss import _resolve_backend, debug_timer
 from .reference import nonfinite_cost_cells
 
 
@@ -341,10 +341,11 @@ def monotonic_rnnt_loss_banded(
         # Under no_grad, ctx.needs_input_grad still follows requires_grad;
         # a detached input keeps the call on the cost-only route.
         logits_band = logits_band.detach()
-    return _BandedCore.apply(
-        logits_band, labels.to(dev),
-        input_lengths.to(device=dev, dtype=torch.int32),
-        label_lengths.to(device=dev, dtype=torch.int32),
-        bands.min_s.to(device=dev, dtype=torch.int32),
-        bands.max_s.to(device=dev, dtype=torch.int32), int(blank_id),
-        resolved)
+    with debug_timer(f"monotonic_rnnt_loss_banded[{resolved}]"):
+        return _BandedCore.apply(
+            logits_band, labels.to(dev),
+            input_lengths.to(device=dev, dtype=torch.int32),
+            label_lengths.to(device=dev, dtype=torch.int32),
+            bands.min_s.to(device=dev, dtype=torch.int32),
+            bands.max_s.to(device=dev, dtype=torch.int32), int(blank_id),
+            resolved)

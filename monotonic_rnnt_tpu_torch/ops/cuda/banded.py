@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...utils.debug import emit_loss_debug, report_space
 from ..banded import band_labels, band_occupancy_coefficients
 from ..bands import (Bands, band_final_slot, band_relative_bounds,
                      band_virtual_next_rows, compute_band_layout)
@@ -76,9 +77,11 @@ def _banded_grad_part(logits_band, labels, input_lengths, label_lengths,
     if grad_scale is not None:
         sc = grad_scale.to(torch.float32)[:, None, None]
         occ, cb, cl = occ * sc, cb * sc, cl * sc
-    return grad_pass(logits_band, denom, occ.contiguous(), cb.contiguous(),
-                     cl.contiguous(), lab_band, blank_id,
-                     out_dtype=logits_band.dtype)
+    grads = grad_pass(logits_band, denom, occ.contiguous(), cb.contiguous(),
+                      cl.contiguous(), lab_band, blank_id,
+                      out_dtype=logits_band.dtype)
+    emit_loss_debug(ll, betas[:, 0, 0], grads)
+    return grads
 
 
 def rnnt_loss_banded_cuda(
@@ -96,6 +99,8 @@ def rnnt_loss_banded_cuda(
     gradient comes in the logits' dtype. with_grads=False is the cost-only
     route: the stats kernel without the beta streams, then the alpha scan.
     """
+    report_space("banded", logits_band.shape, logits_band.dtype,
+                 reads=2 if with_grads else 1, writes=1 if with_grads else 0)
     costs, (denom, alphas, betas, ll) = _banded_fwd_parts(
         logits_band, labels, input_lengths, label_lengths, bands, blank_id,
         with_grads)

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...utils.config import get_config
+from ...utils.debug import emit_loss_debug, report_space
 from ..bands import Bands, _window_bounds, default_bands, lattice_masks
 from ..helpers import NEG_INF, extend_labels, mask_to_additive
 from ..reference import _gather_ll, occupancy_coefficients
@@ -101,9 +102,11 @@ def _dp_fused_grad_half(logits, labels_ext, ilen, slen, blank_id, denom,
     """beta_grad_fused + its small-array glue (the read+write backward)."""
     lpb_bmask, lpl_bmask, aprev_m, llb, beta_virtual = beta_grad_operands(
         lp_blank, lp_label, alphas, ll_fwd, slen, bwin)
-    grads, _ = beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask, aprev_m,
-                               ilen, llb, beta_virtual, labels_ext, blank_id,
-                               grad_scale=grad_scale)
+    grads, betas = beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask,
+                                   aprev_m, ilen, llb, beta_virtual,
+                                   labels_ext, blank_id,
+                                   grad_scale=grad_scale)
+    emit_loss_debug(ll_fwd, betas[:, 0, 0], grads)
     return grads
 
 
@@ -125,7 +128,10 @@ def rnnt_loss_cuda(
     """
     ilen, slen, bands, labels_ext = _prepare(logits, labels, input_lengths,
                                              label_lengths, bands)
-    if not deferred_grad_supported():
+    pipeline = "dp-fused" if deferred_grad_supported() else "split"
+    report_space(pipeline, logits.shape, logits.dtype,
+                 reads=2 if with_grads else 1, writes=1 if with_grads else 0)
+    if pipeline == "split":
         return _split(logits, labels_ext, ilen, slen, bands, blank_id,
                       with_grads)
     denom, lp_blank, lp_label, alphas, ll_fwd, bwin = _dp_fused_alpha_half(
@@ -164,8 +170,10 @@ def _split(logits, labels_ext, ilen, slen, bands, blank_id, with_grads):
         return -ll_fwd, None
     occ, cb, cl = occupancy_coefficients(alphas, betas, ll_fwd, ilen, slen)
     # The gradient in the logits' dtype (fused.py:131-135); the DP ran in f32.
-    return -ll_fwd, grad_pass(logits, denom, occ, cb, cl, labels_ext,
-                              blank_id, out_dtype=logits.dtype)
+    grads = grad_pass(logits, denom, occ, cb, cl, labels_ext, blank_id,
+                      out_dtype=logits.dtype)
+    emit_loss_debug(ll_fwd, betas[:, 0, 0], grads)
+    return -ll_fwd, grads
 
 
 def rnnt_loss_cuda_deferred_fwd(logits, labels, input_lengths, label_lengths,
@@ -182,6 +190,8 @@ def rnnt_loss_cuda_deferred_fwd(logits, labels, input_lengths, label_lengths,
     """
     ilen, slen, bands, labels_ext = _prepare(logits, labels, input_lengths,
                                              label_lengths, bands)
+    report_space("dp-fused-deferred-fwd", logits.shape, logits.dtype,
+                 reads=1, writes=0)
     denom, lp_blank, lp_label, alphas, ll_fwd, _ = _dp_fused_alpha_half(
         logits, labels_ext, ilen, slen, bands, blank_id)
     return -ll_fwd, (denom, lp_blank, lp_label, alphas, ll_fwd)
@@ -198,6 +208,8 @@ def rnnt_loss_cuda_deferred_bwd(logits, labels, input_lengths, label_lengths,
     """
     ilen, slen, bands, labels_ext = _prepare(logits, labels, input_lengths,
                                              label_lengths, bands)
+    report_space("dp-fused-deferred-bwd", logits.shape, logits.dtype,
+                 reads=1, writes=1)
     denom, lp_blank, lp_label, alphas, ll_fwd = residuals
     _, t_max, s1, _ = logits.shape
     _, _, bwin = _windows(ilen, slen, bands, t_max, s1)

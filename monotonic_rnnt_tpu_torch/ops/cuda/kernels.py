@@ -14,6 +14,14 @@ Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776, 1304-1360``:
   local slices. It and ``beta_grad_fused`` write every gradient row with
   the same device code (csrc/common.cuh's ``grad_row``).
 
+Rows 1 and 2 are ``torch.library`` operators
+(``torch.ops.mrnnt.stats_alpha_fused`` and ``beta_grad_fused``): the plain
+version is the CPU implementation, the launch (``stats_alpha_cuda``,
+``beta_grad_cuda``) the CUDA one, and a fake implementation gives the
+outputs' shapes, so a ``torch.export`` graph can hold them (serving.py).
+The live route calls the same operators. The other wrappers call ctypes on
+raw pointers, which a traced graph cannot hold.
+
 The banded kernels' wrappers (ops/cuda/banded_kernels.py), the split
 pipeline's (ops/cuda/split_kernels.py) and the copy-ceiling kernels'
 (ops/cuda/stream.py) count their launches here. Each wrapper takes its plain PyTorch version (same
@@ -229,18 +237,10 @@ def stats_alpha_fused_plain(logits, labels_ext, a_lo, a_hi, blank_id: int):
     return denom, lp_blank, lp_label, alphas
 
 
-def stats_alpha_fused(logits, labels_ext, a_lo, a_hi, blank_id: int):
-    """One read of the logits: log-softmax stats and the alpha recurrence.
-
-    logits [B, T, S1, V] f32 or bf16; labels_ext [B, S1] int32 (-1 on
-    invalid slots); a_lo / a_hi [B, T] int32 inclusive alpha windows,
-    already conjoined with t < T_b (hi < lo on invalid rows).
-    Returns (denom, lp_blank, lp_label, alphas), each [B, T, S1] f32;
-    lp_label is -inf where the label slot is invalid.
-    """
-    if logits.device.type == "cpu":
-        return stats_alpha_fused_plain(logits, labels_ext, a_lo, a_hi,
-                                       blank_id)
+def stats_alpha_cuda(logits, labels_ext, a_lo, a_hi, blank_id: int):
+    """The launch of mrnnt_stats_alpha_kernel behind the op's CUDA
+    implementation: checks, allocation, launch, count. Returns the stacked
+    [4, B, T, S1] f32 outputs."""
     batch, t_max, s1, _ = _check_logits(logits, blank_id)
     dev = logits.device
     _check(labels_ext, "labels_ext", torch.int32, (batch, s1), dev)
@@ -250,7 +250,49 @@ def stats_alpha_fused(logits, labels_ext, a_lo, a_hi, blank_id: int):
     sync = torch.zeros(batch * t_max + 2, dtype=torch.int32, device=dev)
     launch_stats_alpha(logits, labels_ext, a_lo, a_hi, blank_id, out, sync)
     LAUNCHES["stats_alpha_fused"] += 1
-    return tuple(out.unbind(0))
+    return out
+
+
+@torch.library.custom_op("mrnnt::stats_alpha_fused", mutates_args=(),
+                         device_types="cpu")
+def _stats_alpha_op(logits: torch.Tensor, labels_ext: torch.Tensor,
+                    a_lo: torch.Tensor, a_hi: torch.Tensor,
+                    blank_id: int) -> torch.Tensor:
+    """Row 1 as an operator: the plain version on the CPU, the kernel on
+    the card; [4, B, T, S1] f32 (denom, lp_blank, lp_label, alphas)."""
+    return torch.stack(stats_alpha_fused_plain(logits, labels_ext, a_lo,
+                                               a_hi, blank_id))
+
+
+@_stats_alpha_op.register_kernel("cuda")
+def _(logits, labels_ext, a_lo, a_hi, blank_id):
+    return stats_alpha_cuda(logits, labels_ext, a_lo, a_hi, blank_id)
+
+
+@_stats_alpha_op.register_fake
+def _(logits, labels_ext, a_lo, a_hi, blank_id):
+    batch, t_max, s1, _ = logits.shape
+    return logits.new_empty((4, batch, t_max, s1), dtype=torch.float32)
+
+
+def stats_alpha_fused(logits, labels_ext, a_lo, a_hi, blank_id: int):
+    """One read of the logits: log-softmax stats and the alpha recurrence.
+
+    logits [B, T, S1, V] f32 or bf16; labels_ext [B, S1] int32 (-1 on
+    invalid slots); a_lo / a_hi [B, T] int32 inclusive alpha windows,
+    already conjoined with t < T_b (hi < lo on invalid rows).
+    Returns (denom, lp_blank, lp_label, alphas), each [B, T, S1] f32;
+    lp_label is -inf where the label slot is invalid.
+
+    Goes through the operator ``torch.ops.mrnnt.stats_alpha_fused``, which
+    a torch.export graph can hold (its fake implementation gives the
+    shapes); the operator's outputs may not alias, so it returns one
+    stacked tensor and the four views are taken here.
+    """
+    if logits.device.type != "cpu":
+        _check_cuda(logits)
+    return tuple(torch.ops.mrnnt.stats_alpha_fused(
+        logits, labels_ext, a_lo, a_hi, blank_id).unbind(0))
 
 
 # --- beta + grad ---------------------------------------------------------------
@@ -342,25 +384,12 @@ def beta_grad_fused_plain(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
                            logits.dtype), betas
 
 
-def beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
-                    input_lengths, ll_bounded, beta_virtual, labels_ext,
-                    blank_id: int, grad_scale: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One read and one write of the big tensor: betas, occupancy, gradient.
-
-    lpb_bmask / lpl_bmask: stats with the beta window folded in (-inf
-    outside it). aprev_masked: [B, T, S1] f32 alpha(t-1, s) where the cell is
-    valid (t < T_b and ll finite), exactly -inf elsewhere. input_lengths [B]
-    int32; ll_bounded [B] f32 (ll, 0 where infeasible); beta_virtual [B, S1]
-    f32; labels_ext [B, S1] int32. grad_scale: optional [B] f32 per-sample
-    scale (the cost cotangent); None = 1.
-    Returns (grads [B, T, S1, V] in the logits' dtype, betas [B, T, S1] f32).
-    """
-    if logits.device.type == "cpu":
-        return beta_grad_fused_plain(logits, denom, lpb_bmask, lpl_bmask,
-                                     aprev_masked, input_lengths, ll_bounded,
-                                     beta_virtual, labels_ext, blank_id,
-                                     grad_scale)
+def beta_grad_cuda(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
+                   input_lengths, ll_bounded, beta_virtual, labels_ext,
+                   blank_id: int, grad_scale: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch of mrnnt_beta_grad_kernel behind the op's CUDA
+    implementation: checks, allocation, launch, count."""
     batch, t_max, s1, _ = _check_logits(logits, blank_id)
     dev = logits.device
     for name, t in (("denom", denom), ("lpb_bmask", lpb_bmask),
@@ -381,3 +410,56 @@ def beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
                      labels_ext, blank_id, grads, betas, coef, sync)
     LAUNCHES["beta_grad_fused"] += 1
     return grads, betas
+
+
+@torch.library.custom_op("mrnnt::beta_grad_fused", mutates_args=(),
+                         device_types="cpu")
+def _beta_grad_op(logits: torch.Tensor, denom: torch.Tensor,
+                  lpb_bmask: torch.Tensor, lpl_bmask: torch.Tensor,
+                  aprev_masked: torch.Tensor, input_lengths: torch.Tensor,
+                  ll_bounded: torch.Tensor, beta_virtual: torch.Tensor,
+                  labels_ext: torch.Tensor, blank_id: int,
+                  grad_scale: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 2 as an operator: the plain version on the CPU, the kernel on
+    the card; (grads in the logits' dtype, betas [B, T, S1] f32)."""
+    return beta_grad_fused_plain(logits, denom, lpb_bmask, lpl_bmask,
+                                 aprev_masked, input_lengths, ll_bounded,
+                                 beta_virtual, labels_ext, blank_id,
+                                 grad_scale=grad_scale)
+
+
+@_beta_grad_op.register_kernel("cuda")
+def _(logits, denom, lpb_bmask, lpl_bmask, aprev_masked, input_lengths,
+      ll_bounded, beta_virtual, labels_ext, blank_id, grad_scale):
+    return beta_grad_cuda(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
+                          input_lengths, ll_bounded, beta_virtual, labels_ext,
+                          blank_id, grad_scale=grad_scale)
+
+
+@_beta_grad_op.register_fake
+def _(logits, denom, lpb_bmask, lpl_bmask, aprev_masked, input_lengths,
+      ll_bounded, beta_virtual, labels_ext, blank_id, grad_scale):
+    return torch.empty_like(logits), torch.empty_like(denom)
+
+
+def beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
+                    input_lengths, ll_bounded, beta_virtual, labels_ext,
+                    blank_id: int, grad_scale: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One read and one write of the big tensor: betas, occupancy, gradient.
+
+    lpb_bmask / lpl_bmask: stats with the beta window folded in (-inf
+    outside it). aprev_masked: [B, T, S1] f32 alpha(t-1, s) where the cell is
+    valid (t < T_b and ll finite), exactly -inf elsewhere. input_lengths [B]
+    int32; ll_bounded [B] f32 (ll, 0 where infeasible); beta_virtual [B, S1]
+    f32; labels_ext [B, S1] int32. grad_scale: optional [B] f32 per-sample
+    scale (the cost cotangent); None = 1.
+    Returns (grads [B, T, S1, V] in the logits' dtype, betas [B, T, S1] f32),
+    through the operator ``torch.ops.mrnnt.beta_grad_fused``.
+    """
+    if logits.device.type != "cpu":
+        _check_cuda(logits)
+    return torch.ops.mrnnt.beta_grad_fused(
+        logits, denom, lpb_bmask, lpl_bmask, aprev_masked, input_lengths,
+        ll_bounded, beta_virtual, labels_ext, blank_id, grad_scale)

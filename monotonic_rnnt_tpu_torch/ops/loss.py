@@ -19,12 +19,14 @@ PyTorch counterpart of ``monotonic_rnnt_tpu/ops/loss.py``:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils.config import get_config
+from ..utils.profiling import phase_timer
 from ..utils.status import validate_loss_inputs
 from .bands import Bands, bands_from_alignment, default_bands
 from .cuda.fused import (deferred_grad_supported, rnnt_loss_cuda,
@@ -149,9 +151,20 @@ def monotonic_rnnt_loss(
         # Under no_grad, ctx.needs_input_grad still follows requires_grad;
         # a detached input keeps the call on the cost-only route.
         logits = logits.detach()
-    return _LossCore.apply(logits, labels, input_lengths, label_lengths,
-                           bands.min_s.to(dev), bands.max_s.to(dev),
-                           int(blank_id), resolved)
+    with debug_timer(f"monotonic_rnnt_loss[{resolved}]"):
+        return _LossCore.apply(logits, labels, input_lengths, label_lengths,
+                               bands.min_s.to(dev), bands.max_s.to(dev),
+                               int(blank_id), resolved)
+
+
+def debug_timer(name: str):
+    """The debug_time flag's timer around a public loss call (the JAX
+    package's loss.py:175-186): phase_timer waits for the card before and
+    after the call, so the time covers its device work. Not while
+    torch.export traces a graph, as JAX skips it on traced values."""
+    if get_config().debug_time and not torch.compiler.is_exporting():
+        return phase_timer(name)
+    return contextlib.nullcontext()
 
 
 def monotonic_rnnt_alignment_score(logits, labels, input_lengths,

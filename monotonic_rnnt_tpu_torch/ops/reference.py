@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.debug import emit_loss_debug
 from .bands import Bands, LatticeMasks, default_bands, lattice_masks
 from .helpers import (NEG_INF, extend_labels, log_sum_exp, mask_to_additive,
                       select_label_logits, shift_left_s, shift_right_s)
@@ -248,7 +249,7 @@ def rnnt_loss_reference(
     masks = lattice_masks(input_lengths, label_lengths, bands, t_max, s1)
     stats = compute_stats(logits, labels, label_lengths, blank_id)
 
-    alphas, betas, ll_fwd, _ = forward_backward(
+    alphas, betas, ll_fwd, ll_bwd = forward_backward(
         stats, masks, input_lengths, label_lengths, compute_betas=with_grads)
     costs = -ll_fwd
     if not with_grads:
@@ -261,4 +262,5 @@ def rnnt_loss_reference(
         logits, stats.denom, labels, label_lengths, occ, cb, cl, blank_id,
         open_cells=nonfinite_cost_cells(ll_fwd, input_lengths, label_lengths,
                                         s_idx, t_max))
+    emit_loss_debug(ll_fwd, ll_bwd, grads)
     return costs, grads

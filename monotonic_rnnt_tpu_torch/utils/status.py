@@ -39,7 +39,8 @@ def validate_loss_inputs(logits, labels, input_lengths, label_lengths) -> None:
     """Eager shape/dtype/length validation of the padded-layout API.
 
     Enforces the reference's constraints (cpu_workspace_manager.h:99-115):
-    B > 0, T_b > 0, S_b >= 0 and T_b >= S_b.
+    B > 0, T_b > 0, S_b >= 0 and T_b >= S_b. Under torch.export only the
+    shape and dtype checks run: the length values are data.
     """
     if logits.dim() != 4:
         raise RnntError(Status.INVALID_VALUE,
@@ -69,7 +70,11 @@ def validate_loss_inputs(logits, labels, input_lengths, label_lengths) -> None:
                             f"{str(arr.dtype).removeprefix('torch.')}")
 
     # The value checks need the lengths on the host: one copy of two [B]
-    # tensors, the same eager check the JAX version makes outside jit.
+    # tensors, the same eager check the JAX version makes outside jit. A
+    # graph that torch.export traces holds no such check, as a JAX
+    # artifact holds none on traced lengths (status.py:65-70).
+    if torch.compiler.is_exporting():
+        return
     ilen = input_lengths.detach().cpu()
     slen = label_lengths.detach().cpu()
     if bool((ilen <= 0).any()):

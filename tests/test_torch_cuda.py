@@ -269,6 +269,27 @@ def test_wrappers_check_their_operands(device):
         K.beta_grad_fused(lg, bg_args[1].cpu(), *bg_args[2:])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exported_cuda_loss_equals_the_live_loss(device, dtype):
+    """export_loss(backend='cuda') through bytes: the artifact launches rows
+    1-2 once each (the torch.library operators) and equals the live
+    rnnt_loss_cuda bit for bit; a wrong batch raises."""
+    from monotonic_rnnt_tpu_torch import serving
+
+    logits, labels, ilen, slen = golden.repeat_label_case(7, 4, 30, 8, 300)
+    args = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
+                                          device=device, dtype=dtype)
+    loss_fn = serving.import_fn(serving.export_loss(*args, backend="cuda"))
+    want_c, want_g = fused.rnnt_loss_cuda(*args)
+    K.reset_launch_counts()
+    got_c, got_g = loss_fn(*args)
+    torch.cuda.synchronize()
+    assert _launched() == {"stats_alpha_fused": 1, "beta_grad_fused": 1}
+    assert torch.equal(got_c, want_c) and torch.equal(got_g, want_g)
+    with pytest.raises(Exception):
+        loss_fn(*(a[:2] for a in args))
+
+
 # --- the banded path -------------------------------------------------------------
 
 # (seed, B, T, S, V, shift, blank); shift None = the unrestricted band at

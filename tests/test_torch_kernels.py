@@ -176,3 +176,79 @@ def test_library_name_hashes_sources_and_flags(monkeypatch):
         assert _build.library_path(name) == path
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path("stats_alpha") != paths["stats_alpha"]
+
+
+# --- rows 1-2 as torch.library operators ------------------------------------
+
+def _op_args(shape, dtype, scaled):
+    """Both operators' arguments at `shape` (the CPU implementations'
+    inputs, from the plain stats+alpha)."""
+    t_in, _ = _inputs(*shape, dtype=dtype)
+    tl, tlab, ti, ts = t_in
+    ilen, slen, bands, lab = fused._prepare(tl, tlab, ti, ts, None)
+    a_lo, a_hi, _ = fused._windows(ilen, slen, bands, tl.shape[1],
+                                   tl.shape[2])
+    ops = _beta_operands(t_in, shape[5])
+    scale = torch.linspace(-0.5, 2.0, shape[1]) if scaled else None
+    return ((tl, lab, a_lo, a_hi, shape[5]),
+            (*ops, shape[5], scale))
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "scaled"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES[:3:2], ids=_shape_id)
+def test_rows_1_2_operators_pass_opcheck(shape, dtype, scaled):
+    """torch.library.opcheck on each operator's CPU implementation: schema,
+    fake (shape-only) implementation against the real one, and the graph
+    that AOT dispatch traces."""
+    sa_args, bg_args = _op_args(shape, dtype, scaled)
+    torch.library.opcheck(torch.ops.mrnnt.stats_alpha_fused.default,
+                          sa_args)
+    torch.library.opcheck(torch.ops.mrnnt.beta_grad_fused.default, bg_args)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rows_1_2_fake_outputs_match_the_plain_versions(dtype):
+    """Under FakeTensorMode (what torch.export traces with) the operators
+    give the plain versions' shapes and dtypes, and no values."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    sa_args, bg_args = _op_args(SHAPES[1], dtype, True)
+    want_sa = tk.stats_alpha_fused_plain(*sa_args)
+    want_bg = tk.beta_grad_fused_plain(*bg_args[:-1], grad_scale=bg_args[-1])
+    with FakeTensorMode() as mode:
+        fake = lambda args: [mode.from_tensor(a) if torch.is_tensor(a)
+                             else a for a in args]
+        got_sa = tk.stats_alpha_fused(*fake(sa_args))
+        got_bg = tk.beta_grad_fused(*fake(bg_args[:-1]),
+                                    grad_scale=fake(bg_args[-1:])[0])
+    assert len(got_sa) == 4 and len(got_bg) == 2
+    for g, w in zip((*got_sa, *got_bg), (*want_sa, *want_bg)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert type(g).__name__ == "FakeTensor"
+
+
+def test_rows_1_2_wrappers_call_the_operators(monkeypatch):
+    """The live route goes through torch.ops.mrnnt: one call of each
+    operator per training step of the padded loss's deferred route."""
+    calls = []
+    real = torch.ops.mrnnt
+
+    class Ops:
+        def __getattr__(self, name):
+            op = getattr(real, name)
+
+            def counted(*a, **k):
+                calls.append(name)
+                return op(*a, **k)
+            return counted
+
+    monkeypatch.setattr(torch.ops, "mrnnt", Ops())
+    t_in, _ = _inputs(*SHAPES[0], dtype="f32")
+    x = t_in[0].clone().requires_grad_(True)
+    bands = tbands.default_bands(t_in[2], t_in[3], x.shape[1])
+    from monotonic_rnnt_tpu_torch.ops import loss as tloss
+    costs = tloss._LossCore.apply(x, t_in[1], t_in[2], t_in[3], bands.min_s,
+                                  bands.max_s, SHAPES[0][5], "cuda")
+    costs.sum().backward()
+    assert calls == ["stats_alpha_fused", "beta_grad_fused"]
