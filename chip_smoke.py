@@ -210,6 +210,33 @@ check_fwd_bwd, debug_grads and debug_time on: each line printed, row 2's
 betas handed to emit_loss_debug with no mismatch, the step's rows 1-2 calls
 held against the plain versions (path export_debug).
 
+After the packed phase, ``phase_gather_cost`` times on the host the
+final-cell gather with its bounds check (JAX's out-of-bounds fill, which an
+exported loss needs) against the bare gather, beside the host time of a
+training step of the oracle, the vocab-sharded core and the banded loss at
+a small lattice: the check's cost against each step's quartile spread.
+
+The acceptance phase (``run_acceptance``, last, after the traced phases:
+it allocates 8.4 GB and runs thousands of small ops) runs the
+port's acceptance harness short (``monotonic_rnnt_tpu_torch/scripts/``):
+``fuzz_gpu``'s overflow probe (the NaN-cost input with finite logits at
+c = 50, 100 and 1e4 through rows 1-2 and rows 3, 4, 6: the same
+non-finite gradient cells as the plain versions and the oracle) and its
+ACCEPTANCE_CASES drawn cases at seed 0 (each the kernel route under its
+drawn pipeline against the oracle, banded cases on the packed layout too;
+among them cases at scale 50/100, sharded cases on a one-rank gloo group
+with a NaN-cost sample, and export cases at T_b = T + 1 and S_b = S + 1
+through the reference and cuda artifacts), then ``gpu_acceptance``'s
+large-V, odd-V, large-shape and over-cap parity checks, which no other
+phase makes. A Hold shims every kernel wrapper for the phase: each call
+on the card is held, before it returns, against its plain version on the
+same operands (the same NaN cells, the rest within the kernel checks'
+tolerances), and every launch must be a held call. Its launches go into
+the kernels JSON under the path acceptance, with each kernel's max |d|
+against its plain version; it prints the fuzz's and each check's seconds,
+the losses' worst |d| against the oracle and the phase's seconds against
+its 120 s budget.
+
 The packed-layout, binding and alignment paths run last, so that every
 figure above is taken in the same state as without them. The alignment phase
 (``run_alignment``) runs ``viterbi_alignment`` on the banded case's full
@@ -340,6 +367,12 @@ Tolerances, each with its reason:
     artifact against the oracle as tests/test_serving.py holds it (costs
     1e-6 relative, gradients 1e-6 + 1e-7); the decoder artifacts token for
     token against the live decoders on the card (the same ops);
+  * the acceptance phase: fuzz_tpu's tolerances (costs 2e-3 relative to
+    max(1, |cost|), gradients 1e-3; 2e-2 in bf16; at scale 50 and 100 the
+    non-finite gradient cells the same cells and the finite ones within
+    those), the export cases' out-of-range samples NaN with a zero
+    gradient; tpu_acceptance.py's parity tolerances (costs 1e-3, gradients
+    5e-4 absolute; the over-cap shapes costs 2e-3; bf16 2e-2);
   * the decoders: hypotheses equal token for token, or first apart at a
     frame whose reference margin is below 1e-4 (phase_model_decode's rule:
     two sides' matmuls round apart, ~1e-6 in a logit); the scores of equal
@@ -366,6 +399,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from monotonic_rnnt_tpu_torch.scripts._cases import (CheckFailed, assert_close,
+                                                     banded_case, check,
+                                                     make_inputs,
+                                                     random_alignment)
+
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 B, T, S, V = 32, 200, 50, 1000
@@ -390,30 +428,9 @@ def log(msg: str) -> None:
     print(LOG_PREFIX + msg, flush=True)
 
 
-class CheckFailed(AssertionError):
-    pass
-
-
 def launched(K) -> dict:
     """The wrappers that launched since the last reset, with their counts."""
     return {name: n for name, n in K.LAUNCHES.items() if n}
-
-
-def check(cond: bool, what: str) -> None:
-    if not cond:
-        raise CheckFailed(what)
-
-
-def assert_close(got, ref, atol: float, rtol: float, what: str) -> float:
-    got, ref = got.detach().float(), ref.detach().float()
-    diff = torch.where(got == ref, 0.0, (got - ref).abs())
-    bad = ~(diff <= atol + rtol * ref.abs())  # NaN counts as bad
-    err = float(diff.max())
-    if bool(bad.any()):
-        idx = tuple(int(i) for i in torch.nonzero(bad)[0])
-        raise CheckFailed(f"{what}: max |d| {err:.3g}; first bad index {idx}: "
-                          f"got {float(got[idx])!r} ref {float(ref[idx])!r}")
-    return err
 
 
 def worst_share(got, ref, atol: float, rtol: float) -> float:
@@ -598,6 +615,88 @@ def compare_captured(mt, cap, what):
     return errs
 
 
+def hold_close(got, ref, atol, rtol, what):
+    """assert_close, where NaN on both sides at the same cells counts as
+    equal (a NaN-cost sample's cells, an overflowed gradient's)."""
+    nan = torch.isnan(ref)
+    check(torch.equal(torch.isnan(got), nan), f"{what}: NaN cells differ "
+          f"({int(torch.isnan(got).sum())} vs {int(nan.sum())})")
+    return assert_close(got.masked_fill(nan, 0), ref.masked_fill(nan, 0),
+                        atol, rtol, what)
+
+
+class Hold:
+    """Shims over every kernel wrapper a loss route can reach (the names
+    its calling modules imported, and rows 1-2's operator implementations
+    on mt.K) that hold each call on the card, as the path makes it, against
+    the wrapper's plain version on the same arguments (hold_close, at
+    compare_captured's and compare_kernels' tolerances; 8e-3 relative on a
+    bf16 output). The plain version runs before the call returns, so no
+    operand is kept and no kernel launched beside the path's own: the
+    counts stay the path's. calls[row] counts the held calls, errs[row]
+    their max |d|."""
+
+    CALLERS = ("fused", "cuda_banded", "sharding", "collective", "chunked",
+               "chunked_banded", "alignment")
+
+    def __init__(self, mt, what):
+        self.mt, self.what, self.pairs = mt, what, plain_pairs(mt)
+        self.errs, self.calls, self.saved = {}, {}, []
+
+    def __enter__(self):
+        for caller in self.CALLERS:
+            module = getattr(self.mt, caller)
+            for name, (kern, *_) in self.pairs.items():
+                if getattr(module, name, None) is kern:
+                    self._shim(module, name, name)
+        for name, row in zip(SERVING_OPS, ("stats_alpha_fused",
+                                           "beta_grad_fused")):
+            self._shim(self.mt.K, name, row)
+        return self
+
+    def _shim(self, module, name, row):
+        fn = getattr(module, name)
+        self.saved.append((module, name, fn))
+
+        def shim(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if args[0].is_cuda:
+                with torch.no_grad():
+                    self._hold(row, args, kwargs, out)
+            return out
+
+        setattr(module, name, shim)
+
+    def _hold(self, row, args, kwargs, out):
+        K = self.mt.K
+        if row == "stats_alpha_fused":     # the stacked [4, B, T, S1]
+            ref = torch.stack(K.stats_alpha_fused_plain(*args, **kwargs))
+            outs = [(out[:3], ref[:3], 1e-5, 1e-6),
+                    (out[3], ref[3], 1e-4, 1e-5)]
+        elif row == "beta_grad_fused":
+            ref = K.beta_grad_fused_plain(*args, **kwargs)
+            outs = [(out[0], ref[0], 1e-6, 1e-4), (out[1], ref[1], 1e-4, 1e-5)]
+        else:
+            _, plain, atol, rtol = self.pairs[row]
+            ref = plain(*args, **kwargs)
+            out, ref = ((out, ref) if isinstance(out, tuple)
+                        else ((out,), (ref,)))
+            outs = [(g, r, atol, rtol) for g, r in zip(out, ref)]
+        n = self.calls.get(row, 0)
+        shape = "x".join(map(str, args[0].shape))
+        err = max(hold_close(g, r, atol,
+                             8e-3 if g.dtype == torch.bfloat16 else rtol,
+                             f"{self.what} {row} call {n} [{shape}] output "
+                             f"{i}")
+                  for i, (g, r, atol, rtol) in enumerate(outs))
+        self.errs[row] = max(self.errs.get(row, 0.0), err)
+        self.calls[row] = n + 1
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self.saved):
+            setattr(module, name, fn)
+
+
 def compare_captured_rows12(mt, cap, what,
                             names=("stats_alpha_fused", "beta_grad_fused")):
     """Rows 1-2's captured calls (a Capture on mt.fused keeping the same
@@ -640,27 +739,6 @@ def fused_joint_capture(module, n_chunks, beta_name="beta_scan",
 
 
 # --- inputs ---------------------------------------------------------------------
-
-def make_inputs(mt, b, t, s, v, *, blank=0, dtype=torch.float32, seed=SEED,
-                t_range=None, s_range=None, device="cuda"):
-    """Seeded inputs on `device`: logits ~ 2*N(0,1), non-blank labels with a
-    planted repeat, lengths drawn from the given ranges (default: full)."""
-    rng = np.random.RandomState(seed)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    logits = (torch.randn((b, t, s + 1, v), generator=gen, device=device)
-              * 2).to(dtype)
-    labels = rng.randint(0, v - 1, size=(b, s))
-    labels = np.where(labels >= blank, labels + 1, labels)
-    if s >= 3:
-        labels[:, s // 2] = labels[:, s // 2 - 1]
-    ilen = (rng.randint(t_range[0], t_range[1] + 1, size=b) if t_range
-            else np.full(b, t))
-    slen = (rng.randint(s_range[0], s_range[1] + 1, size=b) if s_range
-            else np.full(b, s))
-    slen = np.minimum(slen, ilen)
-    as_int = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
-    return logits, as_int(labels), as_int(ilen), as_int(slen)
-
 
 def kernel_operands(mt, logits, labels, ilen, slen, blank, bands=None):
     """Operands of both wrappers, from the plain stats+alpha on the card."""
@@ -741,7 +819,7 @@ def edge_operands(mt, case, dtype):
     if ilen is None:
         ilen = 2 + np.arange(b) % 3
         slen = np.minimum(np.arange(b) % 3, ilen)
-    lg, lab, il, sl = make_inputs(mt, b, t, s, v, blank=blank, dtype=dtype,
+    lg, lab, il, sl = make_inputs(b, t, s, v, blank=blank, dtype=dtype,
                                   seed=1, device=DEVICE)
     il = torch.as_tensor(np.asarray(ilen), dtype=torch.int32, device=DEVICE)
     sl = torch.as_tensor(np.asarray(slen), dtype=torch.int32, device=DEVICE)
@@ -803,7 +881,7 @@ def probe_bf16_accumulation(mt):
     values at the f32 tolerances for the stats and the DP, and within one
     bf16 ulp (their f32 result rounded) for the gradient."""
     K = mt.K
-    lg, lab, il, sl = make_inputs(mt, 4, 40, 12, 1000, dtype=torch.bfloat16,
+    lg, lab, il, sl = make_inputs(4, 40, 12, 1000, dtype=torch.bfloat16,
                                   seed=2, t_range=(30, 40), s_range=(6, 12),
                                   device=DEVICE)
     sa16, bg16, scale = kernel_operands(mt, lg, lab, il, sl, 0)
@@ -830,7 +908,7 @@ def phase_kernels(mt, main_inputs):
     for (b, t, s, v, blank) in ((3, 17, 6, 79, 5), (2, 391, 300, 79, 0),
                                 (1, 1200, 1100, 16, 3)):
         for dtype in (torch.float32, torch.bfloat16):
-            lg, lab, il, sl = make_inputs(mt, b, t, s, v, blank=blank,
+            lg, lab, il, sl = make_inputs(b, t, s, v, blank=blank,
                                           dtype=dtype, seed=1, t_range=(s, t),
                                           s_range=(0, s))
             compare_kernels(mt, *kernel_operands(mt, lg, lab, il, sl, blank),
@@ -955,15 +1033,6 @@ def phase_goldens(mt, golden, route="deferred"):
         "multibatch 0.39/0.363, restricted 0.2958/0.072/0.192/0.0672 ok")
 
 
-def random_alignment(rng, ilen, slen, labels, t_max, blank=0):
-    """Frames of each sample's S_b labels, drawn at random among its T_b."""
-    align = np.full((len(ilen), t_max), blank, np.int32)
-    for b, (tb, sb) in enumerate(zip(ilen, slen)):
-        frames = np.sort(rng.choice(tb, size=sb, replace=False))
-        align[b, frames] = labels[b, :sb]
-    return align
-
-
 def phase_restricted(mt, main_inputs, weights):
     """Returns the alignment and the CUDA route's (costs, grads) at +-8."""
     logits, labels, ilen, slen = main_inputs
@@ -989,7 +1058,7 @@ def phase_restricted(mt, main_inputs, weights):
         f"{float(out['cuda'][0].mean()):.4f}")
 
     # Infeasible sample: no aligned label, S_b = 3, exact path (shift 0).
-    lg, lab, il, sl = make_inputs(mt, 3, 12, 4, 20, seed=3)
+    lg, lab, il, sl = make_inputs(3, 12, 4, 20, seed=3)
     sl[2] = 3
     align_inf = torch.zeros((3, 12), dtype=torch.int32, device="cuda")
     align_inf[0, :4] = lab[0]
@@ -1004,7 +1073,7 @@ def phase_restricted(mt, main_inputs, weights):
           "infeasible sample: gradient exactly zero, all finite")
 
     # +-inf padding logits: same costs as finite padding, zero gradient there.
-    lg, lab, il, sl = make_inputs(mt, 3, 12, 4, 20, seed=4, t_range=(5, 12),
+    lg, lab, il, sl = make_inputs(3, 12, 4, 20, seed=4, t_range=(5, 12),
                                   s_range=(1, 4))
     padded = lg.clone()
     for b in range(3):
@@ -1188,32 +1257,6 @@ def phase_timing(mt, main_inputs, weights, errs, main_launches):
 def leaf(x, dtype):
     """A fresh leaf copy in `dtype` (x.to(x.dtype) would be x itself)."""
     return x.detach().to(dtype).clone().requires_grad_(True)
-
-
-def banded_case(mt, b, t, s, v, shift, seed=SEED):
-    """The banded acceptance case, built as benchmarks/banded_bench.py:30-54
-    builds it, with the port's own functions: logits N(0,1) and labels from
-    RandomState(seed), full-length utterances, a random monotonic alignment,
-    then bands_from_alignment, suggested_band_width, compute_band_layout and
-    pack_band."""
-    bd = mt.bands
-    rng = np.random.RandomState(seed)
-    logits = torch.from_numpy(
-        rng.randn(b, t, s + 1, v).astype(np.float32)).to(DEVICE)
-    labels = rng.randint(1, v, size=(b, s)).astype(np.int32)
-    align = np.zeros((b, t), np.int32)
-    for i in range(b):
-        pos = np.sort(rng.choice(t, size=s, replace=False))
-        align[i, pos] = labels[i]
-    as_int = lambda a: torch.as_tensor(a, dtype=torch.int32, device=DEVICE)
-    ilen, slen = as_int(np.full(b, t)), as_int(np.full(b, s))
-    bands = bd.bands_from_alignment(as_int(align), ilen, slen, shift, 0)
-    w_req = int(bd.required_band_width(ilen, slen, bands, t, s + 1))
-    w = bd.suggested_band_width(ilen, slen, bands, t, s + 1)
-    layout = bd.compute_band_layout(ilen, slen, bands, t, s + 1, w)
-    return {"logits": logits, "logits_band": bd.pack_band(logits, layout),
-            "labels": as_int(labels), "ilen": ilen, "slen": slen,
-            "bands": bands, "layout": layout, "w": w, "w_req": w_req}
 
 
 def banded_operands(mt, case, weights, dtype):
@@ -1640,7 +1683,7 @@ def run_banded(mt, golden, main_inputs, weights, restricted):
     case itself (for run_alignment)."""
     b, t, s, v = BANDED_CASE
     t0 = time.perf_counter()
-    case = banded_case(mt, b, t, s, v, BAND_SHIFT)
+    case = banded_case(b, t, s, v, BAND_SHIFT, device=DEVICE)
     log(f"banded case B={b},T={t},S={s},V={v}, shift {BAND_SHIFT}: band width "
         f"W={case['w']} (required {case['w_req']}) of S+1={s + 1}; built in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1920,7 +1963,7 @@ def run_split(mt, golden, main_inputs, weights):
         (4, 300, s1 - 1, 30, 0) for s1 in (31, 32, 33, 64, 65, 96, 97, 128,
                                            129, 256, 257)]
     for (b, t, s, v, blank) in cases:
-        lg, lab, il, sl = make_inputs(mt, b, t, s, v, blank=blank, seed=2,
+        lg, lab, il, sl = make_inputs(b, t, s, v, blank=blank, seed=2,
                                       t_range=(max(s, 1), t),
                                       s_range=(0, s))
         compare_split_kernels(mt, split_operands(mt, lg, lab, il, sl, blank),
@@ -4212,7 +4255,7 @@ def run_rank(mt, rank, tmp):
     meshes = {shape: par.make_mesh(*shape, device=DEVICE)
               for shape in ((2, 2), (1, 4), (4, 1))}
     padded = torch.load(tmp / "padded.pt", map_location=DEVICE)
-    inputs = make_inputs(mt, B, T, S, V, seed=SEED, t_range=(3 * T // 4, T),
+    inputs = make_inputs(B, T, S, V, seed=SEED, t_range=(3 * T // 4, T),
                          s_range=(3 * S // 5, S), device=DEVICE)
     weights = torch.linspace(-0.5, 2.0, B, device=DEVICE)
     out = {"launches": {}, "errs": {}, "fused": {}}
@@ -4229,7 +4272,7 @@ def run_rank(mt, rank, tmp):
             if first:
                 out["launches"]["tp_padded"] = launches
                 path_errs["tp_padded"] = errs
-    blank_inputs = make_inputs(mt, B, T, S, V, blank=SHARDED_BLANK,
+    blank_inputs = make_inputs(B, T, S, V, blank=SHARDED_BLANK,
                                seed=SEED, t_range=(3 * T // 4, T),
                                s_range=(3 * S // 5, S), device=DEVICE)
     tp_padded(mt, meshes[1, 4], blank_inputs, torch.float32, SHARDED_BLANK,
@@ -5122,6 +5165,133 @@ def run_packed(mt, golden, main_inputs, weights, restricted):
     return {"packed": launches}, {"packed": kernel_errs}, timing
 
 
+# --- the checked final-cell gather -------------------------------------------
+
+GATHER_CASE = (8, 50, 10, 128)   # B, T, S, V of the live calls
+GATHER_REPS = 200                # host timings of each gather
+GATHER_CALL_REPS = 40            # host timings of each live call
+
+
+def host_ms(fn, reps):
+    """The host time of fn() in ms (perf_counter around each call, from an
+    idle card; the call's device work finishes after the reading), after
+    three warm-up calls: the median and quartiles over `reps`."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    q1, med, q3 = statistics.quantiles(times, n=4)
+    return {"median": med, "q1": q1, "q3": q3}
+
+
+def phase_gather_cost(mt):
+    """The host time that the final-cell gather's bounds check adds
+    (reference._gather_ll: take_index on both indices and a NaN fill, JAX's
+    out-of-bounds rule, which an exported artifact needs; band_final_slot
+    checks T_b the same way), against the bare gather it replaced and
+    against the host time of one training step of each live route that
+    makes it, at GATHER_CASE: the oracle, the vocab-sharded core on a
+    one-rank gloo group and the banded loss. Returns the figures, each
+    call's spread (q3 - q1) beside the check's cost."""
+    from monotonic_rnnt_tpu_torch.scripts._cases import (costs_and_grads,
+                                                         one_rank_group)
+
+    b, t, s, v = GATHER_CASE
+    x, labels, ilen, slen = make_inputs(b, t, s, v, seed=5,
+                                        t_range=(s + 1, t), s_range=(0, s),
+                                        device=DEVICE)
+    alphas = torch.randn((b, t, s + 1), device=DEVICE)
+
+    def bare():      # the gather without the check
+        b_idx = torch.arange(alphas.shape[0], device=alphas.device)
+        t_last = (ilen.to(torch.int64) - 1).clamp(min=0)
+        return alphas[b_idx, t_last, slen.to(torch.int64)]
+
+    checked = lambda: mt.fused._gather_ll(alphas, ilen, slen)
+    check(torch.equal(bare(), checked()), "the checked gather differs from "
+          "the bare one on in-range lengths")
+    figs = {"bare_gather": host_ms(bare, GATHER_REPS),
+            "checked_gather": host_ms(checked, GATHER_REPS)}
+    cost = figs["checked_gather"]["median"] - figs["bare_gather"]["median"]
+    bands = mt.bands.default_bands(ilen, slen, t)
+    band = banded_case(b, t, s, v, 2, seed=5, device=DEVICE)
+    with one_rank_group() as group:
+        calls = {
+            "oracle_step": (lambda z: mt.monotonic_rnnt_loss(
+                z, labels, ilen, slen, backend="reference"), x),
+            "vocab_sharded_step": (lambda z: mt.par.rnnt_loss_vocab_sharded(
+                z, labels, ilen, slen, bands.min_s, bands.max_s, 0, group),
+                x),
+            "banded_step": (lambda z: mt.monotonic_rnnt_loss_banded(
+                z, band["labels"], band["ilen"], band["slen"],
+                bands=band["bands"]), band["logits_band"])}
+        for name, (fn, arg) in calls.items():
+            figs[name] = host_ms(lambda: costs_and_grads(fn, arg),
+                                 GATHER_CALL_REPS)
+            figs[name]["spread"] = figs[name]["q3"] - figs[name]["q1"]
+    figs["check_cost_ms"] = cost
+    log(f"final-cell gather at B,T,S,V={GATHER_CASE} ({gpu_line()}), host "
+        f"ms: {json.dumps(figs)}; the check adds {cost * 1e3:.1f} us a call")
+    return figs
+
+
+# --- the acceptance and fuzz harness ---------------------------------------------
+
+ACCEPTANCE_CASES = 40     # fuzz_gpu cases at seed 0: the phase in <= 120 s
+ACCEPTANCE_SEED = 0
+# gpu_acceptance's checks that no other phase makes (by name substring).
+ACCEPTANCE_CHECKS = ("large-V", "odd-V", "large-shape", "over-cap")
+ACCEPTANCE_N_CHECKS = 6
+
+
+def run_acceptance(mt):
+    """The port's acceptance harness, short: fuzz_gpu's overflow probe and
+    ACCEPTANCE_CASES drawn cases at seed 0 (among them at least one case
+    of each dimension the harness adds: scale 50/100, sharded, export),
+    then the gpu_acceptance checks that no other phase makes, all under a
+    Hold: every kernel call the phase makes is held against its plain
+    version on its own operands. Returns the phase's launches (path
+    acceptance), each launched kernel's max |d| against its plain version,
+    and the timing (with the phase's worst |d| of the losses against the
+    oracle)."""
+    from monotonic_rnnt_tpu_torch.scripts import fuzz_gpu, gpu_acceptance
+
+    K, dev = mt.K, torch.device(DEVICE)
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    with Hold(mt, "acceptance") as hold:
+        fuzz = fuzz_gpu.run(ACCEPTANCE_CASES, ACCEPTANCE_SEED, dev, log=log)
+        check(fuzz["ok"], f"fuzz_gpu failed: {fuzz['failed_case']}")
+        drawn = fuzz["drawn"]
+        check(all(drawn[k] for k in ("overflow_scale", "sharded", "export")),
+              f"the fuzz cases drew no case of an added dimension: {drawn}")
+        acc = gpu_acceptance.Acceptance(dev, only=ACCEPTANCE_CHECKS, log=log)
+        gpu_acceptance.run(acc)
+        check(not acc.failures, f"acceptance checks failed: {acc.failures}")
+        check(len(acc.results) == ACCEPTANCE_N_CHECKS,
+              f"{len(acc.results)} acceptance checks ran, not "
+              f"{ACCEPTANCE_N_CHECKS}")
+        torch.cuda.synchronize()
+    launches = launched(K)
+    check(hold.calls == launches, f"acceptance: held calls {hold.calls}, "
+          f"launches {launches}")
+    timing = {"fuzz_cases": ACCEPTANCE_CASES, "fuzz_s": fuzz["seconds"],
+              "fuzz_drawn": drawn,
+              "checks_s": {r["name"]: r["seconds"] for r in acc.results},
+              "oracle_max_abs_err": max([fuzz["max_abs_err"]] + [
+                  r["max_abs_err"] for r in acc.results]),
+              "phase_s": time.perf_counter() - t0}
+    log(f"acceptance phase ({gpu_line()}): {json.dumps(timing)}; launches "
+        f"{launches}, each held against its plain version: max |d| "
+        + json.dumps(hold.errs))
+    return {"acceptance": launches}, {"acceptance": hold.errs}, timing
+
+
 # --- Viterbi alignment ----------------------------------------------------------
 
 def run_alignment(mt, case):
@@ -5324,7 +5494,7 @@ def main() -> int:
     phase_build(mt)
     rates, stream_entries = run_ceiling(mt)
 
-    main_inputs = make_inputs(mt, B, T, S, V, seed=SEED,
+    main_inputs = make_inputs(B, T, S, V, seed=SEED,
                               t_range=(3 * T // 4, T), s_range=(3 * S // 5, S))
     weights = torch.linspace(-0.5, 2.0, B, device="cuda")  # one negative
     errs = phase_kernels(mt, main_inputs)
@@ -5386,21 +5556,23 @@ def main() -> int:
         mt, golden, main_inputs, weights, restricted)
     log(f"end-to-end packed loss at B={B},T={T},S={S},V={V}: "
         f"{json.dumps(packed_e2e)}")
+    phase_gather_cost(mt)
     phase_trace(mt, main_inputs, weights)
     del main_inputs, restricted
     phase_model_trace(mt)
     phase_decode_trace(mt)
     torch.cuda.empty_cache()
+    acc_launches, acc_errs, _ = run_acceptance(mt)
     # Every path's launches and kept calls' max |d|; by_path takes, for
     # each kernel row, the paths that ran it.
     path_launches = {"split": split_launches, **fused_launches,
                      **sharded_launches, **packed_launches, **align_launches,
                      **model_launches, **train_launches, **decode_launches,
-                     **serving_launches}
+                     **serving_launches, **acc_launches}
     path_errs = {"split": {"grad_pass": split_errs[torch.float32][
         "grad_pass"]}, **fused_errs, **sharded_errs, **packed_errs,
         **align_errs, **model_errs, **train_errs, **decode_errs,
-        **serving_errs}
+        **serving_errs, **acc_errs}
     split_kernels = split_kernel_entries(split_errs, split_launches,
                                          split_rows)
     for entries, base in ((kernels, "padded"), (band_kernels, "banded"),
@@ -5423,7 +5595,8 @@ def main() -> int:
         for path in ("model", "model_fused_joint", "train",
                      "train_fused_joint", "train_dp", "train_tp", "decode",
                      "decode_lm", "stream", "stream_beam",
-                     "decode_marginal", "export", "export_debug"):
+                     "decode_marginal", "export", "export_debug",
+                     "acceptance"):
             e["launches_by_path"].setdefault(path, 0)
         unheld = [p for p, n in e["launches_by_path"].items()
                   if n and p not in e["max_abs_err_by_path"]]

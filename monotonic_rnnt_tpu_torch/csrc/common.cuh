@@ -30,10 +30,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 // log(exp(a) + exp(b)) = max + log1p(exp(min - max)); exactly -inf when both
 // are -inf, and NaN when either is NaN (monotonic_rnnt_tpu/ops/helpers.py:19).
+// A NaN a against b = -inf lands in mn (a > b is false), so the -inf return
+// asks for both: mx == -inf alone gave -inf there, and lost the NaN.
 __device__ __forceinline__ float log_sum_exp(float a, float b) {
   const float mx = a > b ? a : b;
   const float mn = a > b ? b : a;
-  if (mx == MRNNT_NEG_INF) return MRNNT_NEG_INF;
+  if (mx == MRNNT_NEG_INF && mn == MRNNT_NEG_INF) return MRNNT_NEG_INF;
   return mx + log1pf(expf(mn - mx));
 }
 

@@ -355,8 +355,10 @@ constexpr int kChainWarpsMax = 8;
 // bits, no branch between one step's shuffles and the next's.
 __device__ __forceinline__ float lse_select(float a, float b) {
   const float mx = a > b ? a : b;
-  const float e = expf((a > b ? b : a) - mx);
-  return mx == MRNNT_NEG_INF ? MRNNT_NEG_INF : mx + log1pf(e);
+  const float mn = a > b ? b : a;
+  const float e = expf(mn - mx);
+  return mx == MRNNT_NEG_INF && mn == MRNNT_NEG_INF ? MRNNT_NEG_INF
+                                                    : mx + log1pf(e);
 }
 
 template <int W>

@@ -335,17 +335,26 @@ def monotonic_rnnt_loss_banded(
     batch, t_max, _, v = logits_band.shape
     validate_loss_inputs(torch.empty((batch, t_max, s1, v), device="meta"),
                          labels, input_lengths, label_lengths)
+    return banded_loss_on_route(logits_band, labels, input_lengths,
+                                label_lengths, bands, blank_id,
+                                _resolve_backend(backend, logits_band))
+
+
+def banded_loss_on_route(logits_band, labels, input_lengths, label_lengths,
+                         bands: Bands, blank_id: int,
+                         route: str) -> torch.Tensor:
+    """monotonic_rnnt_loss_banded on a resolved route after its checks; as
+    loss.loss_on_route, it also takes the 'cuda' route on CPU tensors."""
     dev = logits_band.device
-    resolved = _resolve_backend(backend, logits_band)
     if not torch.is_grad_enabled():
         # Under no_grad, ctx.needs_input_grad still follows requires_grad;
         # a detached input keeps the call on the cost-only route.
         logits_band = logits_band.detach()
-    with debug_timer(f"monotonic_rnnt_loss_banded[{resolved}]"):
+    with debug_timer(f"monotonic_rnnt_loss_banded[{route}]"):
         return _BandedCore.apply(
             logits_band, labels.to(dev),
             input_lengths.to(device=dev, dtype=torch.int32),
             label_lengths.to(device=dev, dtype=torch.int32),
             bands.min_s.to(device=dev, dtype=torch.int32),
             bands.max_s.to(device=dev, dtype=torch.int32), int(blank_id),
-            resolved)
+            route)

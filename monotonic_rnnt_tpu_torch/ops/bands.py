@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from .helpers import take_index
+
 
 class Bands(NamedTuple):
     """Per-(b, t) allowed label-count window [min_s, max_s], both inclusive.
@@ -301,14 +303,19 @@ def band_final_slot(values_band: torch.Tensor, layout: BandLayout,
     """values_band[b, T_b-1, slot of s = S_b], -inf when out of the window.
 
     With width clipping the final cell can fall outside the packed window;
-    the lattice is then infeasible under the clipped band.
+    the lattice is then infeasible under the clipped band. So is a T_b past
+    T_max, which only an exported artifact (no length checks) can see:
+    JAX's gather fills the offset with INT_MIN there, which puts S_b out
+    of the window.
     """
     w = values_band.shape[-1]
-    last_t = (input_lengths.to(torch.int64) - 1).clamp(min=0)
+    last_t, in_bounds = take_index(
+        (input_lengths.to(torch.int64) - 1).clamp(min=0), values_band.shape[1])
     b_idx = torch.arange(values_band.shape[0], device=values_band.device)
     w_ll = label_lengths.to(torch.int64) - layout.offset[b_idx, last_t]
     out = values_band[b_idx, last_t, w_ll.clamp(0, w - 1)]
-    return torch.where((w_ll >= 0) & (w_ll < w), out, float("-inf"))
+    return torch.where(in_bounds & (w_ll >= 0) & (w_ll < w), out,
+                       float("-inf"))
 
 
 def band_virtual_next_rows(layout: BandLayout,

@@ -15,6 +15,14 @@ import torch
 NEG_INF = float("-inf")
 
 
+def take_index(idx: torch.Tensor, n: int):
+    """JAX's take_along_axis rule for an index into an axis of n: a negative
+    index counts from the end, and one outside [-n, n) is out of bounds.
+    Returns (the index clamped into [0, n), whether it was in bounds)."""
+    idx = torch.where(idx < 0, idx + n, idx)
+    return idx.clamp(0, n - 1), (idx >= 0) & (idx < n)
+
+
 def log_sum_exp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise stable log(exp(a) + exp(b)) with -inf short-circuits.
 

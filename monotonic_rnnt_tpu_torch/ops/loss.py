@@ -146,15 +146,27 @@ def monotonic_rnnt_loss(
                                          max_distance_from_alignment, blank_id)
         else:
             bands = default_bands(input_lengths, label_lengths, t_max)
-    resolved = _resolve_backend(backend, logits)
+    return loss_on_route(logits, labels, input_lengths, label_lengths, bands,
+                         blank_id, _resolve_backend(backend, logits))
+
+
+def loss_on_route(logits, labels, input_lengths, label_lengths, bands: Bands,
+                  blank_id: int, route: str) -> torch.Tensor:
+    """monotonic_rnnt_loss on a resolved route ('cuda' or 'reference'),
+    its lengths int32 on the logits' device: what the public function runs
+    after its checks. It also takes the 'cuda' route on CPU tensors, which
+    the public function refuses: each kernel wrapper then runs its plain
+    version (how the harness and the tests drive that route's code off the
+    card)."""
+    dev = logits.device
     if not torch.is_grad_enabled():
         # Under no_grad, ctx.needs_input_grad still follows requires_grad;
         # a detached input keeps the call on the cost-only route.
         logits = logits.detach()
-    with debug_timer(f"monotonic_rnnt_loss[{resolved}]"):
+    with debug_timer(f"monotonic_rnnt_loss[{route}]"):
         return _LossCore.apply(logits, labels, input_lengths, label_lengths,
                                bands.min_s.to(dev), bands.max_s.to(dev),
-                               int(blank_id), resolved)
+                               int(blank_id), route)
 
 
 def debug_timer(name: str):

@@ -45,7 +45,8 @@ import torch
 from ..utils.debug import emit_loss_debug
 from .bands import Bands, LatticeMasks, default_bands, lattice_masks
 from .helpers import (NEG_INF, extend_labels, log_sum_exp, mask_to_additive,
-                      select_label_logits, shift_left_s, shift_right_s)
+                      select_label_logits, shift_left_s, shift_right_s,
+                      take_index)
 
 
 class LatticeStats(NamedTuple):
@@ -78,10 +79,18 @@ def compute_stats(logits: torch.Tensor, labels: torch.Tensor,
 
 def _gather_ll(alphas: torch.Tensor, input_lengths: torch.Tensor,
                label_lengths: torch.Tensor) -> torch.Tensor:
-    """alphas[b, T_b - 1, S_b] for every b."""
+    """alphas[b, T_b - 1, S_b] for every b.
+
+    The gather follows JAX's take_along_axis: NaN where T_b > T_max or S_b
+    is out of bounds. A live call has validated the lengths; an exported
+    artifact checks no length values, and there this costs such a sample
+    NaN with a zero gradient, as JAX's artifact does."""
     b_idx = torch.arange(alphas.shape[0], device=alphas.device)
-    t_last = (input_lengths.to(torch.int64) - 1).clamp(min=0)
-    return alphas[b_idx, t_last, label_lengths.to(torch.int64)]
+    t_last, t_ok = take_index((input_lengths.to(torch.int64) - 1).clamp(min=0),
+                              alphas.shape[1])
+    s_last, s_ok = take_index(label_lengths.to(torch.int64), alphas.shape[2])
+    return torch.where(t_ok & s_ok, alphas[b_idx, t_last, s_last],
+                       float("nan"))
 
 
 def forward_backward(stats: LatticeStats, masks: LatticeMasks,

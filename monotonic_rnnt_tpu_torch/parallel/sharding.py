@@ -10,7 +10,9 @@ recursions run on every rank of the group alike (``fwdbwd_scan`` /
 ``alpha_scan``, ``fwdbwd_scan_banded`` / ``alpha_scan_banded``); and the
 backward runs ``grad_pass`` on the local slice only, with ids relative to
 the shard and the cost cotangent folded in -- the big tensor is never
-gathered.
+gathered. A sample whose cost is not finite gets NaN on its lattice rows
+with a non-finite denominator, where JAX's backward (XLA's p * coef, not a
+kernel) has NaN, as the fused-joint losses do (ops/chunked.py).
 
 Each returned loss function takes this rank's shard (logits
 [B/data, T, S1 or W, V/model], the rest [B/data]) and returns the global
@@ -45,17 +47,24 @@ from ..ops.cuda.kernels import grad_pass, grad_pass_plain, kernel_or_plain
 from ..ops.cuda.split_kernels import (alpha_scan, alpha_scan_plain,
                                       fwdbwd_scan, fwdbwd_scan_plain)
 from ..ops.helpers import NEG_INF, extend_labels, mask_to_additive
-from ..ops.reference import _gather_ll, occupancy_coefficients
+from ..ops.reference import (_gather_ll, nonfinite_cost_cells,
+                             occupancy_coefficients)
 from .data_parallel import batch_total
 from .mesh import MODEL_AXIS, Mesh, Spec
 
 
 def _local_grad(x, denom, coefs, labels, blank_id: int, v_offset: int,
-                cost_cotangent):
+                cost_cotangent, open_cells):
     """grad_pass on the local slice, the cotangent folded into the
-    coefficients (occ, cb, cl), ids relative to the shard."""
+    coefficients (occ, cb, cl), ids relative to the shard.
+
+    occ is NaN on open_cells (nonfinite_cost_cells) where the denominator
+    is not finite: a NaN-cost sample's coefficients are all 0, and there
+    JAX's p * 0 is NaN where grad_pass would write a zero.
+    """
     sc = cost_cotangent.to(torch.float32)[:, None, None]
     occ, cb, cl = ((c * sc).contiguous() for c in coefs)
+    occ = torch.where(open_cells & ~torch.isfinite(denom), float("nan"), occ)
     return kernel_or_plain(grad_pass, grad_pass_plain, x)(
         x, denom, occ, cb, cl, (labels - v_offset).contiguous(),
         blank_id - v_offset, out_dtype=x.dtype)
@@ -95,8 +104,11 @@ class _VocabShardedCore(torch.autograd.Function):
     def backward(ctx, cost_cotangent):
         x, labels_ext, ilen, slen, denom, alphas, betas, ll = ctx.saved_tensors
         coefs = occupancy_coefficients(alphas, betas, ll, ilen, slen)
+        s_idx = torch.arange(x.shape[2], dtype=torch.int32, device=x.device)
         dx = _local_grad(x, denom, coefs, labels_ext, ctx.blank_id,
-                         ctx.v_offset, cost_cotangent)
+                         ctx.v_offset, cost_cotangent,
+                         nonfinite_cost_cells(ll, ilen, slen, s_idx,
+                                              x.shape[1]))
         return dx, None, None, None, None, None, None, None
 
 
@@ -169,8 +181,12 @@ class _BandedVocabShardedCore(torch.autograd.Function):
         coefs = band_occupancy_coefficients(
             alphas, betas, ll, ilen, slen,
             BandLayout(offset, d, d_next, ctx.width))
+        w_idx = torch.arange(ctx.width, dtype=torch.int32, device=x.device)
         dx = _local_grad(x, denom, coefs, lab_band, ctx.blank_id,
-                         ctx.v_offset, cost_cotangent)
+                         ctx.v_offset, cost_cotangent,
+                         nonfinite_cost_cells(ll, ilen, slen,
+                                              offset[:, :, None] + w_idx,
+                                              x.shape[1]))
         return dx, None, None, None, None, None, None, None
 
 

@@ -290,6 +290,71 @@ def test_exported_cuda_loss_equals_the_live_loss(device, dtype):
         loss_fn(*(a[:2] for a in args))
 
 
+def test_exported_cuda_loss_past_the_padded_shape(device):
+    """export_loss(backend='cuda') at T_b = T + 1, S_b = S + 1 and both, on
+    the last sample (a live call refuses them): it costs NaN with an
+    all-zero gradient, the others keep the in-range call's bits, and the
+    card stays usable (no device-side fault). The logits end just before a
+    row of NaN sentinels: a read past T_max of the last sample would meet
+    them."""
+    from monotonic_rnnt_tpu_torch import serving
+
+    logits, labels, ilen, slen = golden.repeat_label_case(7, 3, 12, 4, 37)
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(logits, labels, ilen,
+                                                    slen, device=device)
+    b, t, s1, v = lg.shape
+    flat = torch.full((lg.numel() + 2 * s1 * v,), float("nan"),
+                      device=device)
+    x = flat[:lg.numel()].view(lg.shape)
+    x.copy_(lg)
+    loss_fn = serving.import_fn(serving.export_loss(x, lb, il, sl,
+                                                    backend="cuda"))
+    want_c, want_g = loss_fn(x, lb, il, sl)
+    for t_b, s_b in ((t + 1, int(sl[-1])), (int(il[-1]), s1), (t + 1, s1)):
+        il2, sl2 = il.clone(), sl.clone()
+        il2[-1], sl2[-1] = t_b, s_b
+        costs, grads = loss_fn(x, lb, il2, sl2)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(costs[-1])), costs
+        assert bool((grads[-1] == 0).all())
+        assert torch.equal(costs[:-1], want_c[:-1])
+        assert torch.equal(grads[:-1], want_g[:-1])
+    assert bool(torch.isnan(flat[lg.numel():]).all())
+
+
+@pytest.mark.parametrize("route", ["fused", "split", "sharded"])
+def test_a_nan_cost_stays_nan_through_the_scans(device, group_of_one, route):
+    """A row of +inf logits at lattice cell (0, 0) of sample 1: its stats
+    are NaN and the scans' first step meets them with -inf, LSE(NaN, -inf),
+    which must give NaN as torch's log_sum_exp and the JAX helpers do (the
+    kernels' -inf shortcut gave -inf there, and a NaN cost became +inf).
+    Costs and the gradient's NaN cells against the same route's plain
+    versions on the CPU; sample 0 within the kernel-vs-plain bounds."""
+    logits, labels, ilen, slen = golden.repeat_label_case(3, 2, 9, 4, 20)
+    logits[1, 0, 0, :] = np.inf
+
+    def run(dev):
+        lg, lb, il, sl = convert.loss_inputs_from_numpy(logits, labels, ilen,
+                                                        slen, device=dev)
+        x = lg.requires_grad_(True)
+        if route == "sharded":
+            bands = tbands.default_bands(il, sl, lg.shape[1])
+            costs = sharding.rnnt_loss_vocab_sharded(
+                x, lb, il, sl, bands.min_s, bands.max_s, 0, group_of_one)
+        else:
+            from monotonic_rnnt_tpu_torch.scripts._cases import loss_route
+            with mt.config_override(pipeline=route):
+                costs = loss_route(x, lb, il, sl, backend="cuda")
+        costs.sum().backward()
+        return costs.detach().cpu(), x.grad.cpu()
+
+    (c_k, g_k), (c_p, g_p) = run(device), run("cpu")
+    assert bool(torch.isnan(c_k[1])) and bool(torch.isnan(c_p[1]))
+    _close(c_k[:1], c_p[:1], 1e-4, 1e-5)
+    assert torch.equal(torch.isnan(g_k), torch.isnan(g_p))
+    _close(g_k[0], g_p[0], 1e-6, 1e-3)
+
+
 # --- the banded path -------------------------------------------------------------
 
 # (seed, B, T, S, V, shift, blank); shift None = the unrestricted band at
