@@ -210,6 +210,26 @@ check_fwd_bwd, debug_grads and debug_time on: each line printed, row 2's
 betas handed to emit_loss_debug with no mismatch, the step's rows 1-2 calls
 held against the plain versions (path export_debug).
 
+The traced-routes phase (``phase_traced_routes``, after the serving
+phase) takes each kernel route as one traced graph, as JAX's jax.export
+and jax.jit take them: it exports through bytes the split loss
+(``export_loss(backend="cuda")`` under pipeline='split', rows 3, 4 and 6)
+at the benchmark lattice in f32 and bf16, the banded kernel route's costs
+and grads and its cost-only costs at the banded case, the fused-joint
+loss's cost-only forward at memory_bench's cell and Viterbi with the
+occupancies at TRACED_ALIGN_CASE, and compiles with
+``torch.compile(fullgraph=True, backend="aot_eager")`` the padded loss on
+the deferred and the split pipelines, the banded loss (forward and
+backward) and the fused-joint forward. Each artifact and compiled call
+equals its live call bit for bit and launches what the live call does
+(so no export and no trace launched a kernel), and every kernel call of
+the phase is held against its plain version (a Hold at the operators'
+CUDA implementations, path traced). It logs two probes, whether the
+fused-joint training step and the vocab-sharded loss compile fullgraph
+(the first breaks at ``torch.autograd.grad``; ROADMAP.md section 3), and
+prints the export, import and first-call seconds and each traced call's
+ms against its live call's, timed in turns outside the Hold.
+
 After the packed phase, ``phase_gather_cost`` times on the host the
 final-cell gather with its bounds check (JAX's out-of-bounds fill, which an
 exported loss needs) against the bare gather, beside the host time of a
@@ -228,7 +248,8 @@ among them cases at scale 50/100, sharded cases on a one-rank gloo group
 with a NaN-cost sample, and export cases at T_b = T + 1 and S_b = S + 1
 through the reference and cuda artifacts), then ``gpu_acceptance``'s
 large-V, odd-V, large-shape and over-cap parity checks, which no other
-phase makes. A Hold shims every kernel wrapper for the phase: each call
+phase makes. A Hold shims every operator's CUDA implementation for the
+phase: each call
 on the card is held, before it returns, against its plain version on the
 same operands (the same NaN cells, the rest within the kernel checks'
 tolerances), and every launch must be a held call. Its launches go into
@@ -402,6 +423,7 @@ import torch
 from monotonic_rnnt_tpu_torch.scripts._cases import (CheckFailed, assert_close,
                                                      banded_case, check,
                                                      make_inputs,
+                                                     one_rank_group,
                                                      random_alignment)
 
 ROOT = Path(__file__).resolve().parent
@@ -626,59 +648,48 @@ def hold_close(got, ref, atol, rtol, what):
 
 
 class Hold:
-    """Shims over every kernel wrapper a loss route can reach (the names
-    its calling modules imported, and rows 1-2's operator implementations
-    on mt.K) that hold each call on the card, as the path makes it, against
-    the wrapper's plain version on the same arguments (hold_close, at
-    compare_captured's and compare_kernels' tolerances; 8e-3 relative on a
-    bf16 output). The plain version runs before the call returns, so no
-    operand is kept and no kernel launched beside the path's own: the
-    counts stay the path's. calls[row] counts the held calls, errs[row]
-    their max |d|."""
-
-    CALLERS = ("fused", "cuda_banded", "sharding", "collective", "chunked",
-               "chunked_banded", "alignment")
+    """Shims over the eleven operators' CUDA implementations (the
+    ``<row>_cuda`` functions that ``mt.K.OPS`` names, where their modules
+    define them), which every route reaches: a live wrapper, an exported
+    artifact or a compiled graph. Each call on the card is held, as the
+    route makes it, against the operator's CPU implementation (the plain
+    version) on the same arguments (hold_close, at compare_captured's and
+    compare_kernels' tolerances; 8e-3 relative on a bf16 output). The
+    plain version runs before the call returns, so no operand is kept and
+    no kernel launched beside the route's own: the counts stay the
+    route's. calls[row] counts the held calls, errs[row] their max |d|."""
 
     def __init__(self, mt, what):
         self.mt, self.what, self.pairs = mt, what, plain_pairs(mt)
         self.errs, self.calls, self.saved = {}, {}, []
 
     def __enter__(self):
-        for caller in self.CALLERS:
-            module = getattr(self.mt, caller)
-            for name, (kern, *_) in self.pairs.items():
-                if getattr(module, name, None) is kern:
-                    self._shim(module, name, name)
-        for name, row in zip(SERVING_OPS, ("stats_alpha_fused",
-                                           "beta_grad_fused")):
-            self._shim(self.mt.K, name, row)
+        self.saved = []
+        for row, (cpu, module, attr) in self.mt.K.OPS.items():
+            self._shim(module, attr, row, cpu)
         return self
 
-    def _shim(self, module, name, row):
+    def _shim(self, module, name, row, cpu):
         fn = getattr(module, name)
         self.saved.append((module, name, fn))
 
-        def shim(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            if args[0].is_cuda:
-                with torch.no_grad():
-                    self._hold(row, args, kwargs, out)
+        def shim(*args):
+            out = fn(*args)
+            with torch.no_grad():
+                self._hold(row, cpu, args, out)
             return out
 
         setattr(module, name, shim)
 
-    def _hold(self, row, args, kwargs, out):
-        K = self.mt.K
+    def _hold(self, row, cpu, args, out):
+        ref = cpu(*args)
         if row == "stats_alpha_fused":     # the stacked [4, B, T, S1]
-            ref = torch.stack(K.stats_alpha_fused_plain(*args, **kwargs))
             outs = [(out[:3], ref[:3], 1e-5, 1e-6),
                     (out[3], ref[3], 1e-4, 1e-5)]
         elif row == "beta_grad_fused":
-            ref = K.beta_grad_fused_plain(*args, **kwargs)
             outs = [(out[0], ref[0], 1e-6, 1e-4), (out[1], ref[1], 1e-4, 1e-5)]
         else:
-            _, plain, atol, rtol = self.pairs[row]
-            ref = plain(*args, **kwargs)
+            _, _, atol, rtol = self.pairs[row]
             out, ref = ((out, ref) if isinstance(out, tuple)
                         else ((out,), (ref,)))
             outs = [(g, r, atol, rtol) for g, r in zip(out, ref)]
@@ -708,8 +719,12 @@ def compare_captured_rows12(mt, cap, what,
     for name, calls in cap.calls.items():
         check(len(calls) == len(cap.keep[name]), f"{what}: {name} made "
               f"{len(calls)} of the calls {sorted(cap.keep[name])}")
+    # The wrapper takes grad_scale by keyword, the operator's CUDA
+    # implementation by position (its 11th argument).
+    scale = lambda args, kw: args[10] if len(args) > 10 else kw.get(
+        "grad_scale")
     errs = [compare_kernels(
-        mt, s_args, b_args, b_kw.get("grad_scale"),
+        mt, s_args, b_args[:10], scale(b_args, b_kw),
         f"{what} call {idx} [{'x'.join(map(str, s_args[0].shape))}]")
         for (idx, s_args, _), (_, b_args, b_kw) in zip(sa, bg)]
     return {"stats_alpha_fused": max(e[0] for e in errs),
@@ -3839,6 +3854,296 @@ def run_serving(mt, gpu, main_inputs, weights, e2e):
             figures)
 
 
+# --- traced routes: exported artifacts and compiled losses -----------------------
+
+# Viterbi and the occupancies export with their torch loops over T unrolled
+# into the graph, so their artifact is traced at a small T.
+TRACED_ALIGN_CASE = (4, 64, 20, 256)        # B, T, S, V
+# The fused-joint step's compile probe (B, T', S, V, H), chunk FUSED_CHUNK.
+TRACED_PROBE_CASE = (2, 128, 16, 512, 64)
+
+
+def as_tuple(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def assert_equal(got, want, what):
+    """Each output equal bit for bit (NaN cells the same cells)."""
+    got, want = as_tuple(got), as_tuple(want)
+    check(len(got) == len(want), f"{what}: {len(got)} outputs, not "
+          f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        same = (g.shape == w.shape and g.dtype == w.dtype
+                and torch.equal(torch.isnan(g), torch.isnan(w))
+                and torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)))
+        check(same, f"{what}: output {i} differs from the live call (max "
+              f"|d| {float((g.float() - w.float()).abs().max()):.3g})")
+
+
+def launches_of(mt, fn):
+    """fn()'s result, and the kernels it launched (the counts' change)."""
+    before = dict(mt.K.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in mt.K.LAUNCHES.items()
+                 if n != before[k]}
+
+
+def traced_artifact(mt, what, export, live, args):
+    """export() -> blob; import_fn; the artifact's call against live(*args)
+    bit for bit. Neither export nor import launches a kernel, and the call
+    launches what the live call does (not nothing: the route runs on the
+    card's kernels). Returns (artifact, figures)."""
+    want, want_launches = launches_of(mt, lambda: live(*args))
+    check(bool(want_launches), f"{what}: the live call launched no kernel")
+    t0 = time.perf_counter()
+    blob, traced = launches_of(mt, export)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art, imported = launches_of(mt, lambda: mt.serving.import_fn(blob))
+    import_s = time.perf_counter() - t0
+    check(traced == {} and imported == {}, f"{what}: export launched "
+          f"{traced}, import {imported}")
+    got, got_launches = launches_of(mt, lambda: art(*args))
+    check(got_launches == want_launches, f"{what}: the artifact launched "
+          f"{got_launches}, the live call {want_launches}")
+    assert_equal(got, want, what)
+    return art, {"export_s": export_s, "import_s": import_s,
+                 "blob_bytes": len(blob), "launches": want_launches}
+
+
+def grad_step(fn, x, rest, weights):
+    """fn(leaf, *rest): costs, and with weights the gradient of the
+    weighted costs with respect to the leaf."""
+    if weights is None:
+        with torch.no_grad():
+            return fn(x, *rest)
+    leaf = x.detach().requires_grad_(True)
+    costs = fn(leaf, *rest)
+    grads, = torch.autograd.grad((costs * weights).sum(), leaf)
+    return costs.detach(), grads
+
+
+def traced_compile(mt, what, fn, x, rest, weights):
+    """torch.compile(fn, fullgraph=True, backend='aot_eager'): its first
+    call (the trace, then the run) launches what one eager call does, so
+    tracing launched nothing; forward and backward equal eager bit for
+    bit. Returns (the compiled step, figures)."""
+    step = lambda f: grad_step(f, x, rest, weights)
+    want, want_launches = launches_of(mt, lambda: step(fn))
+    check(bool(want_launches), f"{what}: the eager call launched no kernel")
+    compiled = torch.compile(fn, fullgraph=True, backend="aot_eager")
+    t0 = time.perf_counter()
+    got, got_launches = launches_of(mt, lambda: step(compiled))
+    first_s = time.perf_counter() - t0
+    check(got_launches == want_launches, f"{what}: the compiled call "
+          f"(trace and run) launched {got_launches}, eager {want_launches}")
+    assert_equal(got, want, what)
+    return (lambda: step(compiled)), {"compile_first_call_s": first_s,
+                                      "launches": want_launches}
+
+
+def on_pipeline(mt, pipeline, fn):
+    """fn() under the config's pipeline `pipeline`."""
+    def call():
+        with mt.config_override(pipeline=pipeline):
+            return fn()
+    return call
+
+
+def compile_probe(fn, args, what):
+    """Whether torch.compile(fullgraph=True) of fn(*args) with a backward
+    runs and equals eager bit for bit; the error's first line where it
+    does not. Logged, not a check: JAX traces these routes whole, the port
+    records where it does not yet (ROADMAP.md section 3)."""
+    try:
+        got = fn(torch.compile, *args)
+        torch.cuda.synchronize()
+        assert_equal(got, fn(None, *args), what)
+        verdict = "compiles fullgraph, forward and backward bit for bit"
+    except Exception as exc:    # noqa: BLE001 - the probe reports any error
+        verdict = (f"does not compile fullgraph: {type(exc).__name__}: "
+                   + str(exc).strip().splitlines()[0])
+    torch._dynamo.reset()
+    log(f"traced routes probe: {what} {verdict}")
+    return verdict
+
+
+def fused_joint_probe(mt, case, compile_fn):
+    """A weighted training step of the fused-joint loss: eager, or through
+    compile_fn (torch.compile with fullgraph)."""
+    args = (case["labels"], case["ilen"], case["slen"])
+    keys = tuple(case["params"])
+
+    def loss(enc, *vals):
+        return mt.rnnt_loss_fused_joint(enc, case["pred"], *args, joint_full,
+                                        dict(zip(keys, vals)),
+                                        chunk_t=FUSED_CHUNK)
+
+    fn = loss if compile_fn is None else compile_fn(
+        loss, fullgraph=True, backend="aot_eager")
+    leaves = [t.detach().requires_grad_(True)
+              for t in (case["enc"], *case["params"].values())]
+    costs = fn(*leaves)
+    return (costs.detach(), *torch.autograd.grad(costs.sum(), leaves))
+
+
+def sharded_probe(mt, main_inputs, weights, compile_fn):
+    """rnnt_loss_vocab_sharded on a one-rank gloo group: costs and the
+    gradient of the weighted costs."""
+    logits, labels, ilen, slen = main_inputs
+    bands = mt.bands.default_bands(ilen, slen, logits.shape[1])
+    with one_rank_group() as group:
+        def loss(x):
+            return mt.sharding.rnnt_loss_vocab_sharded(
+                x, labels, ilen, slen, bands.min_s, bands.max_s, 0, group)
+        fn = loss if compile_fn is None else compile_fn(
+            loss, fullgraph=True, backend="aot_eager")
+        return grad_step(fn, logits, (), weights)
+
+
+def phase_traced_routes(mt, gpu, main_inputs, weights, band_case):
+    """The kernel routes as one traced graph, as JAX's jax.export and
+    jax.jit take them. (a) Artifacts (export, import, call; bit for bit
+    with the live call): the split loss through export_loss(backend=
+    'cuda') under pipeline='split' at the padded lattice, f32 and bf16;
+    the banded kernel route's costs and grads, and its cost-only costs, at
+    the banded case; the
+    fused-joint loss's cost-only forward at memory_bench's cell; Viterbi
+    and the occupancies at TRACED_ALIGN_CASE. (b) torch.compile(fullgraph,
+    aot_eager) of monotonic_rnnt_loss on the deferred and the split
+    pipelines and of monotonic_rnnt_loss_banded (forward and backward),
+    and of the fused-joint forward, each bit for bit with eager. (c) No
+    trace launches a kernel. (d) Every kernel call of the phase is held
+    against its plain version (Hold at the operators' CUDA
+    implementations). Then probes (logged): the fused-joint training step
+    and the vocab-sharded loss under fullgraph compile. Last, outside the
+    Hold, each artifact and compiled call timed in turns with its live
+    call. Returns (launches by path, max |d| by path, figures)."""
+    t0 = time.perf_counter()
+    logits, labels, ilen, slen = main_inputs
+    figs, timed = {}, {}
+    bands = band_case["bands"]
+    band_args = (band_case["logits_band"], band_case["labels"],
+                 band_case["ilen"], band_case["slen"], bands.min_s,
+                 bands.max_s)
+    fcase = fused_case(mt, *FUSED_CASE)
+    fkeys = tuple(fcase["params"])
+    f_args = (fcase["enc"], fcase["pred"], fcase["labels"], fcase["ilen"],
+              fcase["slen"], *fcase["params"].values())
+
+    def split_live(*a):
+        with mt.config_override(pipeline="split"):
+            return mt.fused.rnnt_loss_cuda(*a)
+
+    def banded_live(x, lab, il, sl, lo, hi):
+        return mt.cuda_banded.rnnt_loss_banded_cuda(
+            x, lab, il, sl, mt.bands.Bands(lo, hi))
+
+    def banded_cost_only(x, lab, il, sl, lo, hi):
+        return mt.cuda_banded.rnnt_loss_banded_cuda(
+            x, lab, il, sl, mt.bands.Bands(lo, hi), with_grads=False)[0]
+
+    def fused_forward(enc, pred, lab, il, sl, *vals):
+        with torch.no_grad():
+            return mt.rnnt_loss_fused_joint(enc, pred, lab, il, sl,
+                                            joint_full,
+                                            dict(zip(fkeys, vals)),
+                                            chunk_t=FUSED_CHUNK)
+
+    def alignment(x, lab, il, sl):
+        vit = mt.viterbi_alignment(x, lab, il, sl)
+        return (vit.alignment, vit.score,
+                mt.occupancy_posteriors(x, lab, il, sl))
+
+    align_args = make_inputs(*TRACED_ALIGN_CASE, seed=SEED + 5, device=DEVICE)
+    K = mt.K
+    K.reset_launch_counts()
+    with Hold(mt, "traced") as hold:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (logits.to(dtype), labels, ilen, slen)
+            name = f"split_export_{dtype_name(dtype)}"
+
+            def export(args=args):
+                with mt.config_override(pipeline="split"):
+                    return mt.serving.export_loss(*args, backend="cuda",
+                                                  device=DEVICE)
+            art, figs[name] = traced_artifact(mt, name, export, split_live,
+                                              args)
+            timed[name] = ([lambda art=art, args=args: art(*args),
+                            lambda args=args: split_live(*args)])
+        for name, fn, args in (("banded_export", banded_live, band_args),
+                               ("banded_cost_only_export", banded_cost_only,
+                                band_args),
+                               ("fused_joint_forward_export", fused_forward,
+                                f_args),
+                               ("alignment_export", alignment, align_args)):
+            art, figs[name] = traced_artifact(
+                mt, name, lambda fn=fn, args=args: mt.serving.export_fn(
+                    fn, args), fn, args)
+            timed[name] = [lambda art=art, args=args: art(*args),
+                           lambda fn=fn, args=args: fn(*args)]
+        banded_public = lambda x, *a: mt.monotonic_rnnt_loss_banded(
+            x, *a, bands=bands)
+        for name, pipeline, fn, x, rest, w in (
+                ("deferred_compile", "auto", mt.monotonic_rnnt_loss, logits,
+                 (labels, ilen, slen), weights),
+                ("split_compile", "split", mt.monotonic_rnnt_loss, logits,
+                 (labels, ilen, slen), weights),
+                ("banded_compile", "auto", banded_public,
+                 band_case["logits_band"], band_args[1:4], weights[:2]),
+                ("fused_joint_forward_compile", "auto",
+                 lambda enc, *a: fused_forward(enc, *a), fcase["enc"],
+                 f_args[1:], None)):
+            with mt.config_override(pipeline=pipeline):
+                step, figs[name] = traced_compile(mt, name, fn, x, rest, w)
+            timed[name] = [on_pipeline(mt, pipeline, f) for f in (
+                step, lambda fn=fn, x=x, rest=rest, w=w: grad_step(fn, x,
+                                                                  rest, w))]
+        torch.cuda.synchronize()
+    launches = launched(K)
+    held_s = time.perf_counter() - t0
+    for name, (traced, live) in timed.items():
+        reps = 5 if name.startswith(("fused", "alignment")) else 10
+        figs[name]["ms"], figs[name]["live_ms"] = turns_ms([traced, live],
+                                                           reps=reps,
+                                                           warmup=2)
+    del timed
+    torch._dynamo.reset()
+    K.reset_launch_counts()
+    probe_case = fused_case(mt, *TRACED_PROBE_CASE)
+    probe = lambda c: fused_joint_probe(mt, probe_case, c)
+    with hold:
+        probes = {"fused_joint_step": compile_probe(
+            probe, (), "the fused-joint training step")}
+        config = getattr(torch._dynamo.config, "trace_autograd_ops", None)
+        if config is not None:
+            torch._dynamo.config.trace_autograd_ops = True
+            try:
+                probes["fused_joint_step_trace_autograd_ops"] = compile_probe(
+                    probe, (), "the fused-joint training step with "
+                    "torch._dynamo.config.trace_autograd_ops = True")
+            finally:
+                torch._dynamo.config.trace_autograd_ops = config
+        probes["vocab_sharded_step"] = compile_probe(
+            lambda c: sharded_probe(mt, main_inputs, weights, c), (),
+            "rnnt_loss_vocab_sharded on a one-rank gloo group")
+        torch.cuda.synchronize()
+    for row, n in launched(K).items():
+        launches[row] = launches.get(row, 0) + n
+    check(hold.calls == launches, f"traced routes: held calls {hold.calls}, "
+          f"launches {launches}")
+    figs["probes"] = probes
+    figs["phase_s"] = time.perf_counter() - t0
+    figs["held_part_s"] = held_s
+    log(f"traced routes ({gpu}): " + json.dumps(figs))
+    log(f"traced routes: every artifact and compiled loss equals its live "
+        f"call bit for bit; no trace launched a kernel; launches {launches},"
+        f" each held against its plain version: max |d| "
+        + json.dumps(hold.errs) + f"; phase {figs['phase_s']:.1f} s")
+    return {"traced": launches}, {"traced": hold.errs}, figs
+
+
 # --- the sharded losses ---------------------------------------------------------
 
 SHARDED_WORLD = 4
@@ -5198,8 +5503,7 @@ def phase_gather_cost(mt):
     makes it, at GATHER_CASE: the oracle, the vocab-sharded core on a
     one-rank gloo group and the banded loss. Returns the figures, each
     call's spread (q3 - q1) beside the check's cost."""
-    from monotonic_rnnt_tpu_torch.scripts._cases import (costs_and_grads,
-                                                         one_rank_group)
+    from monotonic_rnnt_tpu_torch.scripts._cases import costs_and_grads
 
     b, t, s, v = GATHER_CASE
     x, labels, ilen, slen = make_inputs(b, t, s, v, seed=5,
@@ -5545,6 +5849,8 @@ def main() -> int:
     del parked
     serving_launches, serving_errs, _ = run_serving(mt, gpu, main_inputs,
                                                     weights, e2e)
+    traced_launches, traced_errs, _ = phase_traced_routes(
+        mt, gpu, main_inputs, weights, band_case)
     align_launches, align_errs, align_timing = run_alignment(mt, band_case)
     ratio = (align_timing["viterbi_full_ms"]
              / band_e2e["float32"]["banded_fwd_bwd_ms"])
@@ -5568,11 +5874,11 @@ def main() -> int:
     path_launches = {"split": split_launches, **fused_launches,
                      **sharded_launches, **packed_launches, **align_launches,
                      **model_launches, **train_launches, **decode_launches,
-                     **serving_launches, **acc_launches}
+                     **serving_launches, **traced_launches, **acc_launches}
     path_errs = {"split": {"grad_pass": split_errs[torch.float32][
         "grad_pass"]}, **fused_errs, **sharded_errs, **packed_errs,
         **align_errs, **model_errs, **train_errs, **decode_errs,
-        **serving_errs, **acc_errs}
+        **serving_errs, **traced_errs, **acc_errs}
     split_kernels = split_kernel_entries(split_errs, split_launches,
                                          split_rows)
     for entries, base in ((kernels, "padded"), (band_kernels, "banded"),
@@ -5596,7 +5902,7 @@ def main() -> int:
                      "train_fused_joint", "train_dp", "train_tp", "decode",
                      "decode_lm", "stream", "stream_beam",
                      "decode_marginal", "export", "export_debug",
-                     "acceptance"):
+                     "traced", "acceptance"):
             e["launches_by_path"].setdefault(path, 0)
         unheld = [p for p, n in e["launches_by_path"].items()
                   if n and p not in e["max_abs_err_by_path"]]

@@ -14,28 +14,36 @@ Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776, 1304-1360``:
   local slices. It and ``beta_grad_fused`` write every gradient row with
   the same device code (csrc/common.cuh's ``grad_row``).
 
-Rows 1 and 2 are ``torch.library`` operators
-(``torch.ops.mrnnt.stats_alpha_fused`` and ``beta_grad_fused``): the plain
-version is the CPU implementation, the launch (``stats_alpha_cuda``,
-``beta_grad_cuda``) the CUDA one, and a fake implementation gives the
-outputs' shapes, so a ``torch.export`` graph can hold them (serving.py).
-The live route calls the same operators. The other wrappers call ctypes on
-raw pointers, which a traced graph cannot hold.
+Rows 1-11 of the kernel table (every kernel a loss route runs) are
+operators in the ``mrnnt`` namespace (``torch.ops.mrnnt.<row>``), each
+registered by ``define_op``: its plain PyTorch version is the CPU
+implementation, a module-level ``<row>_cuda`` function (checks,
+allocation, launch, count; looked up by name at each call, so a shim on it
+sees live, exported and compiled calls alike) the CUDA one, and a fake
+implementation gives the outputs' shapes and dtypes without reading data
+or building anything. So ``torch.export`` and ``torch.compile`` trace
+every kernel route into a graph that holds the operators (serving.py), as
+``jax.export`` and ``jax.jit`` trace the JAX package's. Outputs that one
+allocation holds (rows 1, 3, 7, 10) come stacked, and the wrapper unbinds
+them: an operator's outputs may not alias each other. The copy kernels of
+rows 12-14 (ops/cuda/stream.py) are on no loss route and stay ctypes calls.
+The operators are registered through ``torch.library.Library``'s
+``define`` and ``impl``, which add less host time to a call than
+``torch.library.custom_op`` (scripts/op_dispatch.py times both).
 
-The banded kernels' wrappers (ops/cuda/banded_kernels.py), the split
-pipeline's (ops/cuda/split_kernels.py) and the copy-ceiling kernels'
-(ops/cuda/stream.py) count their launches here. Each wrapper takes its plain PyTorch version (same
-arguments, same outputs) for tensors on the CPU, and for CUDA tensors
-launches its kernels or raises. Each adds one to ``LAUNCHES[<name>]`` when
-it has launched. The TPU tiling helpers (pick_tv_tiles, fused_dp_tiles, the
-VMEM caps) have no counterpart: the CUDA kernels pick their own launch
-shapes.
+Each wrapper keeps its name and arguments and calls its operator on every
+device: tensors on the CPU take the plain version through it, CUDA tensors
+launch the kernel or raise, and a tensor on another device is refused.
+The CUDA implementation adds one to ``LAUNCHES[<name>]`` when it has
+launched. The TPU tiling helpers (pick_tv_tiles, fused_dp_tiles, the VMEM
+caps) have no counterpart: the CUDA kernels pick their own launch shapes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import sys
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -152,7 +160,38 @@ def _check_cuda(t: torch.Tensor) -> None:
                          f" the plain version), got {t.device}")
 
 
+def _check_device(x: torch.Tensor) -> None:
+    """A wrapper's one check: the CPU (the plain version) or CUDA."""
+    if x.device.type != "cpu":
+        _check_cuda(x)
+
+
 _FLOATS = (torch.float32, torch.bfloat16)
+
+_LIB = torch.library.Library("mrnnt", "FRAGMENT")
+# Operator name -> (CPU implementation, module of the CUDA implementation,
+# its name there).
+OPS = {}
+
+
+def define_op(name: str, schema: str, cpu: Callable, cuda: Callable,
+              fake: Callable) -> None:
+    """Registers ``torch.ops.mrnnt.<name>`` with the argument list and
+    results `schema`: `cpu` (the plain version) for CPU tensors; for CUDA
+    tensors the module-level function `cuda`, looked up by its name at each
+    call; `fake` for tracing (shapes and dtypes only)."""
+    module, attr = sys.modules[cuda.__module__], cuda.__name__
+    _LIB.define(name + schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, lambda *args: getattr(module, attr)(*args), "CUDA")
+    torch.library.register_fake(f"mrnnt::{name}", fake, lib=_LIB)
+    OPS[name] = (cpu, module, attr)
+
+
+def _stacked(plain: Callable) -> Callable:
+    """The CPU implementation of an operator whose outputs one allocation
+    holds: the plain version's outputs, stacked."""
+    return lambda *args: torch.stack(plain(*args))
 
 
 def _check_logits(logits: torch.Tensor, blank_id: Optional[int]):
@@ -253,26 +292,12 @@ def stats_alpha_cuda(logits, labels_ext, a_lo, a_hi, blank_id: int):
     return out
 
 
-@torch.library.custom_op("mrnnt::stats_alpha_fused", mutates_args=(),
-                         device_types="cpu")
-def _stats_alpha_op(logits: torch.Tensor, labels_ext: torch.Tensor,
-                    a_lo: torch.Tensor, a_hi: torch.Tensor,
-                    blank_id: int) -> torch.Tensor:
-    """Row 1 as an operator: the plain version on the CPU, the kernel on
-    the card; [4, B, T, S1] f32 (denom, lp_blank, lp_label, alphas)."""
-    return torch.stack(stats_alpha_fused_plain(logits, labels_ext, a_lo,
-                                               a_hi, blank_id))
-
-
-@_stats_alpha_op.register_kernel("cuda")
-def _(logits, labels_ext, a_lo, a_hi, blank_id):
-    return stats_alpha_cuda(logits, labels_ext, a_lo, a_hi, blank_id)
-
-
-@_stats_alpha_op.register_fake
-def _(logits, labels_ext, a_lo, a_hi, blank_id):
-    batch, t_max, s1, _ = logits.shape
-    return logits.new_empty((4, batch, t_max, s1), dtype=torch.float32)
+define_op("stats_alpha_fused",
+          "(Tensor logits, Tensor labels_ext, Tensor a_lo, Tensor a_hi, "
+          "SymInt blank_id) -> Tensor",
+          _stacked(stats_alpha_fused_plain), stats_alpha_cuda,
+          lambda logits, *_: logits.new_empty((4, *logits.shape[:3]),
+                                              dtype=torch.float32))
 
 
 def stats_alpha_fused(logits, labels_ext, a_lo, a_hi, blank_id: int):
@@ -285,12 +310,9 @@ def stats_alpha_fused(logits, labels_ext, a_lo, a_hi, blank_id: int):
     lp_label is -inf where the label slot is invalid.
 
     Goes through the operator ``torch.ops.mrnnt.stats_alpha_fused``, which
-    a torch.export graph can hold (its fake implementation gives the
-    shapes); the operator's outputs may not alias, so it returns one
-    stacked tensor and the four views are taken here.
+    returns one stacked tensor; the four views are taken here.
     """
-    if logits.device.type != "cpu":
-        _check_cuda(logits)
+    _check_device(logits)
     return tuple(torch.ops.mrnnt.stats_alpha_fused(
         logits, labels_ext, a_lo, a_hi, blank_id).unbind(0))
 
@@ -335,21 +357,10 @@ def grad_pass_plain(logits, denom, occ, cb, cl, labels_ext, blank_id: int,
     return torch.where(coef == 0.0, 0.0, p * coef).to(out_dtype)
 
 
-def grad_pass(logits, denom, occ, cb, cl, labels_ext, blank_id: int,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """dL/dz from per-cell coefficients: one read of logits, one write of grads.
-
-    logits [B, T, S1, V] f32 or bf16 (S1 = W on the band layout); denom,
-    occ, cb, cl [B, T, S1] f32; labels_ext [B, S1] or [B, T, S1] int32 (-1
-    sentinel). Returns grads [B, T, S1, V] in out_dtype (f32 or bf16):
-    p * (occ - [v == blank] cb - [v == label] cl), 0 where that is 0.
-    blank_id and the label ids may be any int: on a vocab shard the caller
-    passes ids relative to its first column, and an id outside [0, V)
-    matches no column.
-    """
-    if logits.device.type == "cpu":
-        return grad_pass_plain(logits, denom, occ, cb, cl, labels_ext,
-                               blank_id, out_dtype)
+def grad_pass_cuda(logits, denom, occ, cb, cl, labels_ext, blank_id: int,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """The launch of mrnnt_grad_kernel behind the op's CUDA implementation:
+    checks, allocation, launch, count."""
     batch, t_max, s1, _ = _check_logits(logits, None)
     dev = logits.device
     if out_dtype not in _FLOATS:
@@ -362,6 +373,31 @@ def grad_pass(logits, denom, occ, cb, cl, labels_ext, blank_id: int,
     launch_grad(logits, denom, occ, cb, cl, labels_ext, blank_id, grads)
     LAUNCHES["grad_pass"] += 1
     return grads
+
+
+define_op("grad_pass",
+          "(Tensor logits, Tensor denom, Tensor occ, Tensor cb, Tensor cl, "
+          "Tensor labels_ext, int blank_id, ScalarType out_dtype) -> Tensor",
+          grad_pass_plain, grad_pass_cuda,
+          lambda logits, *args: logits.new_empty(logits.shape,
+                                                 dtype=args[-1]))
+
+
+def grad_pass(logits, denom, occ, cb, cl, labels_ext, blank_id: int,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """dL/dz from per-cell coefficients: one read of logits, one write of grads.
+
+    logits [B, T, S1, V] f32 or bf16 (S1 = W on the band layout); denom,
+    occ, cb, cl [B, T, S1] f32; labels_ext [B, S1] or [B, T, S1] int32 (-1
+    sentinel). Returns grads [B, T, S1, V] in out_dtype (f32 or bf16):
+    p * (occ - [v == blank] cb - [v == label] cl), 0 where that is 0.
+    blank_id and the label ids may be any int: on a vocab shard the caller
+    passes ids relative to its first column, and an id outside [0, V)
+    matches no column. Goes through ``torch.ops.mrnnt.grad_pass``.
+    """
+    _check_device(logits)
+    return torch.ops.mrnnt.grad_pass(logits, denom, occ, cb, cl, labels_ext,
+                                     blank_id, out_dtype)
 
 
 def _ones_scale(grad_scale, batch, device):
@@ -412,35 +448,14 @@ def beta_grad_cuda(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
     return grads, betas
 
 
-@torch.library.custom_op("mrnnt::beta_grad_fused", mutates_args=(),
-                         device_types="cpu")
-def _beta_grad_op(logits: torch.Tensor, denom: torch.Tensor,
-                  lpb_bmask: torch.Tensor, lpl_bmask: torch.Tensor,
-                  aprev_masked: torch.Tensor, input_lengths: torch.Tensor,
-                  ll_bounded: torch.Tensor, beta_virtual: torch.Tensor,
-                  labels_ext: torch.Tensor, blank_id: int,
-                  grad_scale: Optional[torch.Tensor]
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Row 2 as an operator: the plain version on the CPU, the kernel on
-    the card; (grads in the logits' dtype, betas [B, T, S1] f32)."""
-    return beta_grad_fused_plain(logits, denom, lpb_bmask, lpl_bmask,
-                                 aprev_masked, input_lengths, ll_bounded,
-                                 beta_virtual, labels_ext, blank_id,
-                                 grad_scale=grad_scale)
-
-
-@_beta_grad_op.register_kernel("cuda")
-def _(logits, denom, lpb_bmask, lpl_bmask, aprev_masked, input_lengths,
-      ll_bounded, beta_virtual, labels_ext, blank_id, grad_scale):
-    return beta_grad_cuda(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
-                          input_lengths, ll_bounded, beta_virtual, labels_ext,
-                          blank_id, grad_scale=grad_scale)
-
-
-@_beta_grad_op.register_fake
-def _(logits, denom, lpb_bmask, lpl_bmask, aprev_masked, input_lengths,
-      ll_bounded, beta_virtual, labels_ext, blank_id, grad_scale):
-    return torch.empty_like(logits), torch.empty_like(denom)
+define_op("beta_grad_fused",
+          "(Tensor logits, Tensor denom, Tensor lpb_bmask, Tensor lpl_bmask, "
+          "Tensor aprev_masked, Tensor input_lengths, Tensor ll_bounded, "
+          "Tensor beta_virtual, Tensor labels_ext, SymInt blank_id, "
+          "Tensor? grad_scale) -> (Tensor, Tensor)",
+          beta_grad_fused_plain, beta_grad_cuda,
+          lambda logits, denom, *_: (torch.empty_like(logits),
+                                     torch.empty_like(denom)))
 
 
 def beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
@@ -458,8 +473,7 @@ def beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
     Returns (grads [B, T, S1, V] in the logits' dtype, betas [B, T, S1] f32),
     through the operator ``torch.ops.mrnnt.beta_grad_fused``.
     """
-    if logits.device.type != "cpu":
-        _check_cuda(logits)
+    _check_device(logits)
     return torch.ops.mrnnt.beta_grad_fused(
         logits, denom, lpb_bmask, lpl_bmask, aprev_masked, input_lengths,
         ll_bounded, beta_virtual, labels_ext, blank_id, grad_scale)

@@ -21,10 +21,15 @@ outputs, except that input_lengths is [B] (the TPU's [B, 1, 1] block shape),
 that ``tiles`` and ``interpret`` are gone, and that the scans take any B and
 T: the TPU padding to full DP tiles has no counterpart. The scans apply
 their additive masks as the port does everywhere: exactly -inf where the
-mask is -inf (a select), the mask added elsewhere. Each wrapper takes its
-plain PyTorch version for CPU tensors, launches its kernel or raises for
-CUDA tensors, and adds one to ``kernels.LAUNCHES[<name>]`` when it has
-launched.
+mask is -inf (a select), the mask added elsewhere.
+
+Each row is an operator, ``torch.ops.mrnnt.<name>`` (kernels.define_op):
+the plain PyTorch version for CPU tensors, ``<name>_cuda`` (checks,
+allocation, launch, one added to ``kernels.LAUNCHES[<name>]``) for CUDA
+tensors, and a fake implementation for tracing, so that torch.export and
+torch.compile graphs hold them. The stats kernels write their outputs into
+one allocation; their operators return it stacked, and the wrappers unbind
+it.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import torch
 
 from ..helpers import (NEG_INF, log_sum_exp, mask_to_additive,
                        select_label_logits, shift_left_s, shift_right_s)
-from .kernels import LAUNCHES, _call, _check, _check_cuda, _check_logits, _ptr
+from .kernels import (LAUNCHES, _call, _check, _check_cuda, _check_device,
+                      _check_logits, _ptr, _stacked, define_op)
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -51,6 +57,30 @@ def softmax_stats_plain(logits, labels_ext, blank_id: int):
             select_label_logits(x, lab) + denom)
 
 
+def softmax_stats_cuda(logits, labels_ext, blank_id: int) -> torch.Tensor:
+    """The launch of mrnnt_softmax_stats_kernel behind the op's CUDA
+    implementation; returns the stacked [3, B, T, S1] f32 outputs."""
+    batch, t_max, s1, v = _check_logits(logits, blank_id)
+    dev = logits.device
+    per_t = labels_ext.dim() == 3
+    _check(labels_ext, "labels_ext", torch.int32,
+           (batch, t_max, s1) if per_t else (batch, s1), dev)
+    # One allocation for the three outputs: the host prelude is part of a
+    # call that the kernel makes short.
+    out = torch.empty((3, batch, t_max, s1), dtype=torch.float32, device=dev)
+    _call("mrnnt_softmax_stats", dev, _ptr(logits),
+          int(logits.dtype == torch.bfloat16), _ptr(labels_ext), int(per_t),
+          batch, t_max, s1, v, blank_id, *(_ptr(t) for t in out))
+    LAUNCHES["softmax_stats"] += 1
+    return out
+
+
+define_op("softmax_stats", "(Tensor logits, Tensor labels_ext, int blank_id)"
+          " -> Tensor", _stacked(softmax_stats_plain), softmax_stats_cuda,
+          lambda logits, *_: logits.new_empty((3, *logits.shape[:3]),
+                                              dtype=torch.float32))
+
+
 def softmax_stats(logits, labels_ext, blank_id: int):
     """Log-softmax statistics and the raw label log-prob, one read of the logits.
 
@@ -60,22 +90,9 @@ def softmax_stats(logits, labels_ext, blank_id: int):
     [0, V), such as the -1 sentinel, selects nothing: lp_label_raw is then
     denom, and the caller masks the slot.
     """
-    if logits.device.type == "cpu":
-        return softmax_stats_plain(logits, labels_ext, blank_id)
-    batch, t_max, s1, v = _check_logits(logits, blank_id)
-    dev = logits.device
-    per_t = labels_ext.dim() == 3
-    _check(labels_ext, "labels_ext", torch.int32,
-           (batch, t_max, s1) if per_t else (batch, s1), dev)
-    # One allocation for the three outputs: the host prelude is part of a
-    # call that the kernel makes short.
-    out = torch.empty((3, batch, t_max, s1), dtype=torch.float32,
-                      device=dev).unbind(0)
-    _call("mrnnt_softmax_stats", dev, _ptr(logits),
-          int(logits.dtype == torch.bfloat16), _ptr(labels_ext), int(per_t),
-          batch, t_max, s1, v, blank_id, *(_ptr(t) for t in out))
-    LAUNCHES["softmax_stats"] += 1
-    return out
+    _check_device(logits)
+    return torch.ops.mrnnt.softmax_stats(logits, labels_ext,
+                                         blank_id).unbind(0)
 
 
 # --- softmax_stats_partial -------------------------------------------------------
@@ -89,6 +106,25 @@ def softmax_stats_partial_plain(logits) -> Pair:
     return m, se
 
 
+def softmax_stats_partial_cuda(logits) -> torch.Tensor:
+    """The launch of mrnnt_softmax_stats_partial_kernel behind the op's
+    CUDA implementation; returns the stacked [2, B, T, S1] f32 (m, se)."""
+    batch, t_max, s1, v = _check_logits(logits, None)
+    dev = logits.device
+    out = torch.empty((2, batch, t_max, s1), dtype=torch.float32, device=dev)
+    _call("mrnnt_softmax_stats_partial", dev, _ptr(logits),
+          int(logits.dtype == torch.bfloat16), batch, t_max, s1, v,
+          _ptr(out[0]), _ptr(out[1]))
+    LAUNCHES["softmax_stats_partial"] += 1
+    return out
+
+
+define_op("softmax_stats_partial", "(Tensor logits) -> Tensor",
+          _stacked(softmax_stats_partial_plain), softmax_stats_partial_cuda,
+          lambda logits: logits.new_empty((2, *logits.shape[:3]),
+                                          dtype=torch.float32))
+
+
 def softmax_stats_partial(logits) -> Pair:
     """Per-cell (max, sum-exp) over this shard's vocab slice, one read.
 
@@ -98,17 +134,8 @@ def softmax_stats_partial(logits) -> Pair:
     exp(m - m_g), denom = -(m_g + log se_g). An all -inf row gives m = -inf,
     se = 0 (the Pallas kernel gives se = NaN there).
     """
-    if logits.device.type == "cpu":
-        return softmax_stats_partial_plain(logits)
-    batch, t_max, s1, v = _check_logits(logits, None)
-    dev = logits.device
-    m, se = torch.empty((2, batch, t_max, s1), dtype=torch.float32,
-                        device=dev).unbind(0)
-    _call("mrnnt_softmax_stats_partial", dev, _ptr(logits),
-          int(logits.dtype == torch.bfloat16), batch, t_max, s1, v, _ptr(m),
-          _ptr(se))
-    LAUNCHES["softmax_stats_partial"] += 1
-    return m, se
+    _check_device(logits)
+    return torch.ops.mrnnt.softmax_stats_partial(logits).unbind(0)
 
 
 # --- the scans -------------------------------------------------------------------
@@ -170,17 +197,9 @@ def _check_beta_extras(input_lengths, beta_virtual, batch, s1, dev):
     _check(beta_virtual, "beta_virtual", torch.float32, (batch, s1), dev)
 
 
-def alpha_scan(lp_blank, lp_label, alpha_maskadd):
-    """Cost-only forward DP; returns alphas [B, T, S1] f32.
-
-    lp_blank, lp_label, alpha_maskadd: [B, T, S1] f32 (lp_label -inf on
-    invalid label slots, the mask 0 / -inf). Walks t serially:
-      alpha(t, s) = LSE(alpha(t-1, s) + lp_blank[t, s],
-                        alpha(t-1, s-1) + lp_label[t, s-1]) + mask[t, s],
-    exactly -inf where the mask is; alpha(-1, s) = [s == 0].
-    """
-    if lp_blank.device.type == "cpu":
-        return alpha_scan_plain(lp_blank, lp_label, alpha_maskadd)
+def alpha_scan_cuda(lp_blank, lp_label, alpha_maskadd) -> torch.Tensor:
+    """The launch of alpha_scan's kernel behind the op's CUDA
+    implementation."""
     dev = lp_blank.device
     batch, t_max, s1 = _check_streams(
         (("lp_blank", lp_blank), ("lp_label", lp_label),
@@ -192,19 +211,10 @@ def alpha_scan(lp_blank, lp_label, alpha_maskadd):
     return alphas
 
 
-def beta_scan(lp_blank, lp_label, beta_maskadd, input_lengths, beta_virtual):
-    """Backward DP; returns betas [B, T, S1] f32 (code convention beta(t, s)).
-
-    input_lengths [B] int32; beta_virtual [B, S1] f32, [s == S_b] in log
-    space. Walks t from T-1 down to 0:
-      nxt = t+1 >= T_b ? beta_virtual : beta(t+1)   (-inf past T_max),
-      beta(t, s) = LSE(nxt[s] + lp_blank[t, s],
-                       nxt[s+1] + lp_label[t, s]) + mask[t, s],
-    exactly -inf where the mask is.
-    """
-    if lp_blank.device.type == "cpu":
-        return beta_scan_plain(lp_blank, lp_label, beta_maskadd,
-                               input_lengths, beta_virtual)
+def beta_scan_cuda(lp_blank, lp_label, beta_maskadd, input_lengths,
+                   beta_virtual) -> torch.Tensor:
+    """The launch of beta_scan's kernel behind the op's CUDA
+    implementation."""
     dev = lp_blank.device
     batch, t_max, s1 = _check_streams(
         (("lp_blank", lp_blank), ("lp_label", lp_label),
@@ -218,12 +228,10 @@ def beta_scan(lp_blank, lp_label, beta_maskadd, input_lengths, beta_virtual):
     return betas
 
 
-def fwdbwd_scan(lp_blank, lp_label, alpha_maskadd, beta_maskadd,
-                input_lengths, beta_virtual) -> Pair:
-    """alpha_scan's and beta_scan's outputs in one launch: (alphas, betas)."""
-    if lp_blank.device.type == "cpu":
-        return fwdbwd_scan_plain(lp_blank, lp_label, alpha_maskadd,
-                                 beta_maskadd, input_lengths, beta_virtual)
+def fwdbwd_scan_cuda(lp_blank, lp_label, alpha_maskadd, beta_maskadd,
+                     input_lengths, beta_virtual) -> Pair:
+    """The launch of fwdbwd_scan's kernel behind the op's CUDA
+    implementation."""
     dev = lp_blank.device
     batch, t_max, s1 = _check_streams(
         (("lp_blank", lp_blank), ("lp_label", lp_label),
@@ -237,3 +245,57 @@ def fwdbwd_scan(lp_blank, lp_label, alpha_maskadd, beta_maskadd,
           _ptr(beta_virtual), batch, t_max, s1, _ptr(alphas), _ptr(betas))
     LAUNCHES["fwdbwd_scan"] += 1
     return alphas, betas
+
+
+def _like_first(*args):
+    return torch.empty_like(args[0])
+
+
+define_op("alpha_scan", "(Tensor lp_blank, Tensor lp_label, "
+          "Tensor alpha_maskadd) -> Tensor", alpha_scan_plain,
+          alpha_scan_cuda, _like_first)
+define_op("beta_scan", "(Tensor lp_blank, Tensor lp_label, "
+          "Tensor beta_maskadd, Tensor input_lengths, Tensor beta_virtual) "
+          "-> Tensor", beta_scan_plain, beta_scan_cuda, _like_first)
+define_op("fwdbwd_scan", "(Tensor lp_blank, Tensor lp_label, "
+          "Tensor alpha_maskadd, Tensor beta_maskadd, Tensor input_lengths, "
+          "Tensor beta_virtual) -> (Tensor, Tensor)", fwdbwd_scan_plain,
+          fwdbwd_scan_cuda, lambda *args: (_like_first(*args),
+                                           _like_first(*args)))
+
+
+def alpha_scan(lp_blank, lp_label, alpha_maskadd):
+    """Cost-only forward DP; returns alphas [B, T, S1] f32.
+
+    lp_blank, lp_label, alpha_maskadd: [B, T, S1] f32 (lp_label -inf on
+    invalid label slots, the mask 0 / -inf). Walks t serially:
+      alpha(t, s) = LSE(alpha(t-1, s) + lp_blank[t, s],
+                        alpha(t-1, s-1) + lp_label[t, s-1]) + mask[t, s],
+    exactly -inf where the mask is; alpha(-1, s) = [s == 0].
+    """
+    _check_device(lp_blank)
+    return torch.ops.mrnnt.alpha_scan(lp_blank, lp_label, alpha_maskadd)
+
+
+def beta_scan(lp_blank, lp_label, beta_maskadd, input_lengths, beta_virtual):
+    """Backward DP; returns betas [B, T, S1] f32 (code convention beta(t, s)).
+
+    input_lengths [B] int32; beta_virtual [B, S1] f32, [s == S_b] in log
+    space. Walks t from T-1 down to 0:
+      nxt = t+1 >= T_b ? beta_virtual : beta(t+1)   (-inf past T_max),
+      beta(t, s) = LSE(nxt[s] + lp_blank[t, s],
+                       nxt[s+1] + lp_label[t, s]) + mask[t, s],
+    exactly -inf where the mask is.
+    """
+    _check_device(lp_blank)
+    return torch.ops.mrnnt.beta_scan(lp_blank, lp_label, beta_maskadd,
+                                     input_lengths, beta_virtual)
+
+
+def fwdbwd_scan(lp_blank, lp_label, alpha_maskadd, beta_maskadd,
+                input_lengths, beta_virtual) -> Pair:
+    """alpha_scan's and beta_scan's outputs in one launch: (alphas, betas)."""
+    _check_device(lp_blank)
+    return torch.ops.mrnnt.fwdbwd_scan(lp_blank, lp_label, alpha_maskadd,
+                                       beta_maskadd, input_lengths,
+                                       beta_virtual)

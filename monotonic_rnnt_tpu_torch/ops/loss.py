@@ -27,7 +27,7 @@ from torch.autograd.function import once_differentiable
 
 from ..utils.config import get_config
 from ..utils.profiling import phase_timer
-from ..utils.status import validate_loss_inputs
+from ..utils.status import tracing, validate_loss_inputs
 from .bands import Bands, bands_from_alignment, default_bands
 from .cuda.fused import (deferred_grad_supported, rnnt_loss_cuda,
                          rnnt_loss_cuda_deferred_bwd,
@@ -173,8 +173,9 @@ def debug_timer(name: str):
     """The debug_time flag's timer around a public loss call (the JAX
     package's loss.py:175-186): phase_timer waits for the card before and
     after the call, so the time covers its device work. Not while
-    torch.export traces a graph, as JAX skips it on traced values."""
-    if get_config().debug_time and not torch.compiler.is_exporting():
+    torch.export or torch.compile traces a graph, as JAX skips it on
+    traced values."""
+    if get_config().debug_time and not tracing():
         return phase_timer(name)
     return contextlib.nullcontext()
 

@@ -16,10 +16,12 @@ compiled contract, with shapes and dtypes checked at call time.
 A JAX artifact lowers for several platforms at once; an artifact here
 holds the device it was traced on (its tensors' device), and
 ``import_fn(blob, device=...)`` moves it to another. The ``cuda`` loss holds
-rows 1-2 of the kernel table as the operators ``torch.ops.mrnnt.
-stats_alpha_fused`` and ``beta_grad_fused`` (ops/cuda/kernels.py), so it
-serves CUDA devices only. An artifact checks no length values: those are
-data, as on a JAX artifact, whose traced lengths skip the value checks.
+the kernels of the pipeline the config names as ``torch.ops.mrnnt``
+operators (ops/cuda/kernels.py): rows 1-2 (``stats_alpha_fused``,
+``beta_grad_fused``), or under ``pipeline='split'`` rows 3, 4 and 6
+(``softmax_stats``, ``fwdbwd_scan``, ``grad_pass``), so it serves CUDA
+devices only. An artifact checks no length values: those are data, as on a
+JAX artifact, whose traced lengths skip the value checks.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from torch import nn
 
 from .ops.banded import rnnt_loss_banded_reference
 from .ops.bands import Bands, default_bands
-from .ops.cuda.fused import deferred_grad_supported, rnnt_loss_cuda
+from .ops.cuda.fused import rnnt_loss_cuda
 from .ops.reference import rnnt_loss_reference
 from .utils.status import RnntError, Status, validate_loss_inputs
 
@@ -116,10 +118,10 @@ def export_loss(example_logits, example_labels, example_input_lengths,
     batch, on the unrestricted lattice.
 
     backend: "reference" (default) holds the plain-torch oracle; "cuda"
-    holds rows 1 then 2 (stats_alpha_fused, beta_grad_fused) as the
-    operators the live deferred route calls, gradient scale 1, and needs
-    device="cuda". The split pipeline's kernels are not operators, so
-    "cuda" refuses pipeline='split'.
+    holds the operators the live route of the config's pipeline calls,
+    gradient scale 1, and needs device="cuda": rows 1 then 2
+    (stats_alpha_fused, beta_grad_fused), or under pipeline='split' rows
+    3, 4 and 6 (softmax_stats, fwdbwd_scan, grad_pass).
     """
     if backend not in _LOSS_BACKENDS:
         raise ValueError(f"backend must be one of {_LOSS_BACKENDS}, got "
@@ -128,10 +130,6 @@ def export_loss(example_logits, example_labels, example_input_lengths,
         if torch.device(device).type != "cuda":
             raise ValueError("backend='cuda' exports must use "
                              f"device='cuda', got {device!r}")
-        if not deferred_grad_supported():
-            raise ValueError("backend='cuda' exports the DP-fused kernels; "
-                             "the split pipeline's kernels cannot be "
-                             "exported (pipeline='split' is set)")
 
     def fn(logits, labels, input_lengths, label_lengths):
         validate_loss_inputs(logits, labels, input_lengths, label_lengths)

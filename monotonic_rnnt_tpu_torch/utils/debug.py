@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .config import get_config
+from .status import tracing
 
 
 def _host(x) -> np.ndarray:
@@ -53,7 +54,7 @@ def emit_loss_debug(ll_fwd, ll_bwd=None, grads=None) -> None:
     wants_debug = ((ll_bwd is not None
                     and (cfg.debug_fwdbwd or cfg.check_fwd_bwd))
                    or (grads is not None and cfg.debug_grads))
-    if not wants_debug or torch.compiler.is_exporting():
+    if not wants_debug or tracing():
         return
     if ll_bwd is not None and cfg.debug_fwdbwd:
         print(f"mrnnt fwdbwd: ll_fwd={_host(ll_fwd)} ll_bwd={_host(ll_bwd)}")

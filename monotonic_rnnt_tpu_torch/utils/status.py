@@ -26,7 +26,10 @@ class RnntError(ValueError):
     """Raised for invalid monotonic RNN-T inputs."""
 
     def __init__(self, status: Status, message: str):
-        super().__init__(f"[{status.name}] {message}")
+        # args set here rather than through super().__init__, which
+        # torch.compile cannot trace: a compiled call that raises then
+        # names this error and its message.
+        self.args = (f"[{status.name}] {message}",)
         self.status = status
 
 
@@ -35,12 +38,20 @@ def _is_integer(dtype: torch.dtype) -> bool:
                 or dtype == torch.bool)
 
 
+def tracing() -> bool:
+    """Whether torch.export or torch.compile is tracing the call: the
+    lengths are then data of a graph, as JAX's traced values are, and
+    nothing reads their values on the host."""
+    return torch.compiler.is_exporting() or torch.compiler.is_compiling()
+
+
 def validate_loss_inputs(logits, labels, input_lengths, label_lengths) -> None:
     """Eager shape/dtype/length validation of the padded-layout API.
 
     Enforces the reference's constraints (cpu_workspace_manager.h:99-115):
-    B > 0, T_b > 0, S_b >= 0 and T_b >= S_b. Under torch.export only the
-    shape and dtype checks run: the length values are data.
+    B > 0, T_b > 0, S_b >= 0 and T_b >= S_b. Under torch.export and
+    torch.compile only the shape and dtype checks run: the length values
+    are data.
     """
     if logits.dim() != 4:
         raise RnntError(Status.INVALID_VALUE,
@@ -71,9 +82,9 @@ def validate_loss_inputs(logits, labels, input_lengths, label_lengths) -> None:
 
     # The value checks need the lengths on the host: one copy of two [B]
     # tensors, the same eager check the JAX version makes outside jit. A
-    # graph that torch.export traces holds no such check, as a JAX
-    # artifact holds none on traced lengths (status.py:65-70).
-    if torch.compiler.is_exporting():
+    # graph that torch.export or torch.compile traces holds no such check,
+    # as JAX holds none on traced lengths (status.py:65-70).
+    if tracing():
         return
     ilen = input_lengths.detach().cpu()
     slen = label_lengths.detach().cpu()

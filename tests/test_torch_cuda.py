@@ -1279,3 +1279,169 @@ def test_reference_backend_launches_no_kernel(device, group_of_one):
         assert _launched() == {}
     for name in want:
         _close(got[name], want[name], 1e-4, 1e-4)
+
+
+# --- traced routes: artifacts and compiled losses (rows 1-11 as operators) -----
+
+class _HeldCalls:
+    """Counts the calls of each operator's CUDA implementation (the
+    <row>_cuda functions that K.OPS names), where every launch of a live,
+    exported or compiled route is made."""
+
+    def __enter__(self):
+        self.calls, self.saved = {}, []
+        for row, (_, module, attr) in K.OPS.items():
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+
+            def shim(*args, row=row, fn=fn):
+                self.calls[row] = self.calls.get(row, 0) + 1
+                return fn(*args)
+            setattr(module, attr, shim)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+
+
+def _launches_of(fn):
+    """fn()'s outputs and launches; every launch one held operator call."""
+    K.reset_launch_counts()
+    with _HeldCalls() as held:
+        out = fn()
+        torch.cuda.synchronize()
+    assert held.calls == _launched()
+    return out, _launched()
+
+
+def _assert_equal(got, want):
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _traced_case(device, dtype=torch.float32):
+    logits, labels, ilen, slen = golden.repeat_label_case(7, 4, 30, 8, 300)
+    return convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
+                                          device=device, dtype=dtype)
+
+
+def _band_case(device):
+    rng = np.random.RandomState(8)
+    b, t, s, v = 2, 40, 12, 33
+    logits = torch.from_numpy(rng.randn(b, t, s + 1, v).astype(np.float32))
+    labels = rng.randint(1, v, (b, s)).astype(np.int32)
+    ilen, slen = np.array([t, t - 5], np.int32), np.array([s, s - 2], np.int32)
+    align = np.zeros((b, t), np.int32)
+    for i in range(b):
+        pos = np.sort(rng.choice(ilen[i], size=slen[i], replace=False))
+        align[i, pos] = labels[i, :slen[i]]
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(
+        logits.numpy(), labels, ilen, slen, device=device)
+    bands = tbands.bands_from_alignment(
+        torch.from_numpy(align).to(device), il, sl, 2, 0)
+    w = tbands.suggested_band_width(il, sl, bands, t, s + 1)
+    layout = tbands.compute_band_layout(il, sl, bands, t, s + 1, w)
+    return (tbands.pack_band(lg, layout).contiguous(), lb, il, sl,
+            bands.min_s, bands.max_s)
+
+
+def _split_live(*args):
+    with mt.config_override(pipeline="split"):
+        return fused.rnnt_loss_cuda(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exported_split_loss_equals_the_live_split_route(device, dtype):
+    """export_loss(backend='cuda') under pipeline='split': the artifact
+    launches rows 3, 4 and 6 once each, every launch a held operator call,
+    and equals the live split route bit for bit."""
+    from monotonic_rnnt_tpu_torch import serving
+
+    args = _traced_case(device, dtype)
+    with mt.config_override(pipeline="split"):
+        blob = serving.export_loss(*args, backend="cuda")
+    want, want_launches = _launches_of(lambda: _split_live(*args))
+    got, got_launches = _launches_of(lambda: serving.import_fn(blob)(*args))
+    assert got_launches == want_launches == {
+        "softmax_stats": 1, "fwdbwd_scan": 1, "grad_pass": 1}
+    _assert_equal(got, want)
+
+
+def test_exported_routes_equal_the_live_calls(device):
+    """The banded kernel route (costs and grads), the fused-joint loss's
+    cost-only forward and Viterbi with the occupancies, each through
+    export_fn and import_fn: the live call's launches, each a held
+    operator call, and its outputs bit for bit; exporting launches
+    nothing."""
+    from monotonic_rnnt_tpu_torch import serving
+    from monotonic_rnnt_tpu_torch.ops.cuda import banded as cbanded
+
+    band_args = _band_case(device)
+    lg, lb, il, sl = _traced_case(device)
+    rng = np.random.RandomState(9)
+    b, t, s1, v = lg.shape
+    joint_args = tuple(torch.from_numpy(rng.randn(*shape).astype(
+        np.float32)).to(device) for shape in ((b, t, 16), (b, s1, 16),
+                                               (16, v)))
+
+    def banded(x, lab, ilen, slen, lo, hi):
+        return cbanded.rnnt_loss_banded_cuda(x, lab, ilen, slen,
+                                             tbands.Bands(lo, hi))
+
+    def fused_forward(enc, pred, w, lab, ilen, slen):
+        with torch.no_grad():
+            return mt.rnnt_loss_fused_joint(
+                enc, pred, lab, ilen, slen,
+                lambda p, e, q: torch.tanh(e[:, :, None] + q[:, None])
+                @ p["w"], {"w": w}, chunk_t=8)
+
+    def alignment(x, lab, ilen, slen):
+        vit = mt.viterbi_alignment(x, lab, ilen, slen)
+        return (vit.alignment, vit.score,
+                mt.occupancy_posteriors(x, lab, ilen, slen))
+
+    for fn, args in ((banded, band_args),
+                     (fused_forward, (*joint_args, lb, il, sl)),
+                     (alignment, (lg, lb, il, sl))):
+        blob, traced = _launches_of(lambda: serving.export_fn(fn, args))
+        assert traced == {}
+        want, want_launches = _launches_of(lambda: fn(*args))
+        got, got_launches = _launches_of(
+            lambda: serving.import_fn(blob)(*args))
+        assert want_launches and got_launches == want_launches
+        _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["deferred", "split", "banded"])
+def test_compiled_losses_equal_eager(device, route):
+    """torch.compile(fullgraph=True, backend='aot_eager') of the public
+    losses, forward and backward (a weighted sum of the costs): the first
+    call (trace and run) launches what one eager call does, every launch a
+    held operator call, and costs and gradients equal eager bit for bit."""
+    if route == "banded":
+        x, *rest, lo, hi = _band_case(device)
+        bands = tbands.Bands(lo, hi)
+        fn = lambda z, *a: mt.monotonic_rnnt_loss_banded(z, *a, bands=bands)
+    else:
+        x, *rest = _traced_case(device)
+        fn = mt.monotonic_rnnt_loss
+    weights = torch.linspace(-0.5, 2.0, x.shape[0], device=device)
+
+    def step(f):
+        leaf = x.detach().requires_grad_(True)
+        costs = f(leaf, *rest)
+        grads, = torch.autograd.grad((costs * weights).sum(), leaf)
+        return costs.detach(), grads
+
+    pipeline = "split" if route == "split" else "auto"
+    with mt.config_override(pipeline=pipeline):
+        want, want_launches = _launches_of(lambda: step(fn))
+        compiled = torch.compile(fn, fullgraph=True, backend="aot_eager")
+        got, got_launches = _launches_of(lambda: step(compiled))
+    torch._dynamo.reset()
+    assert want_launches and got_launches == want_launches
+    _assert_equal(got, want)

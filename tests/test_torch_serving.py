@@ -82,17 +82,31 @@ def test_export_shape_contract_enforced(loss_artifact):
         fn(bad, *t(labels[:2], ilen[:2], slen[:2]))
 
 
-def test_export_loss_refuses_what_it_cannot_hold():
-    """backend='cuda' holds the kernels: only for device 'cuda', and not
-    under pipeline='split', whose kernels are no operators."""
+def test_export_loss_refuses_what_it_cannot_hold(monkeypatch):
+    """backend='cuda' holds the kernels: only for device 'cuda'. Under
+    pipeline='split' it holds the split route's operators, rows 3, 4 and 6
+    (softmax_stats, fwdbwd_scan, grad_pass), and equals the live split
+    route bit for bit: traced here on the CPU tensors (export_fn keeps
+    them where they lie), where the operators run their plain versions."""
     case = t(*_loss_batch())
     with pytest.raises(ValueError, match="device='cuda'"):
         serving.export_loss(*case, device="cpu", backend="cuda")
-    with config_override(pipeline="split"), pytest.raises(ValueError,
-                                                          match="split"):
-        serving.export_loss(*case, backend="cuda")
     with pytest.raises(ValueError, match="backend must be"):
         serving.export_loss(*case, device="cpu", backend="pallas")
+    export_fn = serving.export_fn
+    monkeypatch.setattr(serving, "export_fn",
+                        lambda fn, args, device: export_fn(fn, args))
+    with config_override(pipeline="split"):
+        blob = serving.export_loss(*case, backend="cuda")
+        live_c, live_g = fused.rnnt_loss_cuda(*case)
+    program = torch.export.load(io.BytesIO(blob))
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function" and "mrnnt" in str(n.target)]
+    assert targets == ["mrnnt.softmax_stats.default",
+                       "mrnnt.fwdbwd_scan.default",
+                       "mrnnt.grad_pass.default"]
+    costs, grads = serving.import_fn(blob)(*case)
+    assert torch.equal(costs, live_c) and torch.equal(grads, live_g)
 
 
 def test_cuda_route_exports_rows_1_2_as_operators():
