@@ -1591,6 +1591,16 @@ def phase_banded_timing(mt, case, weights, errs, launches):
                                 queued_ms=queued_ms(timed["grad_pass"][0]))
         out["softmax_stats_banded"]["queued_ms"] = queued_ms(
             timed["softmax_stats_banded"][0])
+        if x.is_cuda:   # row 7's persistent grid and its ring, as launched
+            shape = BK.stats_banded_launch_shape(x)
+            out["softmax_stats_banded"]["launch"] = shape
+            log(f"softmax_stats_banded launch {dtype}: grid {shape['grid']} "
+                f"x {shape['threads']} threads, {shape['stages']} stages of "
+                f"{shape['stage_bytes']} bytes ({shape['smem_bytes']} bytes "
+                f"of shared memory), {shape['unit_rows']} rows a stage, "
+                f"{shape['stages_per_unit']} stage(s) a row, "
+                f"{shape['load_bytes']}-byte loads, {shape['row_lanes']} "
+                "lanes a row")
         for name in ("fwdbwd_scan_banded", "alpha_scan_banded"):
             out[name]["ns_per_step"] = out[name]["ms"] * 1e6 / n_t
             out[name]["queued_ms"] = queued_ms(timed[name][0])
@@ -1667,7 +1677,8 @@ def phase_banded_timing(mt, case, weights, errs, launches):
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
             "library_ms": f32["library_ms"],
-            "status": ("redesigned" if name in ("fwdbwd_scan_banded",
+            "status": ("redesigned" if name in ("softmax_stats_banded",
+                                                "fwdbwd_scan_banded",
                                                 "grad_pass") else "ported"),
             **({"note": SHARED_REDUCTION}
                if name == "softmax_stats_banded" else {}),
@@ -1683,7 +1694,7 @@ def phase_banded_timing(mt, case, weights, errs, launches):
         if "live_rows" in f32:
             entry.update(live_rows=f32["live_rows"], rows=f32["rows"])
         for key in ("ns_per_step", "queued_ms", "queued_ns_per_step",
-                    "short_second_sample"):
+                    "short_second_sample", "launch"):
             if key in f32:
                 entry[key] = f32[key]
                 entry["bf16"][key] = b16[key]

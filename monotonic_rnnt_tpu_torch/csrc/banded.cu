@@ -16,17 +16,46 @@
 //
 // What bounds them on an H100. The stats kernel: HBM bytes, one read of the
 // band tensor (0.21 GB f32 at B=2, T=1600, W=16, V=1024: ~0.063 ms at
-// 3.35 TB/s). The scans: latency, not bytes. Their traffic is O(B*T*W) f32
-// (a few us of HBM time) but each walks T dependent steps for only B
-// samples.
+// 3.35 TB/s), with one precise expf a value behind them (~1 for every 4
+// bytes f32, 2 bf16). On the card the read runs at ~2.8 TB/s f32 whether
+// or not the exponentials run (a band of -inf takes none; PERF.md section
+// 6): they hide behind the bytes. The scans: latency, not bytes. Their
+// traffic is O(B*T*W) f32 (a few us of HBM time) but each walks T
+// dependent steps for only B samples.
 //
 // Design.
-//  * Stats: one warp per (b,t,w) row, reduced by common.cuh's walk_rows
-//    (the stats reduction of every stats kernel, so a row's stats equal
-//    the split and fused routes' bit for bit); lane 0 reads x[blank] and
-//    x[lab_band[row]] and adds the 0/-inf window masks. The alpha emit mask
-//    is the alpha window shifted by one slot (bounds minus 1): the emit into
-//    w reads lp_label at w-1.
+//  * Stats: a persistent grid (resident_ctas CTAs, kStatsCtasPerSm a SM),
+//    each CTA a ring of kStatsStages stages in shared memory. The flat
+//    [B*T*W, V] rows are cut into units of whole rows (a stage's worth);
+//    one producer thread a CTA draws units in order from the launch's
+//    ticket counter (zeroed on the stream before the launch) and fills
+//    the stages with cp.async.bulk copies that complete on a "full"
+//    mbarrier a stage; the kStatsConsumers consumer warps release a stage
+//    on its "empty" mbarrier (after a fence.proxy.async), so HBM keeps a
+//    CTA's next stages in flight while the warps spend their exponentials
+//    on the stage that landed. Units drawn in order keep the bytes in
+//    flight one front that sweeps the band: contiguous spans a CTA (the
+//    front as wide as the band) read 5-8% slower on the card, a static
+//    interleave up to 3% (PERF.md section 6).
+//    A stage holds whole rows (32 KB of logits at most) where the ring
+//    holds a row for every consumer group, else one row a group and a
+//    round of each, the rows streaming through the ring a round at a time
+//    (V = 50,000 f32). A copy moves the 16-byte-aligned span that
+//    covers its bytes, and the readers offset into it, so any V and any
+//    storage offset take the one kernel. Each stage also stages its rows'
+//    labels and the window bounds of their (b,t) tiles, and a head in
+//    which the producer says where the stage's rows start, so that no
+//    consumer repeats the walk's 64-bit arithmetic. The consumers reduce a
+//    row with common.cuh's load_round (its shared-memory loads), lse_round
+//    and group_max_sumexp in walk_rows' order and groups, so a row's stats
+//    equal rows 1, 3 and 10's bit for bit. One lane of the group reads the
+//    row's x[blank], x[label], label and bounds from the staged tile and
+//    keeps its stats; each lane writes the row it keeps once the group has
+//    kG of them (the epilogue, a logf, the 0/-inf window masks and five
+//    stores, then costs one pass for kG rows: lane 0 writing each row as
+//    it finished cost 3-5 us of the call). The alpha emit mask is the alpha
+//    window shifted by one slot (bounds minus 1): the emit into w reads
+//    lp_label at w-1.
 //  * Scans: a step is one log_sum_exp a slot on operands that do not depend
 //    on the carry, and B chains give the card a few warps, so a step's
 //    latency is the kernel's time. fwdbwd runs the alpha chain in
@@ -54,58 +83,334 @@
 
 namespace mrnnt {
 
-// softmax_stats_banded's rows: lane 0 reads x[blank] and x[lab_band[row]]
-// and writes the stats with the window masks added.
-template <typename T>
-struct BandedStatsRows {
-  DirectReads<T> d;
-  const int* lab_band;
-  const int *ra_lo, *ra_hi, *rb_lo, *rb_hi;
-  int w;
-  float *denom, *lpba, *lpla, *lpbb, *lplb;
+// --- softmax_stats_banded: a persistent grid fed by a bulk-copy ring ---------
 
-  __device__ __forceinline__ void begin(long long, long long) {}
-  __device__ __forceinline__ void pre(long long row) {
-    d.load(row, lab_band[row]);
+constexpr int kStatsConsumers = 16;  // consumer warps a CTA
+constexpr int kStatsThreads = (kStatsConsumers + 1) * kWarp;  // + producer
+constexpr int kStatsStages = 3;
+constexpr int kStatsStageBytes = 32 * 1024;  // logits a stage holds
+// CTAs a SM that the registers are capped for (56 a thread); two rings of
+// three 32 KB stages fit a SM's shared memory.
+constexpr int kStatsCtasPerSm = 2;
+constexpr int kStatsMaxRows = 256;   // rows a stage at most (its metadata)
+constexpr int kRoundBytes = kRoundSlots * kWarp * 16;  // 2 KB, any dtype
+// Bytes a staged span may grow by when it is widened to 16-byte bounds.
+constexpr int kSpanSlack = 32;
+
+__host__ __device__ constexpr long long align16(long long n) {
+  return (n + 15) & ~15LL;
+}
+
+// A launch's ring, fixed by the shape on the host. The flat [rows, V]
+// band is cut into units of unit_rows consecutive rows, which the CTAs
+// draw in order. A unit fills `chunks` stages in turn, each
+// holding rounds [c * chunk_rounds, ...) of every row of the unit: all of
+// them (chunks = 1, whole rows, one copy of the unit's contiguous bytes)
+// where the ring holds a row for every consumer group, else one row a
+// group (unit_rows = the groups) and chunk_rounds rounds of each, one copy
+// a row, into slots slot_bytes apart. Each stage also holds the unit's
+// labels, the [B,T] window bounds of the (b,t) tiles its rows span, and a
+// head that the producer writes: where the stage's rows start.
+struct StatsRing {
+  long long rows, units;
+  int v, w, blank, row_bytes;
+  int unit_rows, unit_q;  // unit_q: unit_rows % the consumer groups
+  int rounds, chunk_rounds, chunks, slot_bytes;
+  int lab_off, bnd_off, bnd_bytes, head_off, stage_bytes;
+  int beta;
+};
+
+template <typename T, int kG>
+StatsRing stats_ring(long long rows, int w, int v, int blank, int beta) {
+  constexpr int groups = kStatsConsumers * (kWarp / kG);
+  StatsRing g{};
+  g.rows = rows;
+  g.v = v;
+  g.w = w;
+  g.blank = blank;
+  g.beta = beta;
+  g.row_bytes = v * static_cast<int>(sizeof(T));
+  g.rounds = (v + kRoundValues<T> - 1) / kRoundValues<T>;
+  int fit = kStatsStageBytes / g.row_bytes;
+  if (fit > kStatsMaxRows) fit = kStatsMaxRows;
+  long long data;
+  if (fit * kStatsStages >= groups) {   // whole rows
+    g.unit_rows = fit;
+    g.chunk_rounds = g.rounds;
+    g.chunks = 1;
+    g.slot_bytes = 0;
+    data = align16(static_cast<long long>(fit) * g.row_bytes) + kSpanSlack;
+  } else {                              // one row a group, a chunk a stage
+    g.unit_rows = groups;
+    g.chunk_rounds = kStatsStageBytes / groups / kRoundBytes;
+    if (g.chunk_rounds < 1) g.chunk_rounds = 1;
+    g.chunks = (g.rounds + g.chunk_rounds - 1) / g.chunk_rounds;
+    g.slot_bytes = g.chunk_rounds * kRoundBytes + kSpanSlack;
+    data = static_cast<long long>(groups) * g.slot_bytes;
   }
-  __device__ __forceinline__ void start(long long row) { d.take(row); }
-  __device__ __forceinline__ void fin(long long row, float m, float s) {
+  g.units = (rows + g.unit_rows - 1) / g.unit_rows;
+  g.unit_q = g.unit_rows % groups;
+  // A unit's rows span at most (unit_rows - 1) / w + 2 (b,t) tiles.
+  g.lab_off = static_cast<int>(data);
+  g.bnd_off = g.lab_off + static_cast<int>(align16(4LL * g.unit_rows + kSpanSlack));
+  g.bnd_bytes = static_cast<int>(align16(4LL * ((g.unit_rows - 1) / w + 2) + kSpanSlack));
+  g.head_off = g.bnd_off + 4 * g.bnd_bytes;
+  g.stage_bytes = (g.head_off + 64 + 127) & ~127;
+  return g;
+}
+
+// Where a stage's rows start: the producer's walk, written into the stage
+// beside its copies, so that no consumer repeats its 64-bit arithmetic.
+// The stage holds rows [r0, r0 + n), rounds [k0, k0 + nk) of each; row r0
+// is w-slot `rem` of (b,t) tile bt0 and the CTA's row q (mod the groups:
+// the rows of the units the CTA drew before it); n = 0 ends the walk;
+// the bytes of each copy start `*_mis` bytes into their region.
+struct StageHead {
+  long long r0, bt0;
+  int n, k0, nk, rem, q, x_mis, lab_mis, bnd_mis[4];
+};
+
+__device__ __forceinline__ int misalign(const void* p) {
+  return static_cast<int>(reinterpret_cast<unsigned long long>(p) & 15ull);
+}
+
+// Copies bytes [src, src + len) as the 16-byte-aligned span that covers
+// them into dst (16-aligned), adding its bytes to bar's phase; src's
+// misalignment is then the bytes' offset from dst.
+__device__ __forceinline__ void stage_bytes_of(unsigned dst, const void* src,
+                                               long long len, unsigned bar) {
+  const char* lo = static_cast<const char*>(src) - misalign(src);
+  const unsigned bytes = static_cast<unsigned>(
+      align16(misalign(src) + len));
+  mbar_expect_tx(bar, bytes);
+  bulk_copy(dst, lo, bytes, bar);
+}
+
+// The producer: one thread draws the CTA's units from *tickets (one ahead)
+// and keeps the ring's stages filled, each once every consumer warp has
+// released it; a head of no rows, once the units run out, stops the
+// consumers.
+template <typename T, int kG>
+__device__ __forceinline__ void stats_produce(
+    const StatsRing& g, unsigned long long* tickets, unsigned char* ring,
+    unsigned long long* full, unsigned long long* empty, const T* logits,
+    const int* lab_band, const int* const (&bounds)[4]) {
+  constexpr int kGroups = kStatsConsumers * (kWarp / kG);
+  constexpr int kR = kRoundValues<T>;
+  StageHead h{};
+  int c = 0;
+  long long u = static_cast<long long>(atomicAdd(tickets, 1ULL));
+  long long next = static_cast<long long>(atomicAdd(tickets, 1ULL));
+  for (long long i = 0;; ++i) {
+    const int st = static_cast<int>(i % kStatsStages);
+    if (i >= kStatsStages)
+      mbar_wait(smem_u32(&empty[st]),
+                static_cast<unsigned>((i / kStatsStages - 1) & 1));
+    unsigned char* stage = ring + static_cast<long long>(st) * g.stage_bytes;
+    if (u >= g.units) {   // no unit left: a head of no rows stops the ring
+      h.n = 0;
+      *reinterpret_cast<StageHead*>(stage + g.head_off) = h;
+      mbar_arrive(smem_u32(&full[st]));
+      return;
+    }
+    if (c == 0) {   // a unit's first stage
+      h.r0 = u * g.unit_rows;
+      h.bt0 = h.r0 / g.w;
+      h.rem = static_cast<int>(h.r0 - h.bt0 * g.w);
+    }
+    const unsigned base = smem_u32(stage);
+    const unsigned bar = smem_u32(&full[st]);
+    h.n = static_cast<int>(min(static_cast<long long>(g.unit_rows), g.rows - h.r0));
+    h.k0 = c * g.chunk_rounds;
+    h.nk = min(g.chunk_rounds, g.rounds - h.k0);
+    const T* first = logits + h.r0 * g.v + static_cast<long long>(h.k0) * kR;
+    h.x_mis = misalign(first);
+    if (g.chunks == 1) {
+      stage_bytes_of(base, first, static_cast<long long>(h.n) * g.row_bytes,
+                     bar);
+    } else {
+      const int len = (min(g.v, (h.k0 + h.nk) * kR) - h.k0 * kR) *
+                      static_cast<int>(sizeof(T));
+      for (int j = 0; j < h.n; ++j)
+        stage_bytes_of(base + j * g.slot_bytes,
+                       first + static_cast<long long>(j) * g.v, len, bar);
+    }
+    h.lab_mis = misalign(lab_band + h.r0);
+    stage_bytes_of(base + g.lab_off, lab_band + h.r0, 4LL * h.n, bar);
+    const int nbt = (h.rem + h.n - 1) / g.w + 1;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      h.bnd_mis[a] = misalign(bounds[a] + h.bt0);
+      if (a < 2 || g.beta)
+        stage_bytes_of(base + g.bnd_off + a * g.bnd_bytes, bounds[a] + h.bt0,
+                       4LL * nbt, bar);
+    }
+    *reinterpret_cast<StageHead*>(stage + g.head_off) = h;
+    mbar_arrive(bar);   // releases the head's writes to the consumers
+    if (++c == g.chunks) {
+      c = 0;
+      u = next;
+      if (u < g.units) next = static_cast<long long>(atomicAdd(tickets, 1ULL));
+      h.q = (h.q + g.unit_q) % kGroups;
+    }
+  }
+}
+
+// A finished row's stats, held by one lane of its group until the group
+// writes kG of them at once: the row, its (m, s), x[blank], x[label] and
+// the flags of its label (not the -1 sentinel) and of its three windows.
+struct PendingRow {
+  long long row = -1;
+  float m = 0.f, s = 0.f, xb = 0.f, xl = 0.f;
+  unsigned flags = 0;
+  static constexpr unsigned kLab = 1, kAlpha = 2, kEmit = 4, kBeta = 8;
+
+  // The stats with the window masks added, as the plain version adds them;
+  // an id outside [0, V) selected 0.0 (xl), as DirectReads.
+  __device__ __forceinline__ void write(float* denom, float* lpba,
+                                        float* lpla, float* lpbb,
+                                        float* lplb) const {
     const float dn = -(m + logf(s));
-    const long long bt = row / w;
-    const int wi = static_cast<int>(row % w);
-    // The -1 sentinel gives lp_label = -inf before the mask is added.
-    const float lpb = d.xb + dn;
-    const float lpl = d.lab >= 0 ? d.xl + dn : MRNNT_NEG_INF;
-    const int alo = ra_lo[bt], ahi = ra_hi[bt];
+    const float lpb = xb + dn;
+    const float lpl = flags & kLab ? xl + dn : MRNNT_NEG_INF;
+    const auto mask = [&](unsigned f) {
+      return flags & f ? 0.f : MRNNT_NEG_INF;
+    };
     denom[row] = dn;
-    lpba[row] = lpb + window_mask(wi, alo, ahi);
-    lpla[row] = lpl + window_mask(wi, alo - 1, ahi - 1);
+    lpba[row] = lpb + mask(kAlpha);
+    lpla[row] = lpl + mask(kEmit);
     if (lpbb != nullptr) {
-      const float bm = window_mask(wi, rb_lo[bt], rb_hi[bt]);
-      lpbb[row] = lpb + bm;
-      lplb[row] = lpl + bm;
+      lpbb[row] = lpb + mask(kBeta);
+      lplb[row] = lpl + mask(kBeta);
     }
   }
 };
 
-// A warp a row (blocks of 8 rows; a half-warp a row on short rows, when
-// the upper half of the grid has none).
+// A warp of consumers: kG-lane groups, group q of the CTA takes the rows
+// whose index in the CTA's walk is q modulo the groups, and reduces each
+// with the shared reduction (common.cuh's load_round, lse_round and
+// group_max_sumexp, the order of walk_rows), its rounds read from the
+// staged tile. A row split over stages (chunks > 1) carries its (m, s)
+// from one to the next. Lane `slot` of the group reads the row's
+// x[blank], x[label], label and window bounds from the tile while the
+// tile is staged, and keeps the row's stats (PendingRow); every kG rows
+// (and at the end) each lane writes the row it keeps, so that the
+// epilogue (a logf, the masks, five stores) costs the group one pass for
+// kG rows rather than one a row.
 template <typename T, int kBytes, int kG>
-__global__ void __launch_bounds__(kRowThreads) mrnnt_stats_banded_kernel(
+__device__ __forceinline__ void stats_consume(
+    const StatsRing& g, const unsigned char* ring,
+    unsigned long long* full, unsigned long long* empty, float* denom,
+    float* lpba, float* lpla, float* lpbb, float* lplb) {
+  constexpr int kR = kRoundValues<T>;
+  constexpr int kGroups = kStatsConsumers * (kWarp / kG);
+  const int lane = threadIdx.x % kWarp, half = lane / kG, gl = lane % kG;
+  const int group = (threadIdx.x / kWarp) * (kWarp / kG) + half;
+  const unsigned mask = kG == kWarp ? kFull : 0xffffu << (half * kG);
+  float m = MRNNT_NEG_INF, s = 0.f;
+  PendingRow mine;
+  int slot = 0;   // the lane of the group that keeps the next row
+  for (long long i = 0;; ++i) {
+    const int st = static_cast<int>(i % kStatsStages);
+    mbar_wait(smem_u32(&full[st]),
+              static_cast<unsigned>((i / kStatsStages) & 1));
+    const unsigned char* stage =
+        ring + static_cast<long long>(st) * g.stage_bytes;
+    const StageHead& h = *reinterpret_cast<const StageHead*>(stage + g.head_off);
+    const int n = h.n;
+    if (n == 0) break;
+    const int k0 = h.k0, nk = h.nk, lo = k0 * kR;
+    const bool last = k0 + nk == g.rounds;
+    for (int j = (group - h.q + kGroups) % kGroups; j < n; j += kGroups) {
+      const T* x = reinterpret_cast<const T*>(
+          g.chunks == 1 ? stage + h.x_mis + j * g.row_bytes
+                        : stage + j * g.slot_bytes +
+                              ((h.x_mis + j * g.row_bytes) & 15));
+      if (gl == slot) {
+        const int lab = reinterpret_cast<const int*>(
+            stage + g.lab_off + h.lab_mis)[j];
+        if (k0 == 0) mine.xb = mine.xl = 0.f;
+        if (g.blank >= lo && g.blank - lo < nk * kR)
+          mine.xb = to_f32(x[g.blank - lo]);
+        if (lab >= lo && lab < g.v && lab - lo < nk * kR)
+          mine.xl = to_f32(x[lab - lo]);
+        if (last) {
+          const int b = (h.rem + j) / g.w, wi = h.rem + j - b * g.w;
+          const auto bound = [&](int a) {
+            return reinterpret_cast<const int*>(
+                stage + g.bnd_off + a * g.bnd_bytes + h.bnd_mis[a])[b];
+          };
+          const int alo = bound(0), ahi = bound(1);
+          unsigned f = lab >= 0 ? PendingRow::kLab : 0u;
+          if (wi >= alo && wi <= ahi) f |= PendingRow::kAlpha;
+          if (wi >= alo - 1 && wi <= ahi - 1) f |= PendingRow::kEmit;
+          if (g.beta && wi >= bound(2) && wi <= bound(3))
+            f |= PendingRow::kBeta;
+          mine.flags = f;
+          mine.row = h.r0 + j;
+        }
+      }
+      for (int k = 0; k < nk; ++k) {
+        const int nv = min(kR, g.v - lo - k * kR);
+        uint4 r[kRoundSlots];
+        load_round<T, kBytes, kG, SharedLoads>(r, x + k * kR, nv, gl);
+        lse_round<T, kG>(r, nv, m, s);
+      }
+      if (!last) continue;
+      group_max_sumexp<kG>(m, s, mask);
+      if (gl == slot) {
+        mine.m = m;
+        mine.s = s;
+      }
+      m = MRNNT_NEG_INF;
+      s = 0.f;
+      if (++slot == kG) {
+        mine.write(denom, lpba, lpla, lpbb, lplb);
+        slot = 0;
+      }
+    }
+    // This warp's reads of the stage come before the bulk copy that
+    // refills it (another proxy).
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
+  }
+  if (gl < slot) mine.write(denom, lpba, lpla, lpbb, lplb);
+}
+
+// kStatsConsumers consumer warps and one producer warp, whose lane 0
+// drives the ring; the grid is at most g.units CTAs, which draw the units
+// from *tickets (0 at launch).
+template <typename T, int kBytes, int kG>
+__global__ void __launch_bounds__(kStatsThreads, kStatsCtasPerSm)
+mrnnt_stats_banded_kernel(
     const T* __restrict__ logits, const int* __restrict__ lab_band,
     const int* __restrict__ ra_lo, const int* __restrict__ ra_hi,
     const int* __restrict__ rb_lo, const int* __restrict__ rb_hi,
-    long long rows, int w, int v, int blank, float* __restrict__ denom,
-    float* __restrict__ lpba, float* __restrict__ lpla,
-    float* __restrict__ lpbb, float* __restrict__ lplb) {
-  BandedStatsRows<T> r{{logits, v, blank}, lab_band, ra_lo, ra_hi, rb_lo,
-                       rb_hi, w, denom, lpba, lpla, lpbb, lplb};
-  const long long warp =
-      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) +
-      threadIdx.x / kWarp;
-  walk_rows<T, kBytes, kG>(logits, v, 0, warp,
-                       static_cast<long long>(gridDim.x) * (blockDim.x / kWarp),
-                       rows, r);
+    const StatsRing g, float* __restrict__ denom, float* __restrict__ lpba,
+    float* __restrict__ lpla, float* __restrict__ lpbb,
+    float* __restrict__ lplb, unsigned long long* __restrict__ tickets) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) unsigned long long full[kStatsStages];
+  __shared__ __align__(8) unsigned long long empty[kStatsStages];
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStatsStages; ++st) {
+      mbar_init(smem_u32(&full[st]), 1);
+      mbar_init(smem_u32(&empty[st]), kStatsConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x / kWarp == kStatsConsumers) {
+    const int* const bounds[4] = {ra_lo, ra_hi, rb_lo, rb_hi};
+    if (threadIdx.x % kWarp == 0)
+      stats_produce<T, kG>(g, tickets, ring, full, empty, logits, lab_band,
+                           bounds);
+    return;
+  }
+  stats_consume<T, kBytes, kG>(g, ring, full, empty, denom, lpba,
+                               lpla, lpbb, lplb);
 }
 
 // --- W <= 32: a warp a chain -------------------------------------------------
@@ -459,6 +764,24 @@ int scan_config(K block_kernel, int t_max, int w, int* tc, size_t* smem,
       static_cast<int>(*smem)));
 }
 
+// The ring of a launch at this shape, and its grid (at most the CTAs
+// resident at once, and at most one a unit); raises the kernel's dynamic
+// shared-memory cap first, which fails where the device cannot give it.
+// A stage holds at most ~39 KB (32 KB of logits, its labels and bounds at
+// W = 1), so the three take under 120 KB at any shape.
+template <typename T, int kBytes, int kG>
+int stats_launch(long long rows, int w, int v, int blank, int beta,
+                 StatsRing* g, size_t* smem, unsigned* grid) {
+  *g = stats_ring<T, kG>(rows, w, v, blank, beta);
+  *smem = static_cast<size_t>(kStatsStages) * g->stage_bytes;
+  int ctas = 0;
+  if (const int err = resident_ctas(mrnnt_stats_banded_kernel<T, kBytes, kG>,
+                                    kStatsThreads, *smem, &ctas))
+    return err;
+  *grid = static_cast<unsigned>(ctas < g->units ? ctas : g->units);
+  return 0;
+}
+
 }  // namespace mrnnt
 
 extern "C" int mrnnt_stats_banded(const void* logits, int is_bf16,
@@ -467,21 +790,53 @@ extern "C" int mrnnt_stats_banded(const void* logits, int is_bf16,
                                   const int* rb_hi, int batch, int t_max,
                                   int w, int v, int blank, float* denom,
                                   float* lpba, float* lpla, float* lpbb,
-                                  float* lplb, void* stream) {
+                                  float* lplb, void* tickets, void* stream) {
   using namespace mrnnt;
   const long long rows = static_cast<long long>(batch) * t_max * w;
-  unsigned blocks;
-  if (const int err = row_blocks(rows, &blocks)) return err;
-  if (blocks == 0) return 0;
+  if (rows == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_row_type(is_bf16, logits, v, [&](auto rt) {
     using R = decltype(rt);
     using T = typename R::type;
+    StatsRing g;
+    size_t smem;
+    unsigned grid;
+    if (const int err = stats_launch<T, R::bytes, R::lanes>(
+            rows, w, v, blank, lpbb != nullptr, &g, &smem, &grid))
+      return err;
+    cudaError_t err = cudaMemsetAsync(tickets, 0, sizeof(unsigned long long), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
     mrnnt_stats_banded_kernel<T, R::bytes, R::lanes>
-        <<<blocks, kRowThreads, 0, st>>>(
+        <<<grid, kStatsThreads, smem, st>>>(
             static_cast<const T*>(logits), lab_band, ra_lo, ra_hi, rb_lo,
-            rb_hi, rows, w, v, blank, denom, lpba, lpla, lpbb, lplb);
+            rb_hi, g, denom, lpba, lpla, lpbb, lplb,
+            static_cast<unsigned long long*>(tickets));
     return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// What mrnnt_stats_banded would launch at this shape, without launching:
+// out = {grid, threads, stages, stage bytes, dynamic shared memory, rows a
+// unit, stages a unit, load bytes, lanes a row}.
+extern "C" int mrnnt_stats_banded_shape(const void* logits, int is_bf16,
+                                        int batch, int t_max, int w, int v,
+                                        int beta, long long* out) {
+  using namespace mrnnt;
+  const long long rows = static_cast<long long>(batch) * t_max * w;
+  if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return with_row_type(is_bf16, logits, v, [&](auto rt) {
+    using R = decltype(rt);
+    StatsRing g;
+    size_t smem;
+    unsigned grid;
+    if (const int err = stats_launch<typename R::type, R::bytes, R::lanes>(
+            rows, w, v, 0, beta, &g, &smem, &grid))
+      return err;
+    const long long shape[9] = {grid, kStatsThreads, kStatsStages,
+                                g.stage_bytes, static_cast<long long>(smem),
+                                g.unit_rows, g.chunks, R::bytes, R::lanes};
+    for (int i = 0; i < 9; ++i) out[i] = shape[i];
+    return 0;
   });
 }
 

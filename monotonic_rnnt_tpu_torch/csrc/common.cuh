@@ -199,9 +199,11 @@ __device__ __forceinline__ void zero_row(T* __restrict__ g, int v, int lane) {
 // --- The stats reduction: a row's max and sum-exp ----------------------------
 //
 // Every stats kernel (split.cu's softmax_stats and softmax_stats_partial,
-// stats_alpha.cu's tiles, banded.cu's softmax_stats_banded) reduces its rows
-// with walk_rows below, in one order that depends on V and the dtype only,
-// so a row gives the same bits in every kernel and at every load width:
+// stats_alpha.cu's tiles) reduces its rows with walk_rows below, and
+// banded.cu's softmax_stats_banded with its load_round (from shared memory),
+// lse_round and group_max_sumexp in walk_rows' order: one order that
+// depends on V and the dtype only, so a row gives the same bits in every
+// kernel, at every load width and from either memory:
 //  * A row is reduced by a group of G lanes: the whole warp, or a half-warp
 //    (two rows a warp) where the row fits in half a round (V <= 256 f32,
 //    512 bf16), so that short rows keep 2 KB a warp in flight and pay half
@@ -268,36 +270,49 @@ __device__ __forceinline__ bool slot_live(int k, int n) {
   return k * kG * (16 / static_cast<int>(sizeof(T))) < n;
 }
 
+// Where a round's loads read from: device memory through the read-only
+// path (GlobalLoads), or a tile that a bulk copy staged in shared memory
+// (SharedLoads, banded.cu). Only the source differs: a round fills the same
+// slots from either.
+struct GlobalLoads {
+  template <typename U>
+  __device__ __forceinline__ static U ld(const U* p) { return __ldg(p); }
+};
+struct SharedLoads {
+  template <typename U>
+  __device__ __forceinline__ static U ld(const U* p) { return *p; }
+};
+
 // The 16 bytes of T at p (aligned to kBytes), loaded kBytes at a time, as
 // four 32-bit words in index order. A load of 2 bytes reads one bf16.
-template <typename T, int kBytes>
+template <typename T, int kBytes, typename Ld = GlobalLoads>
 __device__ __forceinline__ uint4 load_vec(const T* __restrict__ p) {
   if constexpr (kBytes == 16) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
+    return Ld::ld(reinterpret_cast<const uint4*>(p));
   } else if constexpr (kBytes == 8) {
-    const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
-    const uint2 b = __ldg(reinterpret_cast<const uint2*>(p) + 1);
+    const uint2 a = Ld::ld(reinterpret_cast<const uint2*>(p));
+    const uint2 b = Ld::ld(reinterpret_cast<const uint2*>(p) + 1);
     return make_uint4(a.x, a.y, b.x, b.y);
   } else if constexpr (kBytes == 4) {
     const unsigned* w = reinterpret_cast<const unsigned*>(p);
-    return make_uint4(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3));
+    return make_uint4(Ld::ld(w), Ld::ld(w + 1), Ld::ld(w + 2), Ld::ld(w + 3));
   } else {
     static_assert(kBytes == 2 && sizeof(T) == 2, "2-byte loads are bf16");
     const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
     unsigned w[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      w[j] = __ldg(h + 2 * j) | (static_cast<unsigned>(__ldg(h + 2 * j + 1)) << 16);
+      w[j] = Ld::ld(h + 2 * j) | (static_cast<unsigned>(Ld::ld(h + 2 * j + 1)) << 16);
     return make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
 // Group lane gl's slots of the round of n values at src (a group of kG
-// lanes), loaded kBytes at a time (src and n aligned to kBytes); values
-// past n are -inf. A slot inside the row for every lane loads unchecked.
-// Slots that hold nothing for any lane of the group are left unset:
-// lse_round skips them.
-template <typename T, int kBytes, int kG>
+// lanes), loaded kBytes at a time (src and n aligned to kBytes) through Ld;
+// values past n are -inf. A slot inside the row for every lane loads
+// unchecked. Slots that hold nothing for any lane of the group are left
+// unset: lse_round skips them.
+template <typename T, int kBytes, int kG, typename Ld = GlobalLoads>
 __device__ __forceinline__ void load_round(uint4 (&r)[kRoundSlots],
                                            const T* __restrict__ src, int n,
                                            int gl) {
@@ -310,20 +325,20 @@ __device__ __forceinline__ void load_round(uint4 (&r)[kRoundSlots],
     if (!slot_live<T, kG>(k, n)) break;
     const T* p = lane_src + k * kG * kVN;
     if ((k + 1) * kG * kVN <= n) {  // the same for the whole group
-      r[k] = load_vec<T, kBytes>(p);
+      r[k] = load_vec<T, kBytes, Ld>(p);
       continue;
     }
     const int i0 = (gl + k * kG) * kVN;
     unsigned w[4];
     if constexpr (kBytes == 16) {
-      const uint4 u = i0 < n ? __ldg(reinterpret_cast<const uint4*>(p))
+      const uint4 u = i0 < n ? Ld::ld(reinterpret_cast<const uint4*>(p))
                              : make_uint4(kNegInf, kNegInf, kNegInf, kNegInf);
       w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
     } else if constexpr (kBytes == 8) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const uint2 u = i0 + j * kPer < n
-                            ? __ldg(reinterpret_cast<const uint2*>(p) + j)
+                            ? Ld::ld(reinterpret_cast<const uint2*>(p) + j)
                             : make_uint2(kNegInf, kNegInf);
         w[2 * j] = u.x;
         w[2 * j + 1] = u.y;
@@ -332,14 +347,14 @@ __device__ __forceinline__ void load_round(uint4 (&r)[kRoundSlots],
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         w[j] = i0 + j * kPer < n
-                   ? __ldg(reinterpret_cast<const unsigned*>(p) + j)
+                   ? Ld::ld(reinterpret_cast<const unsigned*>(p) + j)
                    : kNegInf;
     } else {  // bf16 one value a load
       const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const unsigned lo = i0 + 2 * j < n ? __ldg(h + 2 * j) : 0xff80u;
-        const unsigned hi = i0 + 2 * j + 1 < n ? __ldg(h + 2 * j + 1) : 0xff80u;
+        const unsigned lo = i0 + 2 * j < n ? Ld::ld(h + 2 * j) : 0xff80u;
+        const unsigned hi = i0 + 2 * j + 1 < n ? Ld::ld(h + 2 * j + 1) : 0xff80u;
         w[j] = lo | (hi << 16);
       }
     }
@@ -599,6 +614,69 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Bulk copies (TMA, sm_90) into shared memory that complete on an mbarrier:
+// stream.cu's dma copy and banded.cu's stats ring. A barrier counts
+// `count` arrivals a phase, plus the bytes its arrivals said to expect;
+// waiters name the phase by its parity (0 for the first after init).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Tells the barrier's current phase to wait for `bytes` more of copies.
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Global -> shared, `bytes` (a multiple of 16, both addresses 16-aligned),
+// completing on `bar`, whose phase must expect them.
+__device__ __forceinline__ void bulk_copy(unsigned dst_smem, const char* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst_smem),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// bulk_copy with an arrival on `bar` (a barrier of one arrival a phase)
+// that expects its bytes.
+__device__ __forceinline__ void bulk_load(unsigned dst_smem, const char* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+  bulk_copy(dst_smem, src, bytes, bar);
 }
 
 // The CTAs of `kernel` (threads a CTA, smem dynamic bytes) resident at once

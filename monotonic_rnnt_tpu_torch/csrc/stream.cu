@@ -106,44 +106,6 @@ mrnnt_copy_tiles_kernel(const char* __restrict__ src, char* __restrict__ dst,
 
 // --- (b) the TMA bulk copy ----------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// Global -> shared, `bytes` (a multiple of 16), completing on `bar`.
-__device__ __forceinline__ void bulk_load(unsigned dst_smem, const char* src,
-                                          unsigned bytes, unsigned bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst_smem),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // Shared -> global as one bulk group.
 __device__ __forceinline__ void bulk_store(char* dst, unsigned src_smem,
                                            unsigned bytes) {

@@ -4,7 +4,8 @@ Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:292-377,
 1104-1296`` on the packed [B, T, W(, V)] band layout (ops/bands.py):
 
 * ``softmax_stats_banded`` (TPU kernel at kernels.py:335) launches
-  ``mrnnt_stats_banded_kernel``;
+  ``mrnnt_stats_banded_kernel``, a persistent grid whose CTAs each read
+  their rows through a ring of bulk copies in shared memory;
 * ``fwdbwd_scan_banded`` (kernels.py:1219) launches
   ``mrnnt_fwdbwd_banded_kernel``, the alpha and beta chains side by side;
 * ``alpha_scan_banded`` (kernels.py:1271) launches
@@ -26,14 +27,15 @@ allocation); the wrapper keeps the ``Bounds`` tuple and unbinds.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
 from ..helpers import (NEG_INF, log_sum_exp, select_label_logits, shift_left_s,
                        shift_right_s)
-from .kernels import (LAUNCHES, _call, _check, _check_cuda, _check_device,
-                      _check_logits, _ptr, define_op)
+from .kernels import (LAUNCHES, _bound, _call, _check, _check_cuda,
+                      _check_device, _check_logits, _ptr, define_op)
 
 Bounds = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -71,20 +73,49 @@ def softmax_stats_banded_cuda(logits_band, lab_band, ra_lo, ra_hi, rb_lo,
     batch, t_max, w, v = _check_logits(logits_band, blank_id)
     dev = logits_band.device
     _check(lab_band, "lab_band", torch.int32, (batch, t_max, w), dev)
-    rel_bounds = (ra_lo, ra_hi, rb_lo, rb_hi)
-    for name, t in zip(("ra_lo", "ra_hi", "rb_lo", "rb_hi"), rel_bounds):
+    for name, t in zip(("ra_lo", "ra_hi", "rb_lo", "rb_hi"),
+                       (ra_lo, ra_hi, rb_lo, rb_hi)):
         _check(t, name, torch.int32, (batch, t_max), dev)
-    # One allocation for the outputs: the host prelude is part of a call
-    # that the kernel makes short.
-    out = torch.empty((5 if with_beta else 3, batch, t_max, w),
-                      dtype=torch.float32, device=dev)
-    betas_out = (out[3], out[4]) if with_beta else (None, None)
-    _call("mrnnt_stats_banded", dev, _ptr(logits_band),
-          int(logits_band.dtype == torch.bfloat16), _ptr(lab_band),
-          *(_ptr(t) for t in rel_bounds), batch, t_max, w, v, blank_id,
-          *(_ptr(out[i]) for i in range(3)), *(_ptr(t) for t in betas_out))
+    # One allocation for the outputs, addressed by offsets rather than
+    # through views: the host prelude is part of a call that the kernel
+    # makes short.
+    n_out = 5 if with_beta else 3
+    out = torch.empty((n_out, batch, t_max, w), dtype=torch.float32,
+                      device=dev)
+    base, plane = out.data_ptr(), batch * t_max * w * 4
+    outs = [base + i * plane for i in range(n_out)] + [None] * (5 - n_out)
+    # The CTAs' ticket counter, zeroed by the launch on its stream.
+    tickets = torch.empty(1, dtype=torch.int64, device=dev)
+    _call("mrnnt_stats_banded", dev, logits_band.data_ptr(),
+          int(logits_band.dtype == torch.bfloat16), lab_band.data_ptr(),
+          ra_lo.data_ptr(), ra_hi.data_ptr(), rb_lo.data_ptr(),
+          rb_hi.data_ptr(), batch, t_max, w, v, blank_id, *outs,
+          tickets.data_ptr())
     LAUNCHES["softmax_stats_banded"] += 1
     return out
+
+
+def stats_banded_launch_shape(logits_band, with_beta: bool = True) -> dict:
+    """What softmax_stats_banded launches on this CUDA band (of at least
+    one row), without launching: its grid of persistent CTAs and their
+    threads, the ring's stages and bytes a stage, the dynamic shared
+    memory, the rows of a unit of work and the stages that unit fills (1:
+    whole rows a stage; more: rows streamed a round at a time), the load
+    width in bytes and the lanes that reduce a row."""
+    _check_cuda(logits_band)
+    batch, t_max, w, v = logits_band.shape
+    out = (ctypes.c_longlong * 9)()
+    fn, lib = _bound("mrnnt_stats_banded_shape")
+    with torch.cuda.device(logits_band.device):
+        err = fn(logits_band.data_ptr(),
+                 int(logits_band.dtype == torch.bfloat16), batch, t_max, w,
+                 v, int(with_beta), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError("mrnnt_stats_banded_shape failed: CUDA error "
+                           f"{err} ({lib.mrnnt_error_string(err).decode()})")
+    return dict(zip(("grid", "threads", "stages", "stage_bytes",
+                     "smem_bytes", "unit_rows", "stages_per_unit",
+                     "load_bytes", "row_lanes"), out))
 
 
 def _stats_banded_cpu(logits_band, lab_band, ra_lo, ra_hi, rb_lo, rb_hi,

@@ -94,7 +94,8 @@ _ENTRIES = {
     "mrnnt_grad": ("grad_pass", [_P, _I] + [_P] * 5 + [_I] * 6 + [_P, _I,
                                                                  _P]),
     "mrnnt_stats_banded": ("banded", [_P, _I] + [_P] * 5 + [_I] * 5
-                           + [_P] * 6),
+                           + [_P] * 7),
+    "mrnnt_stats_banded_shape": ("banded", [_P] + [_I] * 6 + [_P]),
     "mrnnt_alpha_banded": ("banded", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "mrnnt_fwdbwd_banded": ("banded", [_P] * 8 + [_I] * 3 + [_P] * 3),
     "mrnnt_softmax_stats": ("split", [_P, _I, _P] + [_I] * 6 + [_P] * 4),
@@ -126,12 +127,18 @@ def _bound(entry: str):
 
 
 def _call(entry: str, device: torch.device, *args) -> None:
+    """Launches `entry` on `device`'s current stream. The stream is read as
+    its raw handle: ``torch.cuda.current_stream()`` builds a Stream object
+    (a second device lookup) only to give that handle, several µs of a
+    call's host prelude."""
     fn, lib = _bound(entry)
-    if device.index is None or device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        err = fn(*args, raw_stream(current))
     else:
         with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+            err = fn(*args, raw_stream(device.index))
     if err != 0:
         msg = lib.mrnnt_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")

@@ -263,9 +263,18 @@ def _stats_operands(c):
     return (jlab, jrel), (tlab, trel)
 
 
+# Stats-only shapes that reach the CUDA kernel's other paths (the card's
+# tests run them on the kernel): W = 41 and 64 past a warp, odd V (two-byte
+# bf16 rows), V past a bf16 round.
+STATS_CASES = [(6, 2, 44, 40, 21, None, 3), (7, 3, 9, 4, 1001, 1, 5),
+               (8, 1, 66, 63, 50, None, 0)]
+STATS_IDS = ["wide2x44x40x21b3", "3x9x4x1001s1b5", "wide1x66x63x50"]
+
+
 @pytest.mark.parametrize("with_beta", [True, False], ids=["beta", "nobeta"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("case", CASES[1:], ids=IDS[1:])
+@pytest.mark.parametrize("case", CASES[1:] + STATS_CASES,
+                         ids=IDS[1:] + STATS_IDS)
 def test_softmax_stats_banded_plain_matches_pallas(case, dtype, with_beta):
     c = Both(case)
     (jlab, jrel), (tlab, trel) = _stats_operands(c)

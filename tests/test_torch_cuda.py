@@ -394,21 +394,76 @@ def _stats_args(device, case, dtype):
     return lgb.contiguous(), lab, rel, case[-1]
 
 
+# Row 7's ring at each of its paths (csrc/banded.cu), as (B, T, W, V,
+# offset) on random rows: whole rows a stage (V <= 2048 f32, 4096 bf16),
+# half-warp groups (V <= 256 f32, 512 bf16), rows streamed a round a stage
+# (V = 8192, and 50000: a row longer than a stage); W = 1, 16, 33, 64; odd
+# V (2-byte bf16 loads); row counts that leave the last unit of a stage
+# short (1221, 15); `offset` views the band one element past a 16-byte
+# boundary. With B, T >= 2 and W >= 3 the rows hold an all -inf row, a NaN
+# row and a row with one +inf (special_rows).
+STATS_BANDED = [(2, 3, 1, 1, 0), (2, 5, 16, 21, 0), (3, 7, 33, 130, 1),
+                (1, 9, 64, 1000, 0), (2, 4, 16, 1024, 1), (1, 37, 33, 1001, 0),
+                (2, 3, 16, 8192, 0), (1, 3, 5, 50000, 1)]
+
+
+def _offset_view(x, offset):
+    """x, or a copy of it viewed `offset` elements into a flat buffer."""
+    if not offset:
+        return x
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    flat[offset:] = x.reshape(-1)
+    return flat[offset:].view(x.shape)
+
+
+def _random_stats_args(device, case, dtype):
+    """Random band rows, labels (-1 and ids past V among them) and windows;
+    returns the arguments and the +inf row (or None)."""
+    batch, t, w, v, offset = case
+    rng = np.random.RandomState(batch * 100003 + t * 1009 + w * 101 + v)
+    x = torch.from_numpy((rng.randn(batch, t, w, v) * 2).astype(np.float32))
+    inf_row = special_rows(x) if batch >= 2 and t >= 2 and w >= 3 else None
+    lab = torch.from_numpy(rng.randint(-1, v + 2, (batch, t, w)).astype(
+        np.int32))
+    lo = rng.randint(-1, w, (2, batch, t))
+    hi = lo + rng.randint(0, w + 1, (2, batch, t))
+    rel = tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                for a in (lo[0], hi[0], lo[1], hi[1]))
+    x = _offset_view(x.to(device=device, dtype=dtype), offset)
+    return (x, lab.to(device), rel, (v - 1) // 2), inf_row
+
+
 @pytest.mark.parametrize("with_beta", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", BANDED[:3])
+@pytest.mark.parametrize("case", BANDED[:3] + STATS_BANDED)
 def test_softmax_stats_banded_kernel_matches_plain(device, case, dtype,
                                                    with_beta):
-    args = _stats_args(device, case, dtype)
+    """Row 7 against its plain version, and bit for bit against row 3
+    (softmax_stats) on the same rows: the denominators everywhere, the
+    blank log-probs where the alpha window adds 0."""
+    if len(case) == len(STATS_BANDED[0]):
+        args, inf_row = _random_stats_args(device, case, dtype)
+    else:
+        args, inf_row = _stats_args(device, case, dtype), None
     before = K.LAUNCHES["softmax_stats_banded"]
     got = BK.softmax_stats_banded(*args, with_beta=with_beta)
     want = BK.softmax_stats_banded_plain(*args, with_beta=with_beta)
     torch.cuda.synchronize()
     assert K.LAUNCHES["softmax_stats_banded"] == before + 1
-    assert len(got) == len(want)
+    assert len(got) == len(want) == (5 if with_beta else 3)
+    keep = torch.ones(got[0].shape, dtype=torch.bool, device=device)
+    if inf_row is not None:   # NaN in the kernels, -inf in logsumexp
+        assert bool(torch.isnan(got[0][inf_row]))
+        keep[inf_row] = False
     for g, w in zip(got, want):   # another V summation order than logsumexp
         assert torch.equal(torch.isfinite(g), torch.isfinite(w))
-        _close(g, w, 1e-5, 1e-6)
+        _close(g[keep], w[keep], 1e-5, 1e-6)
+    x, lab, (ra_lo, ra_hi, _, _), blank = args
+    row3 = SK.softmax_stats(x, lab, blank)
+    _equal(got[0], row3[0])
+    w_idx = torch.arange(x.shape[2], device=device)
+    open_ = (w_idx >= ra_lo[..., None]) & (w_idx <= ra_hi[..., None])
+    _equal(got[1][open_], row3[1][open_])
 
 
 def _scan_args(device, seed, batch, t_max, w, shift=None, t_short=None):
