@@ -52,6 +52,7 @@ from ..parallel.mesh import (MODEL_AXIS, Mesh, Spec, local_batch_slice,
                              local_shard)
 from ..parallel.sharding import (make_dp_tp_fused_banded_loss,
                                  make_dp_tp_fused_loss)
+from ..utils.profiling import span, spanned
 from .transducer import MonotonicTransducer, TransducerConfig
 
 CLIP_NORM = 5.0     # optax.clip_by_global_norm(5.0)
@@ -184,6 +185,7 @@ def _sum_of_squares(grads) -> torch.Tensor:
     return torch.stack(torch._foreach_norm(grads)).square().sum()
 
 
+@spanned("mrnnt.update")
 def _update(state: TrainState, loss: torch.Tensor,
             grad_norm: Optional[torch.Tensor] = None):
     """Clip by the global norm (of these gradients unless given), one AdamW
@@ -207,13 +209,15 @@ def _on(model: torch.nn.Module, batch):
     return tuple(x.to(dev) for x in batch)
 
 
+@spanned("mrnnt.train_step")
 def train_step_with_loss(state: TrainState, loss_fn, *args):
     """One update on loss_fn(*args, generator=g) -> scalar (e.g. a
     make_memory_efficient_loss function and (batch,), or a banded one and
     (batch, bands)), g the step's dropout generator."""
     state.optimizer.zero_grad(set_to_none=True)
     loss = loss_fn(*args, generator=_dropout_generator(state))
-    loss.backward()
+    with span("mrnnt.backward"):
+        loss.backward()
     return _update(state, loss)
 
 
@@ -229,7 +233,8 @@ def _encode_and_predict(model, batch, deterministic, generator):
     feats, feat_lengths, labels, label_lengths = _on(model, batch)
     enc, enc_lengths = model.encode(feats, feat_lengths, deterministic,
                                     generator=generator)
-    pred = model.predictor(labels, deterministic)
+    with span("mrnnt.predict"):
+        pred = model.predictor(labels, deterministic)
     return enc, pred, labels, enc_lengths, label_lengths
 
 
@@ -298,6 +303,7 @@ def _all_reduce(grads, group) -> None:
         g.copy_(part.view_as(g))
 
 
+@spanned("mrnnt.train_step")
 def _accumulated_step(state: TrainState, batch, n_micro: int,
                       mesh: Optional[Mesh]):
     """The one update body of train_step and the accumulating and
@@ -324,7 +330,8 @@ def _accumulated_step(state: TrainState, batch, n_micro: int,
         costs = model(*micro, deterministic=False, generator=gen)
         part = (costs.mean() if mesh is None
                 else batch_total(costs, mesh, True)) / n_micro
-        part.backward()
+        with span("mrnnt.backward"):
+            part.backward()
         loss = loss + part.detach()
     if mesh is not None and mesh.data > 1:
         _all_reduce(_grads(list(model.parameters())), mesh.data_group)
@@ -454,6 +461,7 @@ def make_tp_sharded_train_step(mesh: Mesh, model: MonotonicTransducer,
     outer = [p for n, p in model.named_parameters()
              if not n.startswith("joint.")]
 
+    @spanned("mrnnt.train_step")
     def _step(state: TrainState, batch, bands: Optional[Bands]):
         if state.model is not model:
             raise ValueError("state.model is not the model this step was "
@@ -469,7 +477,8 @@ def make_tp_sharded_train_step(mesh: Mesh, model: MonotonicTransducer,
             band_args = _on(model, _local_batch(tuple(bands), mesh))
         loss = loss_fn(enc, pred, labels, enc_lengths, slen,
                        joint.joint_params(), *band_args)
-        loss.backward()
+        with span("mrnnt.backward"):
+            loss.backward()
         if mesh.data > 1:
             _all_reduce(_grads(outer), mesh.data_group)
         sq_sharded = _sum_of_squares(_grads(sharded))

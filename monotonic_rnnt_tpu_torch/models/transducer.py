@@ -34,6 +34,7 @@ from torch import nn
 from ..convert import _device
 from ..ops.helpers import NEG_INF
 from ..ops.loss import monotonic_rnnt_loss
+from ..utils.profiling import span
 from .conformer import ConformerConfig, ConformerEncoder, subsampled_length
 from .init import finish_init
 from .predictor import ConvPredictor, LstmPredictor, PredictorConfig
@@ -141,16 +142,20 @@ class MonotonicTransducer(nn.Module):
     def logits(self, feats, feat_lengths, labels, deterministic: bool = True,
                generator: Optional[torch.Generator] = None):
         feats, feat_lengths, labels = self._inputs(feats, feat_lengths, labels)
-        enc, enc_lengths = self.encoder(feats, feat_lengths, deterministic,
-                                        generator=generator)
-        pred = self.predictor(labels, deterministic)
-        return self.joint(enc, pred), enc_lengths
+        with span("mrnnt.encode"):
+            enc, enc_lengths = self.encoder(feats, feat_lengths,
+                                            deterministic, generator=generator)
+        with span("mrnnt.predict"):
+            pred = self.predictor(labels, deterministic)
+        with span("mrnnt.joint"):
+            return self.joint(enc, pred), enc_lengths
 
     def encode(self, feats, feat_lengths, deterministic: bool = True,
                generator: Optional[torch.Generator] = None):
         feats, feat_lengths = self._inputs(feats, feat_lengths)
-        return self.encoder(feats, feat_lengths, deterministic,
-                            generator=generator)
+        with span("mrnnt.encode"):
+            return self.encoder(feats, feat_lengths, deterministic,
+                                generator=generator)
 
     @staticmethod
     def _select_state(emit, new_state, old_state):

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import spanned
 from ..utils.status import RnntError, Status, validate_loss_inputs
 from .bands import (BandLayout, Bands, LatticeMasks, band_final_slot,
                     band_lattice_masks, band_virtual_next_rows,
@@ -241,6 +242,7 @@ class _BandedCore(torch.autograd.Function):
     """costs = banded loss(logits_band); d costs / d logits_band by the backend's route."""
 
     @staticmethod
+    @spanned("mrnnt.loss.forward")
     def forward(ctx, logits_band, labels, input_lengths, label_lengths,
                 band_min, band_max, blank_id, backend):
         bands = Bands(band_min, band_max)
@@ -273,6 +275,7 @@ class _BandedCore(torch.autograd.Function):
         return costs
 
     @staticmethod
+    @spanned("mrnnt.loss.backward")
     @once_differentiable
     def backward(ctx, cost_cotangent):
         if ctx.backend == "cuda":
@@ -290,6 +293,7 @@ class _BandedCore(torch.autograd.Function):
         return dlogits, None, None, None, None, None, None, None
 
 
+@spanned("mrnnt.loss")
 def monotonic_rnnt_loss_banded(
     logits_band: torch.Tensor,
     labels: torch.Tensor,

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import to_host
 from .helpers import take_index
 
 
@@ -252,8 +253,8 @@ def suggested_band_width(input_lengths, label_lengths, bands: Bands,
     The rounding is part of the answer: the JAX package rounds to its
     sublane tiling, and the port picks the same W.
     """
-    req = int(required_band_width(input_lengths, label_lengths, bands, t_max,
-                                  s1))
+    req = int(to_host(required_band_width(input_lengths, label_lengths,
+                                          bands, t_max, s1), "bands.width"))
     return int(min(s1, -(-req // 8) * 8))
 
 

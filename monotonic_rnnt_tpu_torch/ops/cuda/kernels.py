@@ -34,9 +34,10 @@ The operators are registered through ``torch.library.Library``'s
 Each wrapper keeps its name and arguments and calls its operator on every
 device: tensors on the CPU take the plain version through it, CUDA tensors
 launch the kernel or raise, and a tensor on another device is refused.
-The CUDA implementation adds one to ``LAUNCHES[<name>]`` when it has
-launched. The TPU tiling helpers (pick_tv_tiles, fused_dp_tiles, the VMEM
-caps) have no counterpart: the CUDA kernels pick their own launch shapes.
+The CUDA implementation adds one to ``LAUNCHES[<name>]`` (the port's
+launch counters, ``utils/profiling.py``) when it has launched. The TPU
+tiling helpers (pick_tv_tiles, fused_dp_tiles, the VMEM caps) have no
+counterpart: the CUDA kernels pick their own launch shapes.
 """
 
 from __future__ import annotations
@@ -48,16 +49,18 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ...utils.config import get_config
+from ...utils.profiling import LAUNCHES, span
 from ..helpers import (NEG_INF, log_sum_exp, select_label_logits, shift_left_s,
                        shift_right_s)
 from . import _build
 
-LAUNCHES = {"stats_alpha_fused": 0, "beta_grad_fused": 0, "grad_pass": 0,
-            "softmax_stats_banded": 0, "fwdbwd_scan_banded": 0,
-            "alpha_scan_banded": 0, "softmax_stats": 0, "fwdbwd_scan": 0,
-            "alpha_scan": 0, "beta_scan": 0, "softmax_stats_partial": 0,
-            "stream_copy": 0, "stream_copy_blocked": 0,
-            "stream_copy_blocked_tbsv": 0}
+LAUNCHES.update({"stats_alpha_fused": 0, "beta_grad_fused": 0,
+                 "grad_pass": 0, "softmax_stats_banded": 0,
+                 "fwdbwd_scan_banded": 0, "alpha_scan_banded": 0,
+                 "softmax_stats": 0, "fwdbwd_scan": 0, "alpha_scan": 0,
+                 "beta_scan": 0, "softmax_stats_partial": 0,
+                 "stream_copy": 0, "stream_copy_blocked": 0,
+                 "stream_copy_blocked_tbsv": 0})
 
 
 def reset_launch_counts() -> None:
@@ -127,18 +130,20 @@ def _bound(entry: str):
 
 
 def _call(entry: str, device: torch.device, *args) -> None:
-    """Launches `entry` on `device`'s current stream. The stream is read as
+    """Launches `entry` on `device`'s current stream, in the span
+    ``mrnnt.launch.<entry>``. The stream is read as
     its raw handle: ``torch.cuda.current_stream()`` builds a Stream object
     (a second device lookup) only to give that handle, several µs of a
     call's host prelude."""
     fn, lib = _bound(entry)
     raw_stream = torch._C._cuda_getCurrentRawStream
     current = torch.cuda.current_device()
-    if device.index is None or device.index == current:
-        err = fn(*args, raw_stream(current))
-    else:
-        with torch.cuda.device(device):
-            err = fn(*args, raw_stream(device.index))
+    with span("mrnnt.launch." + entry):
+        if device.index is None or device.index == current:
+            err = fn(*args, raw_stream(current))
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, raw_stream(device.index))
     if err != 0:
         msg = lib.mrnnt_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")

@@ -26,7 +26,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils.config import get_config
-from ..utils.profiling import phase_timer
+from ..utils.profiling import phase_timer, span, spanned
 from ..utils.status import tracing, validate_loss_inputs
 from .bands import Bands, bands_from_alignment, default_bands
 from .cuda.fused import (deferred_grad_supported, rnnt_loss_cuda,
@@ -53,6 +53,7 @@ class _LossCore(torch.autograd.Function):
     """costs = loss(logits); d costs / d logits by the backend's route."""
 
     @staticmethod
+    @spanned("mrnnt.loss.forward")
     def forward(ctx, logits, labels, input_lengths, label_lengths, band_min,
                 band_max, blank_id, backend):
         bands = Bands(band_min, band_max)
@@ -79,6 +80,7 @@ class _LossCore(torch.autograd.Function):
         return costs
 
     @staticmethod
+    @spanned("mrnnt.loss.backward")
     @once_differentiable
     def backward(ctx, cost_cotangent):
         if ctx.deferred:
@@ -95,6 +97,7 @@ class _LossCore(torch.autograd.Function):
         return dlogits, None, None, None, None, None, None, None
 
 
+@spanned("mrnnt.loss")
 def monotonic_rnnt_loss(
     logits: torch.Tensor,
     labels: torch.Tensor,
@@ -140,12 +143,13 @@ def monotonic_rnnt_loss(
     if alignment is not None and bands is not None:
         raise ValueError("pass either alignment or bands, not both")
     if bands is None:
-        if alignment is not None:
-            bands = bands_from_alignment(alignment.to(dev), input_lengths,
-                                         label_lengths,
-                                         max_distance_from_alignment, blank_id)
-        else:
-            bands = default_bands(input_lengths, label_lengths, t_max)
+        with span("mrnnt.bands"):
+            if alignment is not None:
+                bands = bands_from_alignment(
+                    alignment.to(dev), input_lengths, label_lengths,
+                    max_distance_from_alignment, blank_id)
+            else:
+                bands = default_bands(input_lengths, label_lengths, t_max)
     return loss_on_route(logits, labels, input_lengths, label_lengths, bands,
                          blank_id, _resolve_backend(backend, logits))
 

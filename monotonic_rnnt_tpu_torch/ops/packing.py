@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import to_host
 from ..utils.status import RnntError, Status
 from .loss import monotonic_rnnt_loss
 
@@ -37,7 +38,7 @@ def _as_host_lengths(input_lengths, label_lengths) -> Tuple[np.ndarray,
     """The [B] lengths as int64 numpy arrays; a tensor is copied to the host."""
     def host(a):
         if isinstance(a, torch.Tensor):
-            a = a.detach().cpu()
+            a = to_host(a.detach(), "packing.lengths")
         return np.asarray(a).astype(np.int64)
 
     try:

@@ -1,21 +1,105 @@
 """Profiling and benchmarking utilities.
 
-PyTorch counterpart of ``monotonic_rnnt_tpu/utils/profiling.py``: phase
-timers that show in a ``torch.profiler`` trace, a device trace written as a
-Chrome trace, and a timing method that keeps every iteration honest: a chain
-of data-dependent iterations, so no iteration can be skipped, reordered or
-overlapped away. On CUDA tensors the chain is timed with CUDA events, on CPU
-tensors with the host clock.
+PyTorch counterpart of ``monotonic_rnnt_tpu/utils/profiling.py``: the
+port's spans and counters, phase timers that show in a ``torch.profiler``
+trace, a device trace written as a Chrome trace, and a timing method that
+keeps every iteration honest: a chain of data-dependent iterations, so no
+iteration can be skipped, reordered or overlapped away. On CUDA tensors the
+chain is timed with CUDA events, on CPU tensors with the host clock.
+
+Spans. ``span(name)`` marks a layer of the port in a profiler's trace, as
+a ``torch.profiler.record_function`` range. With no profiler collecting
+(one read of a module global) and while torch.export or torch.compile
+traces a graph, it is a shared null context: it never syncs and costs a
+function call. The port's spans, all named ``mrnnt.<...>``:
+
+* model step: ``mrnnt.train_step`` around each training step, holding
+  ``mrnnt.encode``, ``mrnnt.predict``, ``mrnnt.joint`` (the transducer's
+  logits), ``mrnnt.backward`` and ``mrnnt.update`` (clip, AdamW, schedule);
+* loss entry points: ``mrnnt.loss`` around the public padded and banded
+  losses, holding ``mrnnt.validate`` (the input checks) and ``mrnnt.bands``
+  (the default or alignment bands);
+* autograd Functions: ``mrnnt.loss.forward`` and ``mrnnt.loss.backward``,
+  the padded and banded cores; the backward runs on autograd's thread;
+* kernels: ``mrnnt.launch.<entry>`` around each launch of a CUDA kernel's
+  C entry point (``ops/cuda/kernels.py`` ``_call``);
+* host syncs: ``mrnnt.sync.<site>`` around each read of device data on the
+  host; its length is the time the host waited for the card.
+
+Counters. Plain integers, always on: ``LAUNCHES[row]``, one per kernel
+launch by kernel-table row (each row's CUDA implementation adds one when
+it has launched; ``ops/cuda/kernels.py`` names the rows), and
+``syncs[site]``, one per host read of device data. ``counters()`` returns
+a copy of both, ``reset_counters()`` zeroes them.
 """
 
 from __future__ import annotations
 
+import functools
 import time
-from contextlib import contextmanager
-from typing import Callable, Tuple
+from contextlib import contextmanager, nullcontext
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NULL = nullcontext()
+LAUNCHES: Dict[str, int] = {}
+_SYNCS: Dict[str, int] = {}
+
+
+def tracing() -> bool:
+    """Whether torch.export or torch.compile is tracing the call: values
+    are then data of a graph, as JAX's traced values are, nothing reads
+    them on the host and no span is opened."""
+    return torch.compiler.is_exporting() or torch.compiler.is_compiling()
+
+
+def span(name: str):
+    """A profiler range named `name` where a profiler is collecting and no
+    graph is being traced; else a shared null context. Never syncs."""
+    if not _autograd_profiler._is_profiler_enabled or tracing():
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside span(name). With
+    no profiler collecting, the call goes straight through."""
+    def decorate(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return decorate
+
+
+def to_host(t: torch.Tensor, site: str) -> torch.Tensor:
+    """`t` on the host. From a device, the copy waits for the device's
+    queued work: a sync, counted as ``syncs[site]`` and spanned as
+    ``mrnnt.sync.<site>``."""
+    if t.device.type == "cpu":
+        return t
+    _SYNCS[site] = _SYNCS.get(site, 0) + 1
+    with span("mrnnt.sync." + site):
+        return t.cpu()
+
+
+def counters() -> Dict[str, Dict[str, int]]:
+    """A copy of the counters that are not zero: {"launches": {row: n},
+    "syncs": {site: n}}."""
+    return {"launches": {k: n for k, n in LAUNCHES.items() if n},
+            "syncs": dict(_SYNCS)}
+
+
+def reset_counters() -> None:
+    for row in LAUNCHES:
+        LAUNCHES[row] = 0
+    _SYNCS.clear()
 
 
 def _sync() -> None:
@@ -26,15 +110,17 @@ def _sync() -> None:
 
 @contextmanager
 def phase_timer(name: str, enabled: bool = True, file=None):
-    """Wall-clock a phase (the DEBUG_TIME equivalent), as a profiler range.
+    """Wall-clock a phase (the DEBUG_TIME equivalent), as a span.
 
-    The clock is read after the current CUDA device has finished its queued
-    work, at the start and at the end, so the time covers the phase's device
-    work and not only its launches.
+    Where enabled, the clock is read after the current CUDA device has
+    finished its queued work, at the start and at the end, so the time
+    covers the phase's device work and not only its launches; otherwise
+    the phase is only its span, with no sync and no print.
     """
-    _sync()
+    if enabled:
+        _sync()
     t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
+    with span(name):
         yield
     if enabled:
         _sync()

@@ -11,6 +11,8 @@ import enum
 
 import torch
 
+from .profiling import spanned, to_host, tracing
+
 
 class Status(enum.Enum):
     """Parity enum with reference include/status.h:4-10."""
@@ -38,13 +40,7 @@ def _is_integer(dtype: torch.dtype) -> bool:
                 or dtype == torch.bool)
 
 
-def tracing() -> bool:
-    """Whether torch.export or torch.compile is tracing the call: the
-    lengths are then data of a graph, as JAX's traced values are, and
-    nothing reads their values on the host."""
-    return torch.compiler.is_exporting() or torch.compiler.is_compiling()
-
-
+@spanned("mrnnt.validate")
 def validate_loss_inputs(logits, labels, input_lengths, label_lengths) -> None:
     """Eager shape/dtype/length validation of the padded-layout API.
 
@@ -86,8 +82,8 @@ def validate_loss_inputs(logits, labels, input_lengths, label_lengths) -> None:
     # as JAX holds none on traced lengths (status.py:65-70).
     if tracing():
         return
-    ilen = input_lengths.detach().cpu()
-    slen = label_lengths.detach().cpu()
+    ilen = to_host(input_lengths.detach(), "validate.input_lengths")
+    slen = to_host(label_lengths.detach(), "validate.label_lengths")
     if bool((ilen <= 0).any()):
         raise RnntError(Status.INVALID_VALUE, "input_lengths must be >= 1")
     if bool((slen < 0).any()):

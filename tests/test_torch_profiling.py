@@ -74,7 +74,7 @@ def test_corrected_benches_fit_two_points_and_refuse_one_iteration():
     assert np.isfinite(per) and overhead >= 0
 
 
-def test_phase_timer_prints_and_marks_the_trace(tmp_path):
+def test_phase_timer_prints_and_marks_the_trace(tmp_path, monkeypatch):
     out = io.StringIO()
     with tprof.device_trace(str(tmp_path)) as prof:
         with tprof.phase_timer("unit-phase", file=out):
@@ -86,7 +86,13 @@ def test_phase_timer_prints_and_marks_the_trace(tmp_path):
     names = {e.get("name") for e in json.loads(traces[0].read_text())
              ["traceEvents"]}
     assert "unit-phase" in names
+    # Off, it is only its span: no sync, no print.
+    def refuse():
+        raise AssertionError("phase_timer(enabled=False) synced")
+    monkeypatch.setattr(tprof, "_sync", refuse)
     quiet = io.StringIO()
-    with tprof.phase_timer("silent", enabled=False, file=quiet):
-        pass
+    with tprof.device_trace(str(tmp_path / "off")) as prof:
+        with tprof.phase_timer("silent", enabled=False, file=quiet):
+            pass
     assert quiet.getvalue() == ""
+    assert any(e.key == "silent" for e in prof.key_averages())
