@@ -32,7 +32,9 @@ benchmark lattice B=32, T=200, S=50, V=1000, in float32 and bfloat16)
 against the plain-torch oracle, checks the golden values of the
 reference's worked example, takes five SGD steps, and times the kernels
 with CUDA events (rows 1-2: the wrapper, the kernel alone on zeroed
-scratch, and their difference, the host prelude); the end-to-end line carries bench.py's roofline fraction
+scratch, and their difference, the host prelude; the glue kernels around
+them, csrc/loss_glue.cu: a call, queued, alone in a CUDA graph, and their
+plain versions); the end-to-end line carries bench.py's roofline fraction
 of the padded step (3 passes over the logits at the measured ceiling over
 the fwd+bwd time, and at the blocked ceiling and the spec).
 
@@ -125,9 +127,10 @@ runs rows 1-2's plain versions: the costs, every parameter's gradient and
 the greedy hypotheses (max_labels 50, decode_bench.py's default; a sample
 whose hypothesis differs must differ first at a frame whose CPU top-2
 margin is below 1e-4, printed); holds rows 1-2 against their plain versions
-on the model's logits; reads the launch counts of the loss step (one
-stats_alpha_fused, one beta_grad_fused), of a cost-only forward under
-torch.no_grad (stats_alpha_fused only) and of greedy decode (none); and
+on the model's logits; reads the launch counts of the loss step (rows 1-2
+and the glue kernels around them, LOSS_STEP), of a cost-only forward under
+torch.no_grad (row 1 and its glue, COST_ONLY) and of greedy decode (none);
+and
 runs the Joint as the joint_fn of rnnt_loss_fused_joint and, under
 default_bands, of rnnt_loss_fused_joint_banded, and its banded form under
 monotonic_rnnt_loss_banded, each against the materialised model loss, with
@@ -141,8 +144,8 @@ step, greedy decode, and the step's peak memory above its inputs.
 The train phase (``run_train``) drives ``models/train.py`` at the model
 cell: ``create_train_state`` (lr 3e-3, one warmup update, so the first
 update has lr 0) from seed 0, the same weights as run_model's. In float32
-it takes 3 ``train_step``s on the card (one stats_alpha_fused and one
-beta_grad_fused each) and 3 on the CPU (the loss's oracle) and holds the
+it takes 3 ``train_step``s on the card (LOSS_STEP's launches each) and 3
+on the CPU (the loss's oracle) and holds the
 losses, grad_norms and every parameter after them (the attention's key
 bias apart: its true gradient is exactly 0, so it is held finite and
 within Adam's drift bound), then two more card steps, over which the loss
@@ -175,7 +178,7 @@ LstmLmConfig's widths; K=1 against ``greedy_decode``; in f32 each beam form
 against the CPU port on the same weights; each sample's merged top score
 against the marginal of its sequence (the model's logits through
 ``monotonic_rnnt_loss``, cost-only: one stats_alpha_fused, held against its
-plain version, path decode_marginal); then the same widths made causal
+plain version, and its glue, path decode_marginal); then the same widths made causal
 (attn_left_context 16) stream the batch in 32-frame chunks with
 ``streaming_lookback`` of history (``streaming_step``, and
 ``streaming_beam_step`` with the LstmLm), against that model's
@@ -455,6 +458,18 @@ def launched(K) -> dict:
     return {name: n for name, n in K.LAUNCHES.items() if n}
 
 
+# A padded loss call's launches on its DP-fused route: with a gradient, rows
+# 1-2 and the glue kernels around them (csrc/loss_glue.cu); cost-only, row 1
+# and its glue, no beta_operands.
+LOSS_STEP = {"loss_prologue": 1, "stats_alpha_fused": 1, "loss_costs": 1,
+             "beta_operands": 1, "beta_grad_fused": 1}
+COST_ONLY = {"loss_prologue": 1, "stats_alpha_fused": 1, "loss_costs": 1}
+
+
+def times(launches: dict, n: int) -> dict:
+    return {row: k * n for row, k in launches.items()}
+
+
 def worst_share(got, ref, atol: float, rtol: float) -> float:
     """The largest |got - ref| / (atol + rtol|ref|): 1 is at the tolerance."""
     got, ref = got.detach().double(), ref.detach().double()
@@ -604,7 +619,11 @@ def plain_pairs(mt):
             "grad_pass": (K.grad_pass, K.grad_pass_plain, 1e-6, 1e-4),
             "softmax_stats_partial": (SK.softmax_stats_partial,
                                       SK.softmax_stats_partial_plain, 1e-5,
-                                      1e-6)}
+                                      1e-6),
+            # The glue kernels: selects and integer arithmetic, exact.
+            "loss_prologue": (K.loss_prologue, K.loss_prologue_plain, 0, 0),
+            "loss_costs": (K.loss_costs, K.loss_costs_plain, 0, 0),
+            "beta_operands": (K.beta_operands, K.beta_operands_plain, 0, 0)}
 
 
 def compare_captured(mt, cap, what):
@@ -639,16 +658,20 @@ def compare_captured(mt, cap, what):
 
 def hold_close(got, ref, atol, rtol, what):
     """assert_close, where NaN on both sides at the same cells counts as
-    equal (a NaN-cost sample's cells, an overflowed gradient's)."""
+    equal (a NaN-cost sample's cells, an overflowed gradient's); with no
+    tolerance at all, equality."""
     nan = torch.isnan(ref)
     check(torch.equal(torch.isnan(got), nan), f"{what}: NaN cells differ "
           f"({int(torch.isnan(got).sum())} vs {int(nan.sum())})")
-    return assert_close(got.masked_fill(nan, 0), ref.masked_fill(nan, 0),
-                        atol, rtol, what)
+    got, ref = got.masked_fill(nan, 0), ref.masked_fill(nan, 0)
+    if atol == 0 and rtol == 0:     # an exact row: equal, infinities too
+        check(torch.equal(got, ref), f"{what}: not equal to the plain version")
+        return 0.0
+    return assert_close(got, ref, atol, rtol, what)
 
 
 class Hold:
-    """Shims over the eleven operators' CUDA implementations (the
+    """Shims over the fourteen operators' CUDA implementations (the
     ``<row>_cuda`` functions that ``mt.K.OPS`` names, where their modules
     define them), which every route reaches: a live wrapper, an exported
     artifact or a compiled graph. Each call on the card is held, as the
@@ -756,16 +779,20 @@ def fused_joint_capture(module, n_chunks, beta_name="beta_scan",
 # --- inputs ---------------------------------------------------------------------
 
 def kernel_operands(mt, logits, labels, ilen, slen, blank, bands=None):
-    """Operands of both wrappers, from the plain stats+alpha on the card."""
-    F, K = mt.fused, mt.K
-    ilen, slen, bands, lab = F._prepare(logits, labels, ilen, slen, bands)
+    """Operands of both wrappers, from the plain glue and stats+alpha on
+    the card."""
+    K = mt.K
     _, t_max, s1, _ = logits.shape
-    a_lo, a_hi, bwin = F._windows(ilen, slen, bands, t_max, s1)
+    ilen, slen = ilen.to(torch.int32), slen.to(torch.int32)
+    if bands is None:
+        bands = mt.bands.default_bands(ilen, slen, t_max)
+    lab, a_lo, a_hi, b_lo, b_hi = K.loss_prologue_plain(
+        labels, ilen, slen, bands.min_s, bands.max_s, t_max, s1)
     sa_args = (logits, lab, a_lo, a_hi, blank)
     denom, lpb, lpl, alphas = K.stats_alpha_fused_plain(*sa_args)
-    ll = F._gather_ll(alphas, ilen, slen)
-    lpbb, lplb, aprev, llb, bvirt = F.beta_grad_operands(lpb, lpl, alphas, ll,
-                                                         slen, bwin)
+    ll, _ = K.loss_costs_plain(alphas, ilen, slen)
+    lpbb, lplb, aprev, llb, bvirt = K.beta_operands_plain(
+        lpb, lpl, alphas, ll, ilen, slen, b_lo, b_hi)
     scale = torch.linspace(-0.5, 2.0, logits.shape[0], device=logits.device)
     bg_args = (logits, denom, lpbb, lplb, aprev, ilen, llb, bvirt, lab, blank)
     return sa_args, bg_args, scale
@@ -983,7 +1010,7 @@ def phase_main(mt, main_inputs, weights, dtype):
     costs, grads = costs.detach(), x.grad
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
-    check(launched(K) == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+    check(launched(K) == LOSS_STEP,
           f"main path {dtype} launches {launches}")
     check(grads.dtype == dtype, f"grad dtype {grads.dtype} != {dtype}")
     check(tuple(costs.shape) == (B,) and bool(torch.isfinite(costs).all()),
@@ -1011,7 +1038,7 @@ def phase_cost_only(mt, main_inputs, costs_f32):
     with torch.no_grad():
         costs = mt.monotonic_rnnt_loss(logits, labels, ilen, slen)
     torch.cuda.synchronize()
-    check(launched(K) == {"stats_alpha_fused": 1},
+    check(launched(K) == COST_ONLY,
           f"cost-only launches {K.LAUNCHES}")
     check(torch.equal(costs, costs_f32), "cost-only costs differ from fwd+bwd")
     log(f"cost-only: launches {launched(K)}; costs equal to fwd+bwd")
@@ -1123,7 +1150,7 @@ def phase_train(mt, main_inputs):
         loss.backward()
         opt.step()
         losses.append(float(loss.detach()))
-        check(launched(K) == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+        check(launched(K) == LOSS_STEP,
               f"train step {step} launches {K.LAUNCHES}")
     check(all(b < a for a, b in zip(losses, losses[1:])),
           f"loss must fall at every step: {losses}")
@@ -1265,6 +1292,34 @@ def phase_timing(mt, main_inputs, weights, errs, main_launches):
         kernels.append(entry)
     e2e = {str(d).removeprefix("torch."): rows[d][2] for d in rows}
     return kernels, e2e
+
+
+def glue_timing(mt, main_inputs):
+    """The glue kernels around rows 1-2 (csrc/loss_glue.cu) at the main
+    path's lattice, f32: one wrapper call from an idle card (ms), calls
+    queued back to back (queued_ms), the kernel alone in a CUDA graph
+    (kernel_ms), and the plain version (plain_ms: the torch glue it
+    replaced)."""
+    K = mt.K
+    logits, labels, ilen, slen = main_inputs
+    _, t_max, s1, _ = logits.shape
+    il, sl = ilen.to(torch.int32), slen.to(torch.int32)
+    bands = mt.bands.default_bands(il, sl, t_max)
+    pro_args = (labels, il, sl, bands.min_s, bands.max_s, t_max, s1)
+    lab, a_lo, a_hi, b_lo, b_hi = K.loss_prologue_plain(*pro_args)
+    _, lpb, lpl, alphas = K.stats_alpha_fused_plain(logits, lab, a_lo, a_hi,
+                                                    0)
+    ll, _ = K.loss_costs_plain(alphas, il, sl)
+    calls = {"loss_prologue": pro_args, "loss_costs": (alphas, il, sl),
+             "beta_operands": (lpb, lpl, alphas, ll, il, sl, b_lo, b_hi)}
+    figs = {}
+    for name, args in calls.items():
+        call = lambda f=getattr(K, name), a=args: f(*a)
+        plain = lambda f=getattr(K, name + "_plain"), a=args: f(*a)
+        figs[name] = {"ms": cuda_ms(call), "queued_ms": queued_ms(call),
+                      "kernel_ms": graph_ms(call), "plain_ms": cuda_ms(plain)}
+    log(f"glue kernels at B,T,S,V={B},{T},{S},{V}: {json.dumps(figs)}")
+    return figs
 
 
 # --- the banded path ------------------------------------------------------------
@@ -1746,9 +1801,12 @@ def run_banded(mt, golden, main_inputs, weights, restricted):
 
 def split_operands(mt, logits, labels, ilen, slen, blank=0, bands=None):
     """Every split kernel's operands, from the plain stats on the card."""
-    F, SK = mt.fused, mt.SK
-    ilen, slen, bands, lab = F._prepare(logits, labels, ilen, slen, bands)
+    SK = mt.SK
     _, t_max, s1, _ = logits.shape
+    ilen, slen = ilen.to(torch.int32), slen.to(torch.int32)
+    if bands is None:
+        bands = mt.bands.default_bands(ilen, slen, t_max)
+    lab = mt.helpers.extend_labels(labels, slen, s1)
     denom, lpb, lpl_raw = SK.softmax_stats_plain(logits, lab, blank)
     s_idx = torch.arange(s1, dtype=torch.int32, device=logits.device)
     lpl = torch.where(s_idx[None, None, :] < slen[:, None, None], lpl_raw,
@@ -2330,7 +2388,7 @@ def phase_fused_joint(mt, weights):
                                                    *args)
     ref_costs, ref_grads, _, ref_step = joint_step(mt, mono, case, weights)
     peak_m = torch.cuda.max_memory_allocated() - base_m
-    check(ref_step == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+    check(ref_step == LOSS_STEP,
           f"materialised route launches {ref_step}")
     e_c = assert_close(costs, ref_costs, 1e-4, 1e-5,
                        "fused-joint vs materialised costs")
@@ -2717,7 +2775,7 @@ def phase_model_fused_joint(mt, model, batch):
     mono = lambda e, p, pr: mt.monotonic_rnnt_loss(joint.joint_fn(pr, e, p),
                                                    *args)
     ref_costs, ref_grads, _, ref_step = joint_step(mt, mono, case, weights)
-    check(ref_step == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+    check(ref_step == LOSS_STEP,
           f"materialised model joint launches {ref_step}")
     bands = mt.bands.default_bands(case["ilen"], case["slen"], t_enc)
     w = mt.bands.suggested_band_width(case["ilen"], case["slen"], bands,
@@ -2860,7 +2918,7 @@ def run_model(mt, gpu):
         costs, grads = model_step(model, batch)
         torch.cuda.synchronize()
         step_launches = launched(K)
-        check(step_launches == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+        check(step_launches == LOSS_STEP,
               f"model {name} loss step launches {step_launches}")
         check(tuple(costs.shape) == (b,) and bool(torch.isfinite(costs).all()),
               f"model {name} costs [B] and finite")
@@ -2868,7 +2926,7 @@ def run_model(mt, gpu):
         with torch.no_grad():
             fwd_costs = model(*batch)
         torch.cuda.synchronize()
-        check(launched(K) == {"stats_alpha_fused": 1},
+        check(launched(K) == COST_ONLY,
               f"model {name} no_grad forward launches {launched(K)}")
         check(torch.equal(fwd_costs, costs), f"model {name} cost-only costs "
               "differ from the loss step's")
@@ -3046,7 +3104,7 @@ def phase_train_vs_cpu(mt, batch, cpu_batch):
     rows 1-2 are kept and held against their plain versions. Returns the
     card state, its snapshots after steps 2 and 3, their metrics and the
     kept calls' max |d| per wrapper."""
-    step_launches = {"stats_alpha_fused": 1, "beta_grad_fused": 1}
+    step_launches = LOSS_STEP
     card = train_state(mt, torch.float32, DEVICE)
     cpu = train_state(mt, torch.float32, "cpu")
     for (n, p), q in zip(card.model.named_parameters(),
@@ -3134,8 +3192,7 @@ def phase_train_accum_and_checkpoint(mt, batch, after2, padded_metrics,
     n = TRAIN_MICRO
     got = train_steps(mt, state, batch, 2,
                       step=mt.train.make_grad_accum_train_step(n),
-                      launches={"stats_alpha_fused": n,
-                                "beta_grad_fused": n})
+                      launches=times(LOSS_STEP, n))
     share = max(abs(g[0] - w[0]) / (1e-5 * abs(w[0]))
                 for g, w in zip(got, padded_metrics))
     check(share <= 1, f"grad accum losses {got} vs {padded_metrics[:2]}")
@@ -3239,8 +3296,7 @@ def run_train(mt, gpu, model_figures):
             m["stats_alpha_kernel_ms"] + m["beta_grad_kernel_ms"])
         torch.cuda.empty_cache()
     log("train timing: " + json.dumps(figures))
-    return ({"train": {"stats_alpha_fused": 1, "beta_grad_fused": 1},
-             "train_fused_joint": fused_launches},
+    return ({"train": LOSS_STEP, "train_fused_joint": fused_launches},
             {"train": errs, "train_fused_joint": fused_errs}, figures)
 
 
@@ -3399,7 +3455,7 @@ def phase_decode_marginal(mt, model, batch, merged, what, failures):
             cost = mt.monotonic_rnnt_loss(logits, labels, enc_len, nb)
         torch.cuda.synchronize()
         runs = launched(mt.K)
-    check(runs == {"stats_alpha_fused": 1},
+    check(runs == COST_ONLY,
           f"{what} marginal cost-only loss launches {runs}")
     err = compare_stats_alpha(mt, cap, f"{what} decode_marginal")
     slack = (-cost) + MARGINAL_ATOL - score[:, 0]
@@ -3601,7 +3657,7 @@ def run_decode(mt, gpu):
     log(f"decode phase {time.perf_counter() - t0:.1f} s")
     launches = {p: {} for p in ("decode", "decode_lm", "stream",
                                 "stream_beam")}
-    launches["decode_marginal"] = {"stats_alpha_fused": len(marginal_errs)}
+    launches["decode_marginal"] = times(COST_ONLY, len(marginal_errs))
     return (launches, {"decode_marginal": {
         "stats_alpha_fused": max(marginal_errs)}}, figures)
 
@@ -3656,7 +3712,7 @@ def serving_loss(mt, main_inputs, dtype, e2e):
     with ops_capture(mt, 0) as cap:
         got_c, got_g = loss_fn(*args)
         torch.cuda.synchronize()
-    check(launched(mt.K) == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+    check(launched(mt.K) == LOSS_STEP,
           f"export {name}: the imported call launched {launched(mt.K)}")
     check(got_g.dtype == dtype, f"export {name}: grads {got_g.dtype}")
     check(torch.equal(got_c, want_c) and torch.equal(got_g, want_g),
@@ -3814,7 +3870,7 @@ def serving_debug(mt, main_inputs, weights):
     finally:
         mt.fused.emit_loss_debug = real
     launches = launched(mt.K)
-    check(launches == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+    check(launches == LOSS_STEP,
           f"debug step launches {launches}")
     text = out.getvalue()
     for must in ("mrnnt space: pipeline=dp-fused-deferred-fwd",
@@ -3859,7 +3915,7 @@ def run_serving(mt, gpu, main_inputs, weights, e2e):
     debug_launches, debug_errs = serving_debug(mt, main_inputs, weights)
     log(f"serving timing ({gpu}): " + json.dumps(figures))
     log(f"serving phase {time.perf_counter() - t0:.1f} s")
-    launches = {"export": {"stats_alpha_fused": 2, "beta_grad_fused": 2},
+    launches = {"export": times(LOSS_STEP, 2),
                 "export_debug": debug_launches}
     return (launches, {"export": errs, "export_debug": debug_errs},
             figures)
@@ -4304,7 +4360,7 @@ def dp_case(mt, mesh, inputs, global_costs):
         loss.backward()
     torch.cuda.synchronize()
     step = launched(K)
-    check(step == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+    check(step == LOSS_STEP,
           f"data-parallel step launches {step}")
     with torch.no_grad():
         per = par.make_per_sample_loss(mesh)(logits[rows], *args)
@@ -4511,8 +4567,7 @@ def rank_train_steps(mt, meshes, tmp):
         model_config(mt, torch.float32).encoder, MODEL_BATCH[1]))
     n_chunks = -(-t_enc // TRAIN_CHUNK)
     cases = {
-        "train_dp": ((4, 1), TRAIN_PARAM_REL,
-                     {"stats_alpha_fused": 1, "beta_grad_fused": 1}),
+        "train_dp": ((4, 1), TRAIN_PARAM_REL, LOSS_STEP),
         "train_tp": ((2, 2), TRAIN_FUSED_PARAM_REL,
                      {"softmax_stats_partial": 2 * n_chunks, "alpha_scan": 1,
                       "beta_scan": n_chunks, "grad_pass": n_chunks})}
@@ -5380,9 +5435,10 @@ def run_packed(mt, golden, main_inputs, weights, restricted):
         costs_only = bind.monotonic_rnnt_loss(acts, *args)
     torch.cuda.synchronize()
     launches = launched(K)
-    check(after_step == {"stats_alpha_fused": 1, "beta_grad_fused": 1},
+    check(after_step == LOSS_STEP,
           f"packed training step launches {after_step}")
-    check(launches == {"stats_alpha_fused": 2, "beta_grad_fused": 1},
+    check(launches == {row: LOSS_STEP[row] + COST_ONLY.get(row, 0)
+                       for row in LOSS_STEP},
           f"packed cost-only launches {launches}")
     kernel_errs = compare_captured_rows12(mt, cap, "packed step")
     del cap
@@ -5821,6 +5877,7 @@ def main() -> int:
     restricted = phase_restricted(mt, main_inputs, weights)
     phase_train(mt, main_inputs)
     kernels, e2e = phase_timing(mt, main_inputs, weights, errs, main_launches)
+    glue_timing(mt, main_inputs)
     add_roofline(e2e, rates, main_inputs[0].numel() * 4)
     log(f"end-to-end loss at B={B},T={T},S={S},V={V}: {json.dumps(e2e)}")
     split_errs, split_launches, split_rows = run_split(mt, golden, main_inputs,

@@ -21,7 +21,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("stats_alpha", "beta_grad", "grad_pass", "banded", "split",
-           "stream")
+           "stream", "loss_glue")
 # No --use_fast_math: __expf/__logf would loosen parity with the oracle.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -14,8 +14,11 @@ The JAX package admits this route only when its tiles fit the TPU's VMEM
 (fused.py:210-216); the port takes it at every shape unless the config's
 ``pipeline`` is 'split'. The split pipeline (fused.py:79-137) runs
 ``softmax_stats``, then ``fwdbwd_scan`` (or ``alpha_scan`` for costs only),
-then ``grad_pass``, and makes the gradient in the forward. Everything
-between the kernels is O(B*T*S1) torch glue.
+then ``grad_pass``, and makes the gradient in the forward; everything
+between its kernels is O(B*T*S1) torch glue. The DP-fused pipeline's glue
+is three small kernels of its own (kernels.py): ``loss_prologue`` before
+row 1, ``loss_costs`` after it and ``beta_operands`` before row 2, so a
+loss step is a few launches the card queues behind row 1.
 """
 
 from __future__ import annotations
@@ -26,10 +29,11 @@ import torch
 
 from ...utils.config import get_config
 from ...utils.debug import emit_loss_debug, report_space
-from ..bands import Bands, _window_bounds, default_bands, lattice_masks
+from ..bands import Bands, default_bands, lattice_masks
 from ..helpers import NEG_INF, extend_labels, mask_to_additive
 from ..reference import _gather_ll, occupancy_coefficients
-from .kernels import beta_grad_fused, grad_pass, stats_alpha_fused
+from .kernels import (beta_grad_fused, beta_operands, grad_pass, loss_costs,
+                      loss_prologue, stats_alpha_fused)
 from .split_kernels import alpha_scan, fwdbwd_scan, softmax_stats
 
 def deferred_grad_supported() -> bool:
@@ -41,67 +45,37 @@ def deferred_grad_supported() -> bool:
     return get_config().pipeline != "split"
 
 
-def _prepare(logits, labels, input_lengths, label_lengths, bands):
-    s1 = logits.shape[2]
-    ilen = input_lengths.to(torch.int32).contiguous()
-    slen = label_lengths.to(torch.int32)
-    if bands is None:
-        bands = default_bands(ilen, slen, logits.shape[1])
-    return ilen, slen, bands, extend_labels(labels, slen, s1)
+def _lengths(input_lengths, label_lengths):
+    return (input_lengths.to(torch.int32).contiguous(),
+            label_lengths.to(torch.int32).contiguous())
 
 
-def _windows(ilen, slen, bands, t_max, s1):
-    """Alpha window, beta window and t < T_b, conjoined as the kernels take them."""
-    a_lo, a_hi, b_lo, b_hi = _window_bounds(ilen, slen, bands, t_max, s1)
-    t_idx = torch.arange(t_max, dtype=torch.int32, device=ilen.device)[None, :]
-    valid_t = t_idx < ilen[:, None]
-    # Conjoin t < T_b by emptying the window (hi < lo) on invalid rows.
-    a_hi = torch.where(valid_t, a_hi, -1)
-    b_hi = torch.where(valid_t, b_hi, -1)
-    return a_lo.contiguous(), a_hi.contiguous(), (b_lo, b_hi, valid_t)
-
-
-def _dp_fused_alpha_half(logits, labels_ext, ilen, slen, bands, blank_id):
-    """stats_alpha_fused + windows + ll gather (the one-read forward)."""
+def _prologue(logits, labels, ilen, slen, bands):
+    """loss_prologue on the default bands where none are given: labels_ext,
+    the alpha window (a_lo, a_hi) and the beta window (b_lo, b_hi)."""
     _, t_max, s1, _ = logits.shape
-    a_lo, a_hi, bwin = _windows(ilen, slen, bands, t_max, s1)
+    if bands is None:
+        bands = default_bands(ilen, slen, t_max)
+    labels_ext, a_lo, a_hi, b_lo, b_hi = loss_prologue(
+        labels, ilen, slen, bands.min_s, bands.max_s, t_max, s1)
+    return labels_ext, (a_lo, a_hi), (b_lo, b_hi)
+
+
+def _dp_fused_alpha_half(logits, labels_ext, ilen, slen, awin, blank_id):
+    """stats_alpha_fused + the ll gather (the one-read forward). Returns
+    (costs, (denom, lp_blank, lp_label, alphas, ll_fwd))."""
     denom, lp_blank, lp_label, alphas = stats_alpha_fused(
-        logits, labels_ext, a_lo, a_hi, blank_id)
-    ll_fwd = _gather_ll(alphas, ilen, slen)
-    return denom, lp_blank, lp_label, alphas, ll_fwd, bwin
+        logits, labels_ext, *awin, blank_id)
+    ll_fwd, costs = loss_costs(alphas, ilen, slen)
+    return costs, (denom, lp_blank, lp_label, alphas, ll_fwd)
 
 
-def beta_grad_operands(lp_blank, lp_label, alphas, ll_fwd, slen, bwin):
-    """The small operands of beta_grad_fused (fused.py:166-180).
-
-    Returns (lpb_bmask, lpl_bmask, aprev_masked, ll_bounded, beta_virtual).
-    The beta window is folded in by a select, not by adding an additive
-    -inf mask as the JAX glue does: the two agree on finite stats, and the
-    select keeps a NaN statistic of a padding cell (from +-inf padding
-    logits) out of the recurrence.
-    """
-    batch, _, s1 = alphas.shape
-    b_lo, b_hi, valid_t = bwin
-    s_idx = torch.arange(s1, dtype=torch.int32, device=alphas.device)
-    in_band = ((s_idx >= b_lo[:, :, None]) & (s_idx <= b_hi[:, :, None]))
-    alpha_virt = mask_to_additive(s_idx == 0).expand(batch, s1)
-    alpha_prev = torch.cat([alpha_virt[:, None, :], alphas[:, :-1, :]], dim=1)
-    ll_ok = torch.isfinite(ll_fwd)
-    ll_bounded = torch.where(ll_ok, ll_fwd, 0.0)
-    valid = valid_t[:, :, None] & ll_ok[:, None, None]
-    return (torch.where(in_band, lp_blank, NEG_INF),
-            torch.where(in_band, lp_label, NEG_INF),
-            torch.where(valid, alpha_prev, NEG_INF),
-            ll_bounded,
-            mask_to_additive(s_idx[None, :] == slen[:, None]))
-
-
-def _dp_fused_grad_half(logits, labels_ext, ilen, slen, blank_id, denom,
-                        lp_blank, lp_label, alphas, ll_fwd, bwin,
-                        grad_scale=None):
-    """beta_grad_fused + its small-array glue (the read+write backward)."""
-    lpb_bmask, lpl_bmask, aprev_m, llb, beta_virtual = beta_grad_operands(
-        lp_blank, lp_label, alphas, ll_fwd, slen, bwin)
+def _dp_fused_grad_half(logits, labels_ext, ilen, slen, blank_id, stats,
+                        bwin, grad_scale=None):
+    """beta_grad_fused + its operands (the read+write backward)."""
+    denom, lp_blank, lp_label, alphas, ll_fwd = stats
+    lpb_bmask, lpl_bmask, aprev_m, llb, beta_virtual = beta_operands(
+        lp_blank, lp_label, alphas, ll_fwd, ilen, slen, *bwin)
     grads, betas = beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask,
                                    aprev_m, ilen, llb, beta_virtual,
                                    labels_ext, blank_id,
@@ -126,22 +100,22 @@ def rnnt_loss_cuda(
     here (grad_scale 1), on the pipeline the config names; a training step
     goes through the deferred route unless that is 'split'.
     """
-    ilen, slen, bands, labels_ext = _prepare(logits, labels, input_lengths,
-                                             label_lengths, bands)
+    ilen, slen = _lengths(input_lengths, label_lengths)
     pipeline = "dp-fused" if deferred_grad_supported() else "split"
     report_space(pipeline, logits.shape, logits.dtype,
                  reads=2 if with_grads else 1, writes=1 if with_grads else 0)
     if pipeline == "split":
-        return _split(logits, labels_ext, ilen, slen, bands, blank_id,
-                      with_grads)
-    denom, lp_blank, lp_label, alphas, ll_fwd, bwin = _dp_fused_alpha_half(
-        logits, labels_ext, ilen, slen, bands, blank_id)
-    costs = -ll_fwd
+        if bands is None:
+            bands = default_bands(ilen, slen, logits.shape[1])
+        return _split(logits, extend_labels(labels, slen, logits.shape[2]),
+                      ilen, slen, bands, blank_id, with_grads)
+    labels_ext, awin, bwin = _prologue(logits, labels, ilen, slen, bands)
+    costs, stats = _dp_fused_alpha_half(logits, labels_ext, ilen, slen, awin,
+                                        blank_id)
     if not with_grads:
         return costs, None
     grads = _dp_fused_grad_half(logits, labels_ext, ilen, slen, blank_id,
-                                denom, lp_blank, lp_label, alphas, ll_fwd,
-                                bwin)
+                                stats, bwin)
     return costs, grads
 
 
@@ -184,36 +158,33 @@ def rnnt_loss_cuda_deferred_fwd(logits, labels, input_lengths, label_lengths,
     One read of the logits now; the beta+gradient pass runs later in
     rnnt_loss_cuda_deferred_bwd with the cotangent folded into the
     occupancy coefficients in-kernel, so a training step makes three passes
-    over the big tensor and keeps four [B, T, S1] f32 residuals.
+    over the big tensor and keeps four [B, T, S1] f32 residuals. The
+    residuals also hold what loss_prologue made (labels_ext, the beta
+    window), so the backward rebuilds neither.
 
     Returns (costs [B] f32, residuals tuple to pass to the bwd).
     """
-    ilen, slen, bands, labels_ext = _prepare(logits, labels, input_lengths,
-                                             label_lengths, bands)
+    ilen, slen = _lengths(input_lengths, label_lengths)
     report_space("dp-fused-deferred-fwd", logits.shape, logits.dtype,
                  reads=1, writes=0)
-    denom, lp_blank, lp_label, alphas, ll_fwd, _ = _dp_fused_alpha_half(
-        logits, labels_ext, ilen, slen, bands, blank_id)
-    return -ll_fwd, (denom, lp_blank, lp_label, alphas, ll_fwd)
+    labels_ext, awin, bwin = _prologue(logits, labels, ilen, slen, bands)
+    costs, stats = _dp_fused_alpha_half(logits, labels_ext, ilen, slen, awin,
+                                        blank_id)
+    return costs, (ilen, slen, labels_ext, *bwin, *stats)
 
 
-def rnnt_loss_cuda_deferred_bwd(logits, labels, input_lengths, label_lengths,
-                                residuals, cost_cotangent, blank_id: int = 0,
-                                bands: Optional[Bands] = None):
+def rnnt_loss_cuda_deferred_bwd(logits, residuals, cost_cotangent,
+                                blank_id: int = 0):
     """The deferred beta+gradient pass; returns dlogits in the logits' dtype.
 
-    cost_cotangent: [B] dL/dcosts, folded into the coefficients in-kernel
-    (dlogits == cost_cotangent[:, None, None, None] * grads up to one
-    multiply's rounding).
+    residuals: rnnt_loss_cuda_deferred_fwd's. cost_cotangent: [B]
+    dL/dcosts, folded into the coefficients in-kernel (dlogits ==
+    cost_cotangent[:, None, None, None] * grads up to one multiply's
+    rounding).
     """
-    ilen, slen, bands, labels_ext = _prepare(logits, labels, input_lengths,
-                                             label_lengths, bands)
     report_space("dp-fused-deferred-bwd", logits.shape, logits.dtype,
                  reads=1, writes=1)
-    denom, lp_blank, lp_label, alphas, ll_fwd = residuals
-    _, t_max, s1, _ = logits.shape
-    _, _, bwin = _windows(ilen, slen, bands, t_max, s1)
+    ilen, slen, labels_ext, b_lo, b_hi, *stats = residuals
     scale = cost_cotangent.to(torch.float32).contiguous()
     return _dp_fused_grad_half(logits, labels_ext, ilen, slen, blank_id,
-                               denom, lp_blank, lp_label, alphas, ll_fwd,
-                               bwin, grad_scale=scale)
+                               stats, (b_lo, b_hi), grad_scale=scale)

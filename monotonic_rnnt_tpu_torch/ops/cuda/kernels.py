@@ -12,10 +12,15 @@ Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776, 1304-1360``:
   ``mrnnt_grad_kernel`` (csrc/grad_pass.cu), for the banded and the split
   routes, the fused-joint losses' chunks and the vocab-sharded losses'
   local slices. It and ``beta_grad_fused`` write every gradient row with
-  the same device code (csrc/common.cuh's ``grad_row``).
+  the same device code (csrc/common.cuh's ``grad_row``);
+* ``loss_prologue``, ``loss_costs`` and ``beta_operands`` (no TPU kernel:
+  XLA fuses this glue of ops/pallas/fused.py) launch the kernels of
+  csrc/loss_glue.cu, the padded loss's small-array glue around rows 1-2:
+  labels_ext and the windows before row 1, the costs after it, and row
+  2's masked operands.
 
-Rows 1-11 of the kernel table (every kernel a loss route runs) are
-operators in the ``mrnnt`` namespace (``torch.ops.mrnnt.<row>``), each
+Rows 1-11 of the kernel table (every kernel a loss route runs) and the
+glue kernels are operators in the ``mrnnt`` namespace (``torch.ops.mrnnt.<row>``), each
 registered by ``define_op``: its plain PyTorch version is the CPU
 implementation, a module-level ``<row>_cuda`` function (checks,
 allocation, launch, count; looked up by name at each call, so a shim on it
@@ -50,8 +55,10 @@ import torch
 
 from ...utils.config import get_config
 from ...utils.profiling import LAUNCHES, span
-from ..helpers import (NEG_INF, log_sum_exp, select_label_logits, shift_left_s,
-                       shift_right_s)
+from ..bands import Bands, _window_bounds
+from ..helpers import (NEG_INF, extend_labels, log_sum_exp, mask_to_additive,
+                       select_label_logits, shift_left_s, shift_right_s)
+from ..reference import _gather_ll
 from . import _build
 
 LAUNCHES.update({"stats_alpha_fused": 0, "beta_grad_fused": 0,
@@ -60,7 +67,8 @@ LAUNCHES.update({"stats_alpha_fused": 0, "beta_grad_fused": 0,
                  "softmax_stats": 0, "fwdbwd_scan": 0, "alpha_scan": 0,
                  "beta_scan": 0, "softmax_stats_partial": 0,
                  "stream_copy": 0, "stream_copy_blocked": 0,
-                 "stream_copy_blocked_tbsv": 0})
+                 "stream_copy_blocked_tbsv": 0, "loss_prologue": 0,
+                 "loss_costs": 0, "beta_operands": 0})
 
 
 def reset_launch_counts() -> None:
@@ -110,6 +118,10 @@ _ENTRIES = {
     "mrnnt_stream_copy_dma": ("stream", [_P, _P, _P, _I, _L, _P]),
     "mrnnt_stream_copy_blocked": ("stream", [_P] * 3 + [_I] * 6 + [_P]),
     "mrnnt_stream_copy_blocked_tbsv": ("stream", [_P, _P] + [_I] * 6 + [_P]),
+    "mrnnt_loss_prologue": ("loss_glue", [_P, _I, _I] + [_P] * 4 + [_I] * 3
+                            + [_P] * 3),
+    "mrnnt_loss_costs": ("loss_glue", [_P] * 3 + [_I] * 3 + [_P] * 3),
+    "mrnnt_beta_operands": ("loss_glue", [_P] * 8 + [_I] * 3 + [_P] * 4),
 }
 
 
@@ -489,3 +501,223 @@ def beta_grad_fused(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
     return torch.ops.mrnnt.beta_grad_fused(
         logits, denom, lpb_bmask, lpl_bmask, aprev_masked, input_lengths,
         ll_bounded, beta_virtual, labels_ext, blank_id, grad_scale)
+
+
+# --- the padded loss's glue around rows 1-2 -----------------------------------
+
+def loss_prologue_plain(labels, input_lengths, label_lengths, band_min,
+                        band_max, t_max: int, s1: int):
+    """Plain-torch loss_prologue: (labels_ext, a_lo, a_hi, b_lo, b_hi)."""
+    labels_ext = extend_labels(labels, label_lengths, s1)
+    a_lo, a_hi, b_lo, b_hi = _window_bounds(
+        input_lengths, label_lengths, Bands(band_min, band_max), t_max, s1)
+    t_idx = torch.arange(t_max, dtype=torch.int32,
+                         device=input_lengths.device)[None, :]
+    valid_t = t_idx < input_lengths.to(torch.int32)[:, None]
+    # Conjoin t < T_b by emptying the window (hi < lo) on invalid rows.
+    a_hi = torch.where(valid_t, a_hi, -1)
+    b_hi = torch.where(valid_t, b_hi, -1)
+    return labels_ext, a_lo.contiguous(), a_hi, b_lo, b_hi
+
+
+def loss_prologue_cuda(labels, input_lengths, label_lengths, band_min,
+                       band_max, t_max: int, s1: int):
+    """The launch of mrnnt_loss_prologue_kernel behind the op's CUDA
+    implementation: checks, allocation, launch, count. Returns labels_ext
+    [B, S1] and the stacked windows [4, B, T] int32."""
+    _check_cuda(labels)
+    dev = labels.device
+    if labels.dim() != 2 or labels.dtype not in (torch.int32, torch.int64) \
+            or not labels.is_contiguous():
+        raise ValueError("labels must be a contiguous [B, S_max] int32 or "
+                         f"int64 tensor, got {labels.dtype} "
+                         f"{tuple(labels.shape)}")
+    batch = labels.shape[0]
+    for name, t in (("input_lengths", input_lengths),
+                    ("label_lengths", label_lengths)):
+        _check(t, name, torch.int32, (batch,), dev)
+    for name, t in (("band_min", band_min), ("band_max", band_max)):
+        _check(t, name, torch.int32, (batch, t_max), dev)
+    labels_ext = torch.empty((batch, s1), dtype=torch.int32, device=dev)
+    windows = torch.empty((4, batch, t_max), dtype=torch.int32, device=dev)
+    _call("mrnnt_loss_prologue", dev, _ptr(labels),
+          int(labels.dtype == torch.int64), labels.shape[1],
+          _ptr(input_lengths), _ptr(label_lengths), _ptr(band_min),
+          _ptr(band_max), batch, t_max, s1, _ptr(labels_ext), _ptr(windows))
+    LAUNCHES["loss_prologue"] += 1
+    return labels_ext, windows
+
+
+def _prologue_cpu(*args):
+    """loss_prologue's CPU implementation: labels_ext, the windows stacked."""
+    labels_ext, *windows = loss_prologue_plain(*args)
+    return labels_ext, torch.stack(windows)
+
+
+define_op("loss_prologue",
+          "(Tensor labels, Tensor input_lengths, Tensor label_lengths, "
+          "Tensor band_min, Tensor band_max, SymInt t_max, SymInt s1) -> "
+          "(Tensor, Tensor)",
+          _prologue_cpu, loss_prologue_cuda,
+          lambda labels, *args: (
+              labels.new_empty((labels.shape[0], args[-1]),
+                               dtype=torch.int32),
+              labels.new_empty((4, labels.shape[0], args[-2]),
+                               dtype=torch.int32)))
+
+
+def loss_prologue(labels, input_lengths, label_lengths, band_min, band_max,
+                  t_max: int, s1: int):
+    """What rows 1-2 take besides the logits and the stats, in one launch.
+
+    labels [B, S_max] int; input_lengths, label_lengths [B] int32;
+    band_min, band_max [B, T] int (the bands, reference
+    cpu_workspace_manager.h:53-56, 207-224). Returns labels_ext [B, S1]
+    int32 (-1 where s >= S_b, helpers.extend_labels) and the inclusive
+    alpha and beta windows a_lo, a_hi, b_lo, b_hi [B, T] int32
+    (bands._window_bounds), t < T_b conjoined into both hi bounds (-1 on
+    invalid rows), through ``torch.ops.mrnnt.loss_prologue``.
+    """
+    _check_device(input_lengths)
+    if labels.dtype not in (torch.int32, torch.int64):
+        labels = labels.to(torch.int32)
+    labels_ext, windows = torch.ops.mrnnt.loss_prologue(
+        labels.contiguous(), input_lengths, label_lengths,
+        band_min.to(torch.int32).contiguous(),
+        band_max.to(torch.int32).contiguous(), t_max, s1)
+    return (labels_ext, *windows.unbind(0))
+
+
+def loss_costs_plain(alphas, input_lengths, label_lengths):
+    """Plain-torch loss_costs: (ll_fwd, costs)."""
+    ll_fwd = _gather_ll(alphas, input_lengths, label_lengths)
+    return ll_fwd, -ll_fwd
+
+
+def loss_costs_cuda(alphas, input_lengths, label_lengths):
+    """The launch of mrnnt_loss_costs_kernel behind the op's CUDA
+    implementation: checks, allocation, launch, count."""
+    _check_cuda(alphas)
+    dev = alphas.device
+    if alphas.dim() != 3:
+        raise ValueError("alphas must be [B, T, S1], got shape "
+                         f"{tuple(alphas.shape)}")
+    batch, t_max, s1 = alphas.shape
+    _check(alphas, "alphas", torch.float32, (batch, t_max, s1), dev)
+    for name, t in (("input_lengths", input_lengths),
+                    ("label_lengths", label_lengths)):
+        _check(t, name, torch.int32, (batch,), dev)
+    ll_fwd, costs = _small((batch,), dev), _small((batch,), dev)
+    _call("mrnnt_loss_costs", dev, _ptr(alphas), _ptr(input_lengths),
+          _ptr(label_lengths), batch, t_max, s1, _ptr(ll_fwd), _ptr(costs))
+    LAUNCHES["loss_costs"] += 1
+    return ll_fwd, costs
+
+
+define_op("loss_costs",
+          "(Tensor alphas, Tensor input_lengths, Tensor label_lengths) -> "
+          "(Tensor, Tensor)",
+          loss_costs_plain, loss_costs_cuda,
+          lambda alphas, *_: (alphas.new_empty(alphas.shape[:1]),
+                              alphas.new_empty(alphas.shape[:1])))
+
+
+def loss_costs(alphas, input_lengths, label_lengths):
+    """(ll_fwd, costs), each [B] f32: ll = alphas[b, T_b - 1, S_b] and
+    costs = -ll, NaN where an index is out of range (the exported
+    artifact's contract, reference._gather_ll). alphas [B, T, S1] f32;
+    the lengths [B] int32. Goes through ``torch.ops.mrnnt.loss_costs``."""
+    _check_device(alphas)
+    return torch.ops.mrnnt.loss_costs(alphas, input_lengths, label_lengths)
+
+
+def beta_operands_plain(lp_blank, lp_label, alphas, ll_fwd, input_lengths,
+                        label_lengths, b_lo, b_hi):
+    """Plain-torch beta_operands: (lpb_bmask, lpl_bmask, aprev_masked,
+    ll_bounded, beta_virtual)."""
+    batch, t_max, s1 = alphas.shape
+    s_idx = torch.arange(s1, dtype=torch.int32, device=alphas.device)
+    t_idx = torch.arange(t_max, dtype=torch.int32, device=alphas.device)
+    in_band = ((s_idx >= b_lo[:, :, None]) & (s_idx <= b_hi[:, :, None]))
+    alpha_virt = mask_to_additive(s_idx == 0).expand(batch, s1)
+    alpha_prev = torch.cat([alpha_virt[:, None, :], alphas[:, :-1, :]], dim=1)
+    ll_ok = torch.isfinite(ll_fwd)
+    ll_bounded = torch.where(ll_ok, ll_fwd, 0.0)
+    valid_t = t_idx[None, :] < input_lengths[:, None]
+    valid = valid_t[:, :, None] & ll_ok[:, None, None]
+    return (torch.where(in_band, lp_blank, NEG_INF),
+            torch.where(in_band, lp_label, NEG_INF),
+            torch.where(valid, alpha_prev, NEG_INF),
+            ll_bounded,
+            mask_to_additive(s_idx[None, :] == label_lengths[:, None]))
+
+
+def beta_operands_cuda(lp_blank, lp_label, alphas, ll_fwd, input_lengths,
+                       label_lengths, b_lo, b_hi):
+    """The launch of mrnnt_beta_operands_kernel behind the op's CUDA
+    implementation: checks, allocation, launch, count. Returns the stacked
+    [3, B, T, S1] (lpb_bmask, lpl_bmask, aprev_masked), ll_bounded [B] and
+    beta_virtual [B, S1], f32."""
+    _check_cuda(alphas)
+    dev = alphas.device
+    if alphas.dim() != 3:
+        raise ValueError("alphas must be [B, T, S1], got shape "
+                         f"{tuple(alphas.shape)}")
+    batch, t_max, s1 = alphas.shape
+    for name, t in (("lp_blank", lp_blank), ("lp_label", lp_label),
+                    ("alphas", alphas)):
+        _check(t, name, torch.float32, (batch, t_max, s1), dev)
+    _check(ll_fwd, "ll_fwd", torch.float32, (batch,), dev)
+    for name, t in (("input_lengths", input_lengths),
+                    ("label_lengths", label_lengths)):
+        _check(t, name, torch.int32, (batch,), dev)
+    for name, t in (("b_lo", b_lo), ("b_hi", b_hi)):
+        _check(t, name, torch.int32, (batch, t_max), dev)
+    masked = _small((3, batch, t_max, s1), dev)
+    ll_bounded, beta_virtual = _small((batch,), dev), _small((batch, s1), dev)
+    _call("mrnnt_beta_operands", dev, _ptr(lp_blank), _ptr(lp_label),
+          _ptr(alphas), _ptr(ll_fwd), _ptr(input_lengths),
+          _ptr(label_lengths), _ptr(b_lo), _ptr(b_hi), batch, t_max, s1,
+          _ptr(masked), _ptr(ll_bounded), _ptr(beta_virtual))
+    LAUNCHES["beta_operands"] += 1
+    return masked, ll_bounded, beta_virtual
+
+
+def _operands_cpu(*args):
+    """beta_operands' CPU implementation: the three [B, T, S1] operands
+    stacked, ll_bounded, beta_virtual."""
+    *masked, ll_bounded, beta_virtual = beta_operands_plain(*args)
+    return torch.stack(masked), ll_bounded, beta_virtual
+
+
+define_op("beta_operands",
+          "(Tensor lp_blank, Tensor lp_label, Tensor alphas, Tensor ll_fwd, "
+          "Tensor input_lengths, Tensor label_lengths, Tensor b_lo, "
+          "Tensor b_hi) -> (Tensor, Tensor, Tensor)",
+          _operands_cpu, beta_operands_cuda,
+          lambda lp_blank, *_: (lp_blank.new_empty((3, *lp_blank.shape)),
+                                lp_blank.new_empty(lp_blank.shape[:1]),
+                                lp_blank.new_empty((lp_blank.shape[0],
+                                                    lp_blank.shape[2]))))
+
+
+def beta_operands(lp_blank, lp_label, alphas, ll_fwd, input_lengths,
+                  label_lengths, b_lo, b_hi):
+    """The small operands of beta_grad_fused (fused.py:166-180).
+
+    lp_blank, lp_label, alphas [B, T, S1] f32 (row 1's); ll_fwd [B] f32;
+    the lengths [B] int32; b_lo, b_hi [B, T] int32, the beta window with
+    t < T_b conjoined (loss_prologue's). Returns (lpb_bmask, lpl_bmask,
+    aprev_masked, ll_bounded, beta_virtual). The beta window is folded in
+    by a select, not by adding an additive -inf mask as the JAX glue does:
+    the two agree on finite stats, and the select keeps a NaN statistic of
+    a padding cell (from +-inf padding logits) out of the recurrence.
+    aprev_masked is alpha(t-1, s) where t < T_b and ll is finite, else -inf;
+    ll_bounded is ll, 0 where it is not finite. Goes through
+    ``torch.ops.mrnnt.beta_operands``.
+    """
+    _check_device(alphas)
+    masked, ll_bounded, beta_virtual = torch.ops.mrnnt.beta_operands(
+        lp_blank, lp_label, alphas, ll_fwd, input_lengths, label_lengths,
+        b_lo, b_hi)
+    return (*masked.unbind(0), ll_bounded, beta_virtual)

@@ -2,11 +2,13 @@
 
 PyTorch counterpart of ``monotonic_rnnt_tpu/ops/loss.py``:
 
-  * on the ``cuda`` backend the forward runs only the stats+alpha kernel;
-    when the logits need a gradient it keeps four [B, T, S1] residuals and
-    the backward runs the beta+grad kernel with the incoming cotangent
-    folded in (the deferred-gradient route). A cost-only call never
-    launches the beta+grad kernel;
+  * on the ``cuda`` backend the forward runs only the stats+alpha kernel
+    (with the glue kernels loss_prologue before it and loss_costs after);
+    when the logits need a gradient it keeps four [B, T, S1] residuals,
+    labels_ext and the beta window, and the backward runs beta_operands
+    and the beta+grad kernel with the incoming cotangent folded in (the
+    deferred-gradient route). A cost-only call never launches the
+    beta+grad kernel;
   * on the ``cuda`` backend under ``pipeline='split'`` the forward makes
     the gradient through the split kernels and the backward scales it by
     the cotangent (the eager route, loss.py:102-124); a cost-only call runs
@@ -67,8 +69,7 @@ class _LossCore(torch.autograd.Function):
                 logits, labels, input_lengths, label_lengths,
                 blank_id=blank_id, bands=bands)
             if need_grad:
-                ctx.save_for_backward(logits, labels, input_lengths,
-                                      label_lengths, band_min, band_max, *res)
+                ctx.save_for_backward(logits, *res)
             return costs
         loss_fn = rnnt_loss_cuda if backend == "cuda" else rnnt_loss_reference
         costs, grads = loss_fn(logits, labels, input_lengths, label_lengths,
@@ -84,12 +85,9 @@ class _LossCore(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, cost_cotangent):
         if ctx.deferred:
-            (logits, labels, input_lengths, label_lengths, band_min, band_max,
-             *res) = ctx.saved_tensors
+            logits, *res = ctx.saved_tensors
             dlogits = rnnt_loss_cuda_deferred_bwd(
-                logits, labels, input_lengths, label_lengths, tuple(res),
-                cost_cotangent, blank_id=ctx.blank_id,
-                bands=Bands(band_min, band_max))
+                logits, res, cost_cotangent, blank_id=ctx.blank_id)
         else:
             (grads,) = ctx.saved_tensors
             dlogits = (grads * cost_cotangent[:, None, None, None]).to(

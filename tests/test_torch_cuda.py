@@ -19,6 +19,7 @@ import torch
 
 import golden
 import monotonic_rnnt_tpu_torch as mt
+from glue_lattices import GLUE_LATTICES, glue_case
 import torch.distributed as dist
 from monotonic_rnnt_tpu_torch import convert
 from monotonic_rnnt_tpu_torch.ops import banded as tbanded
@@ -50,15 +51,31 @@ def _inputs(device, seed, batch, t, s, v, blank, dtype):
                                                           v, blank_id=blank)
     lg, lb, il, sl = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
                                                     device=device, dtype=dtype)
-    ilen, slen, bands, lab = fused._prepare(lg, lb, il, sl, None)
-    a_lo, a_hi, bwin = fused._windows(ilen, slen, bands, t, s + 1)
+    return _plain_operands(lg, lb, il, sl, tbands.default_bands(il, sl, t),
+                           blank)[:2]
+
+
+def _plain_operands(lg, lb, il, sl, bands, blank):
+    """Rows 1-2's arguments, the glue made by its plain versions:
+    (stats_alpha_fused's, beta_grad_fused's but grad_scale, ll)."""
+    _, t, s1, _ = lg.shape
+    il, sl = il.to(torch.int32), sl.to(torch.int32)
+    lab, a_lo, a_hi, b_lo, b_hi = K.loss_prologue_plain(
+        lb, il, sl, bands.min_s, bands.max_s, t, s1)
     sa_args = (lg, lab, a_lo, a_hi, blank)
     denom, lpb, lpl, alphas = K.stats_alpha_fused_plain(*sa_args)
-    ll = fused._gather_ll(alphas, ilen, slen)
-    lpbb, lplb, aprev, llb, bvirt = fused.beta_grad_operands(lpb, lpl, alphas,
-                                                             ll, slen, bwin)
-    bg_args = (lg, denom, lpbb, lplb, aprev, ilen, llb, bvirt, lab, blank)
-    return sa_args, bg_args
+    ll, _ = K.loss_costs_plain(alphas, il, sl)
+    lpbb, lplb, aprev, llb, bvirt = K.beta_operands_plain(
+        lpb, lpl, alphas, ll, il, sl, b_lo, b_hi)
+    bg_args = (lg, denom, lpbb, lplb, aprev, il, llb, bvirt, lab, blank)
+    return sa_args, bg_args, ll
+
+
+# A loss call's launches: with a gradient, rows 1-2 and the glue kernels
+# around them (csrc/loss_glue.cu); cost-only, no row 2 and no operands.
+LOSS_STEP = {"loss_prologue": 1, "stats_alpha_fused": 1, "loss_costs": 1,
+             "beta_operands": 1, "beta_grad_fused": 1}
+COST_ONLY = {"loss_prologue": 1, "stats_alpha_fused": 1, "loss_costs": 1}
 
 
 def _close(got, ref, atol, rtol):
@@ -171,16 +188,9 @@ def _edge_inputs(device, case, dtype):
     bands = tbands.default_bands(il, sl, t)
     if kind == "infeasible":            # sample 2 can never emit label S_b
         bands.max_s[2] = sl[2] - 1
-    ilen32, slen32, bands, lab = fused._prepare(lg, lb, il, sl, bands)
-    a_lo, a_hi, bwin = fused._windows(ilen32, slen32, bands, t, s + 1)
-    sa_args = (lg, lab, a_lo, a_hi, blank)
-    denom, lpb, lpl, alphas = K.stats_alpha_fused_plain(*sa_args)
-    ll = fused._gather_ll(alphas, ilen32, slen32)
+    sa_args, bg_args, ll = _plain_operands(lg, lb, il, sl, bands, blank)
     if kind == "infeasible":
         assert torch.isinf(ll[2]) and bool(torch.isfinite(ll[:2]).all())
-    lpbb, lplb, aprev, llb, bvirt = fused.beta_grad_operands(
-        lpb, lpl, alphas, ll, slen32, bwin)
-    bg_args = (lg, denom, lpbb, lplb, aprev, ilen32, llb, bvirt, lab, blank)
     return sa_args, bg_args, pad
 
 
@@ -216,7 +226,7 @@ def test_loss_through_kernels_matches_oracle(device, dtype):
         (costs * w).sum().backward()
         torch.cuda.synchronize()
         out[backend] = (costs.detach(), x.grad, _launched())
-    assert out["cuda"][2] == {"stats_alpha_fused": 1, "beta_grad_fused": 1}
+    assert out["cuda"][2] == LOSS_STEP
     assert out["reference"][2] == {}
     assert out["cuda"][1].dtype == dtype
     _close(out["cuda"][0], out["reference"][0], 1e-4, 1e-5)
@@ -226,7 +236,7 @@ def test_loss_through_kernels_matches_oracle(device, dtype):
     K.reset_launch_counts()
     with torch.no_grad():
         costs = mt.monotonic_rnnt_loss(lg, lb, il, sl)
-    assert _launched() == {"stats_alpha_fused": 1}
+    assert _launched() == COST_ONLY
     assert torch.equal(costs, out["cuda"][0])
 
 
@@ -284,7 +294,7 @@ def test_exported_cuda_loss_equals_the_live_loss(device, dtype):
     K.reset_launch_counts()
     got_c, got_g = loss_fn(*args)
     torch.cuda.synchronize()
-    assert _launched() == {"stats_alpha_fused": 1, "beta_grad_fused": 1}
+    assert _launched() == LOSS_STEP
     assert torch.equal(got_c, want_c) and torch.equal(got_g, want_g)
     with pytest.raises(Exception):
         loss_fn(*(a[:2] for a in args))
@@ -353,6 +363,96 @@ def test_a_nan_cost_stays_nan_through_the_scans(device, group_of_one, route):
     _close(c_k[:1], c_p[:1], 1e-4, 1e-5)
     assert torch.equal(torch.isnan(g_k), torch.isnan(g_p))
     _close(g_k[0], g_p[0], 1e-6, 1e-3)
+
+
+# --- the glue kernels around rows 1-2 (csrc/loss_glue.cu) -----------------------
+
+def _glue_inputs(device, case, dtype=torch.float32):
+    """(logits, labels, T_b, S_b, bands) of a GLUE_LATTICES case on the card."""
+    logits, _, labels, ilen, slen, align = glue_case(case)
+    as_int = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+    il, sl = as_int(ilen), as_int(slen)
+    lg = torch.from_numpy(logits).to(device=device, dtype=dtype)
+    lb = torch.from_numpy(labels).to(device)
+    if align is None:
+        return lg, lb, il, sl, tbands.default_bands(il, sl, logits.shape[1])
+    return lg, lb, il, sl, tbands.bands_from_alignment(
+        as_int(align), il, sl, case[-1], case[6])
+
+
+def _same_bits(got, want):
+    """Equal bit for bit; a NaN matches any NaN (its payload is no result)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.is_floating_point():
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        bits = {4: torch.int32, 2: torch.int16}[got.element_size()]
+        got = got.masked_fill(nan, 0).view(bits)
+        want = want.masked_fill(nan, 0).view(bits)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", GLUE_LATTICES, ids=lambda c: c[0])
+def test_glue_kernels_equal_their_plain_versions(device, case):
+    """loss_prologue, loss_costs and beta_operands on the card against
+    their plain versions on the same tensors, bit for bit, one launch
+    each."""
+    lg, lb, il, sl, bands = _glue_inputs(device, case)
+    _, t, s1, _ = lg.shape
+    K.reset_launch_counts()
+    args = (lb, il, sl, bands.min_s, bands.max_s, t, s1)
+    pro = K.loss_prologue_plain(*args)
+    for g, w in zip(K.loss_prologue(*args), pro):
+        _same_bits(g, w)
+    _, lpb, lpl, alphas = K.stats_alpha_fused_plain(lg, *pro[:3], case[6])
+    ll, costs = K.loss_costs_plain(alphas, il, sl)
+    for g, w in zip(K.loss_costs(alphas, il, sl), (ll, costs)):
+        _same_bits(g, w)
+    assert bool(torch.isnan(ll).any()) == (case[0] == "past-shape")
+    args = (lpb, lpl, alphas, ll, il, sl, *pro[3:])
+    for g, w in zip(K.beta_operands(*args), K.beta_operands_plain(*args)):
+        _same_bits(g, w)
+    torch.cuda.synchronize()
+    assert _launched() == {"loss_prologue": 1, "loss_costs": 1,
+                           "beta_operands": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [GLUE_LATTICES[i] for i in (0, 2, 6, 11)],
+                         ids=lambda c: c[0])
+def test_loss_through_glue_kernels_equals_plain_glue(device, monkeypatch,
+                                                     case, dtype):
+    """The padded loss (deferred route) with the glue kernels and with
+    their plain versions, the torch glue they replace, around the same
+    rows 1-2: costs and gradients equal bit for bit; one launch of each
+    glue kernel a step, and none of beta_operands on a cost-only call."""
+    lg, lb, il, sl, bands = _glue_inputs(device, case, dtype)
+    w = torch.linspace(-0.5, 2.0, lg.shape[0], device=device)
+
+    def step():
+        x = lg.clone().requires_grad_(True)
+        costs = mt.monotonic_rnnt_loss(x, lb, il, sl, bands=bands,
+                                       blank_id=case[6])
+        grads, = torch.autograd.grad((costs * w).sum(), x)
+        torch.cuda.synchronize()
+        return costs.detach(), grads
+
+    K.reset_launch_counts()
+    got = step()
+    assert _launched() == LOSS_STEP
+    K.reset_launch_counts()
+    with torch.no_grad():
+        cost_only = mt.monotonic_rnnt_loss(lg, lb, il, sl, bands=bands,
+                                           blank_id=case[6])
+    assert _launched() == COST_ONLY
+    with monkeypatch.context() as patch:
+        for name in ("loss_prologue", "loss_costs", "beta_operands"):
+            patch.setattr(fused, name, getattr(K, name + "_plain"))
+        K.reset_launch_counts()
+        want = step()
+        assert _launched() == {"stats_alpha_fused": 1, "beta_grad_fused": 1}
+    for g, r in zip((*got, cost_only), (*want, want[0])):
+        _same_bits(g, r)
 
 
 # --- the banded path -------------------------------------------------------------
@@ -1245,7 +1345,7 @@ def test_packed_binding_equals_the_padded_loss(device):
     costs = binding.monotonic_rnnt_loss(acts, lb, il, sl)
     (costs * w).sum().backward()
     torch.cuda.synchronize()
-    assert _launched() == {"stats_alpha_fused": 1, "beta_grad_fused": 1}
+    assert _launched() == LOSS_STEP
     assert torch.equal(costs, ref.detach())
     assert torch.equal(acts.grad, mt.pack_acts(x.grad, il, sl))
 

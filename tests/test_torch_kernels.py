@@ -14,13 +14,15 @@ import pytest
 import torch
 
 import golden
+from glue_lattices import GLUE_LATTICES, glue_case
 from monotonic_rnnt_tpu.ops import bands as jbands
 from monotonic_rnnt_tpu.ops import helpers as jhelpers
 from monotonic_rnnt_tpu.ops.pallas import kernels as jk
 from monotonic_rnnt_tpu_torch import config_override, convert
+from monotonic_rnnt_tpu_torch import monotonic_rnnt_loss as mt_loss
 from monotonic_rnnt_tpu_torch.ops import bands as tbands
-from monotonic_rnnt_tpu_torch.ops import helpers as thelpers
-from monotonic_rnnt_tpu_torch.ops.cuda import _build, fused
+from monotonic_rnnt_tpu_torch.ops import loss as tloss
+from monotonic_rnnt_tpu_torch.ops.cuda import _build
 from monotonic_rnnt_tpu_torch.ops.cuda import kernels as tk
 
 # (seed, B, T, S, V, blank[, (T_b...), (S_b...)]): V not a multiple of 128,
@@ -61,9 +63,9 @@ def _windows(j_in, t_in):
         ji, js, jbands.default_bands(ji, js, t_max), t_max, s1)
     a_hi = jnp.where(jnp.arange(t_max)[None, :] < ji[:, None], a_hi, -1)
     j_args = (jl, jhelpers.extend_labels(jlab, js, s1), a_lo, a_hi)
-    t_lo, t_hi, _ = fused._windows(ti, ts, tbands.default_bands(ti, ts, t_max),
-                                   t_max, s1)
-    t_args = (tl, thelpers.extend_labels(tlab, ts, s1), t_lo, t_hi)
+    t_lab, t_lo, t_hi, _, _ = tk.loss_prologue_plain(
+        tlab, ti, ts, *tbands.default_bands(ti, ts, t_max), t_max, s1)
+    t_args = (tl, t_lab, t_lo, t_hi)
     np.testing.assert_array_equal(t_lo.numpy(), np.asarray(a_lo))
     np.testing.assert_array_equal(t_hi.numpy(), np.asarray(a_hi))
     return j_args, t_args
@@ -84,16 +86,27 @@ def test_stats_alpha_plain_matches_pallas(shape, dtype):
                                    atol=1e-6, err_msg=name)
 
 
-def _beta_operands(t_in, blank):
-    """The beta_grad operands, made once and handed to both packages."""
+def _plain_glue(t_in, blank):
+    """The deferred route's operands on the default bands through the
+    plain versions: (labels_ext, a_lo, a_hi, row 1's outputs, row 2's
+    operands but the logits, the stats and labels_ext)."""
     tl, tlab, ti, ts = t_in
     t_max, s1 = tl.shape[1], tl.shape[2]
-    ilen, slen, bands, lab = fused._prepare(tl, tlab, ti, ts, None)
-    denom, lpb, lpl, alphas, ll, bwin = fused._dp_fused_alpha_half(
-        tl, lab, ilen, slen, bands, blank)
-    lpbb, lplb, aprev, llb, bvirt = fused.beta_grad_operands(
-        lpb, lpl, alphas, ll, slen, bwin)
-    return (tl, denom, lpbb, lplb, aprev, ilen, llb, bvirt, lab)
+    ilen, slen = ti.to(torch.int32), ts.to(torch.int32)
+    lab, a_lo, a_hi, b_lo, b_hi = tk.loss_prologue_plain(
+        tlab, ilen, slen, *tbands.default_bands(ilen, slen, t_max), t_max, s1)
+    row1 = tk.stats_alpha_fused_plain(tl, lab, a_lo, a_hi, blank)
+    ll, _ = tk.loss_costs_plain(row1[3], ilen, slen)
+    ops = tk.beta_operands_plain(row1[1], row1[2], row1[3], ll, ilen, slen,
+                                 b_lo, b_hi)
+    return lab, a_lo, a_hi, row1, (ops[:3], ilen, *ops[3:])
+
+
+def _beta_operands(t_in, blank):
+    """The beta_grad operands, made once and handed to both packages."""
+    lab, _, _, row1, ((lpbb, lplb, aprev), ilen, llb, bvirt) = _plain_glue(
+        t_in, blank)
+    return (t_in[0], row1[0], lpbb, lplb, aprev, ilen, llb, bvirt, lab)
 
 
 @pytest.mark.parametrize("scaled", [False, True], ids=["unscaled", "scaled"])
@@ -184,13 +197,10 @@ def _op_args(shape, dtype, scaled):
     """Both operators' arguments at `shape` (the CPU implementations'
     inputs, from the plain stats+alpha)."""
     t_in, _ = _inputs(*shape, dtype=dtype)
-    tl, tlab, ti, ts = t_in
-    ilen, slen, bands, lab = fused._prepare(tl, tlab, ti, ts, None)
-    a_lo, a_hi, _ = fused._windows(ilen, slen, bands, tl.shape[1],
-                                   tl.shape[2])
+    lab, a_lo, a_hi, _, _ = _plain_glue(t_in, shape[5])
     ops = _beta_operands(t_in, shape[5])
     scale = torch.linspace(-0.5, 2.0, shape[1]) if scaled else None
-    return ((tl, lab, a_lo, a_hi, shape[5]),
+    return ((t_in[0], lab, a_lo, a_hi, shape[5]),
             (*ops, shape[5], scale))
 
 
@@ -230,7 +240,8 @@ def test_rows_1_2_fake_outputs_match_the_plain_versions(dtype):
 
 def test_rows_1_2_wrappers_call_the_operators(monkeypatch):
     """The live route goes through torch.ops.mrnnt: one call of each
-    operator per training step of the padded loss's deferred route."""
+    operator per training step of the padded loss's deferred route, rows
+    1-2 and the three glue operators around them."""
     calls = []
     real = torch.ops.mrnnt
 
@@ -247,8 +258,105 @@ def test_rows_1_2_wrappers_call_the_operators(monkeypatch):
     t_in, _ = _inputs(*SHAPES[0], dtype="f32")
     x = t_in[0].clone().requires_grad_(True)
     bands = tbands.default_bands(t_in[2], t_in[3], x.shape[1])
-    from monotonic_rnnt_tpu_torch.ops import loss as tloss
     costs = tloss._LossCore.apply(x, t_in[1], t_in[2], t_in[3], bands.min_s,
                                   bands.max_s, SHAPES[0][5], "cuda")
     costs.sum().backward()
-    assert calls == ["stats_alpha_fused", "beta_grad_fused"]
+    assert calls == ["loss_prologue", "stats_alpha_fused", "loss_costs",
+                     "beta_operands", "beta_grad_fused"]
+
+
+# --- the glue operators around rows 1-2 against the JAX package's glue -------
+
+def _glue_case(case):
+    """glue_case's arrays with each package's bands: (logits, clean
+    logits, labels, T_b, S_b, torch bands, JAX bands)."""
+    logits, clean, labels, ilen, slen, align = glue_case(case)
+    t, band, blank = logits.shape[1], case[-1], case[6]
+    t_il, t_sl = torch.from_numpy(ilen), torch.from_numpy(slen)
+    j_il, j_sl = jnp.asarray(ilen), jnp.asarray(slen)
+    if align is None:
+        return (logits, clean, labels, ilen, slen,
+                tbands.default_bands(t_il, t_sl, t),
+                jbands.default_bands(j_il, j_sl, t))
+    return (logits, clean, labels, ilen, slen,
+            tbands.bands_from_alignment(torch.from_numpy(align), t_il, t_sl,
+                                        band, blank),
+            jbands.bands_from_alignment(jnp.asarray(align), j_il, j_sl, band,
+                                        blank))
+
+
+def _jax_glue(monkeypatch, logits, labels, ilen, slen, bands, blank):
+    """JAX's DP-fused rnnt_loss_pallas (interpret) with the operands its
+    glue gives its two kernels kept: (stats_alpha_fused's, beta_grad_fused's,
+    costs, d sum(costs) / d logits)."""
+    from monotonic_rnnt_tpu.ops.pallas import fused as jfused
+    kept = {}
+
+    def keep(name):
+        real = getattr(jfused, name)
+
+        def call(*args, **kwargs):
+            kept[name] = [np.asarray(a) if isinstance(a, jnp.ndarray) else a
+                          for a in args]
+            return real(*args, **kwargs)
+        monkeypatch.setattr(jfused, name, call)
+
+    keep("stats_alpha_fused")
+    keep("beta_grad_fused")
+    costs, grads = jfused.rnnt_loss_pallas(
+        *(jnp.asarray(a) for a in (logits, labels, ilen, slen)),
+        blank_id=blank, bands=bands, interpret=True)
+    return (kept["stats_alpha_fused"], kept["beta_grad_fused"],
+            np.asarray(costs), np.asarray(grads))
+
+
+@pytest.mark.parametrize("case", GLUE_LATTICES[:8], ids=lambda c: c[0])
+def test_glue_operators_match_jax_fused_glue(monkeypatch, case):
+    """loss_prologue, loss_costs and beta_operands on the CPU route (their
+    plain versions, through the operators) give what the JAX package's
+    ops/pallas/fused.py glue gives its two kernels, and the padded loss
+    through them (the deferred route) its costs and gradients. JAX runs on
+    finite padding: its additive window fold lets a NaN statistic of a
+    +-inf padding cell into the recurrence, where the port's select keeps
+    it out."""
+    logits, clean, labels, ilen, slen, tb, jb = _glue_case(case)
+    blank, (_, t_max, s1, _) = case[6], logits.shape
+    j_sa, j_bg, j_costs, j_grads = _jax_glue(monkeypatch, clean, labels, ilen,
+                                             slen, jb, blank)
+    x, lab, il, sl = (torch.from_numpy(a) for a in (logits, labels, ilen,
+                                                     slen))
+    before = dict(tk.LAUNCHES)
+    lab_ext, a_lo, a_hi, b_lo, b_hi = tk.loss_prologue(
+        lab, il, sl, tb.min_s, tb.max_s, t_max, s1)
+    for got, want in zip((lab_ext, a_lo, a_hi), j_sa[1:4]):
+        np.testing.assert_array_equal(got.numpy(), want)
+    row1 = tk.stats_alpha_fused(x, lab_ext, a_lo, a_hi, blank)
+    ll, costs = tk.loss_costs(row1[3], il, sl)
+    torch.testing.assert_close(costs, -ll, rtol=0, atol=0, equal_nan=True)
+    np.testing.assert_allclose(costs.numpy(), j_costs, rtol=1e-5)
+    ops = tk.beta_operands(row1[1], row1[2], row1[3], ll, il, sl, b_lo, b_hi)
+    for got, want in zip(ops[:3], j_bg[2:5]):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ops[3].numpy(), j_bg[6].reshape(-1),
+                               rtol=1e-5)
+    np.testing.assert_array_equal(ops[4].numpy(), j_bg[7])
+    assert tk.LAUNCHES == before
+
+    xg = x.clone().requires_grad_(True)
+    if case[0] == "past-shape":
+        # A traced graph checks no length values (utils/status.py).
+        monkeypatch.setattr(tloss, "_resolve_backend", lambda b, x: "cuda")
+        loss = torch.compile(
+            lambda x: mt_loss(x, lab, il, sl, bands=tb, blank_id=blank),
+            fullgraph=True, backend="aot_eager")
+        got_costs = loss(xg)
+        torch._dynamo.reset()
+    else:
+        got_costs = tloss.loss_on_route(xg, lab, il, sl, tb, blank, "cuda")
+    grads, = torch.autograd.grad(got_costs.sum(), xg)
+    np.testing.assert_allclose(got_costs.detach().numpy(), j_costs,
+                               rtol=1e-5)
+    np.testing.assert_allclose(grads.numpy(), j_grads, rtol=1e-4, atol=1e-6)
+    nan_cost = torch.isnan(got_costs.detach())
+    assert bool(nan_cost.any()) == (case[0] == "past-shape")
+    assert bool((grads[nan_cost] == 0).all())

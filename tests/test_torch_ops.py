@@ -236,17 +236,19 @@ OPCHECK = [pytest.param(name, variant, dt, id=f"{name}-{variant}-{dt}"
                         if variant else f"{name}-{dt}")
            for name, dts in ROW_DTYPES.items()
            for variant in VARIANTS.get(name, ("",)) for dt in dts]
+# The padded loss's glue around rows 1-2 (csrc/loss_glue.cu).
+GLUE = ("loss_prologue", "loss_costs", "beta_operands")
 
 
 def test_every_row_is_an_operator_on_the_routes():
-    """The eleven rows are registered, each with its CUDA implementation
-    named <row>_cuda; the routes above call each of them, rows 1-2 under
-    their PR-15 schemas."""
-    assert sorted(tk.OPS) == sorted(ROW_DTYPES)
+    """The eleven rows and the three glue operators are registered, each
+    with its CUDA implementation named <row>_cuda; the routes above call
+    each of them, rows 1-2 under their PR-15 schemas."""
+    assert sorted(tk.OPS) == sorted([*ROW_DTYPES, *GLUE])
     for name, (_, module, attr) in tk.OPS.items():
         assert callable(getattr(module, attr)) and attr.endswith("_cuda")
     seen = {name for name, _ in _route_calls("f32")}
-    assert seen == set(ROW_DTYPES)
+    assert seen == {*ROW_DTYPES, *GLUE}
     assert str(torch.ops.mrnnt.stats_alpha_fused.default._schema) == (
         "mrnnt::stats_alpha_fused(Tensor logits, Tensor labels_ext, "
         "Tensor a_lo, Tensor a_hi, SymInt blank_id) -> Tensor")
@@ -263,6 +265,14 @@ def test_operator_passes_opcheck(name, variant, dtype):
     args = _route_calls(dtype)[(name, variant)]
     assert args[0].dtype == DTYPES[dtype]        # the logits, or a stream
     torch.library.opcheck(getattr(torch.ops.mrnnt, name).default, args)
+
+
+@pytest.mark.parametrize("name", GLUE)
+def test_glue_operator_passes_opcheck(name):
+    """The glue operators at the operands the padded loss's deferred route
+    gives them (their first is no logits tensor, so one case each)."""
+    torch.library.opcheck(getattr(torch.ops.mrnnt, name).default,
+                          _route_calls("f32")[(name, "")])
 
 
 # --- tracing with fake CUDA tensors ----------------------------------------------
@@ -340,8 +350,8 @@ def _assert_like(got, want):
 def _deferred_route(logits, labels, ilen, slen):
     costs, res = fused.rnnt_loss_cuda_deferred_fwd(logits, labels, ilen,
                                                    slen)
-    return costs, fused.rnnt_loss_cuda_deferred_bwd(
-        logits, labels, ilen, slen, res, torch.ones_like(costs))
+    return costs, fused.rnnt_loss_cuda_deferred_bwd(logits, res,
+                                                    torch.ones_like(costs))
 
 
 def _banded_cost_only(x, labels, ilen, slen, band_min, band_max):
@@ -407,7 +417,7 @@ def _wrapper_call(row, args):
     return getattr(tk.OPS[row][1], row)(*args)
 
 
-@pytest.mark.parametrize("row", sorted(ROW_DTYPES))
+@pytest.mark.parametrize("row", sorted([*ROW_DTYPES, *GLUE]))
 def test_wrapper_traces_on_fake_cuda_tensors(row):
     """Each wrapper on fake CUDA tensors gives its operator's fake outputs
     in the shapes and dtypes of its plain version."""

@@ -111,16 +111,20 @@ def test_export_loss_refuses_what_it_cannot_hold(monkeypatch):
 
 def test_cuda_route_exports_rows_1_2_as_operators():
     """The cuda backend's function, traced on CPU tensors: the graph holds
-    torch.ops.mrnnt.stats_alpha_fused and beta_grad_fused once each, and
-    the artifact equals the live route bit for bit (the same plain
-    versions on the CPU, counted as no launch)."""
+    torch.ops.mrnnt.stats_alpha_fused and beta_grad_fused once each, with
+    the glue operators around them (loss_prologue, loss_costs,
+    beta_operands), and the artifact equals the live route bit for bit
+    (the same plain versions on the CPU, counted as no launch)."""
     case = t(*_loss_batch(seed=1))
     blob = serving.export_fn(
         lambda *a: fused.rnnt_loss_cuda(*a, blank_id=0), case)
     program = torch.export.load(io.BytesIO(blob))
     targets = [str(n.target) for n in program.graph.nodes
                if n.op == "call_function" and "mrnnt" in str(n.target)]
-    assert targets == ["mrnnt.stats_alpha_fused.default",
+    assert targets == ["mrnnt.loss_prologue.default",
+                       "mrnnt.stats_alpha_fused.default",
+                       "mrnnt.loss_costs.default",
+                       "mrnnt.beta_operands.default",
                        "mrnnt.beta_grad_fused.default"]
     before = dict(tk.LAUNCHES)
     costs, grads = serving.import_fn(blob)(*case)

@@ -215,3 +215,43 @@ def test_call_spans_each_launch(monkeypatch, err):
     events = _profiled(call)
     assert launched == [(1, 2, 1234)]
     assert [e.name for e in events] == ["mrnnt.launch.mrnnt_stats_alpha"]
+
+
+@pytest.mark.parametrize("op, entry", [
+    ("loss_prologue", "mrnnt_loss_prologue"),
+    ("loss_costs", "mrnnt_loss_costs"),
+    ("beta_operands", "mrnnt_beta_operands")])
+def test_glue_operators_launch_once_in_their_spans(monkeypatch, op, entry):
+    """Each glue operator's CUDA implementation, with a stubbed launcher
+    (CPU tensors pass its checks): one launch of its C entry point with
+    the arguments its argtypes declare, inside mrnnt.launch.<entry>, and
+    one count in LAUNCHES[op]."""
+    x, labels, il, sl = _loss_case()
+    t_max, s1 = x.shape[1], x.shape[2]
+    bands = mt.default_bands(il, sl, t_max)
+    lab, a_lo, a_hi, b_lo, b_hi = tk.loss_prologue_plain(
+        labels, il, sl, *bands, t_max, s1)
+    _, lpb, lpl, alphas = tk.stats_alpha_fused_plain(x, lab, a_lo, a_hi, 0)
+    ll, _ = tk.loss_costs_plain(alphas, il, sl)
+    args = {"loss_prologue": (labels, il, sl, *bands, t_max, s1),
+            "loss_costs": (alphas, il, sl),
+            "beta_operands": (lpb, lpl, alphas, ll, il, sl, b_lo, b_hi)}[op]
+    launched = []
+
+    def entry_point(*a):
+        launched.append(a)
+        return 0
+
+    monkeypatch.setattr(tk, "_bound", lambda e: (entry_point, None))
+    monkeypatch.setattr(tk, "_check_cuda", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1234, raising=False)
+    monkeypatch.setitem(tk.LAUNCHES, op, tk.LAUNCHES[op])
+    before = tk.LAUNCHES[op]
+    events = _profiled(lambda: getattr(tk, op + "_cuda")(*args))
+    assert len(launched) == 1
+    assert len(launched[0]) == len(tk._ENTRIES[entry][1])
+    assert launched[0][-1] == 1234                       # the stream, last
+    assert tk.LAUNCHES[op] == before + 1
+    assert [e.name for e in events] == ["mrnnt.launch." + entry]

@@ -288,7 +288,7 @@ def test_debug_space_reports_pipeline(capsys):
         want = jax_line(lambda: jfused.rnnt_loss_pallas_deferred_bwd(
             *j_args, j_res, jnp.asarray(cot), interpret=True))
         got = port_line(lambda: fused.rnnt_loss_cuda_deferred_bwd(
-            *p_args, p_res, torch.from_numpy(cot)))
+            p_args[0], p_res, torch.from_numpy(cot)))
         assert got == want and "(1r+1w)" in got
         with jconfig.config_override(pipeline="split"), \
                 tconfig.config_override(pipeline="split"):
