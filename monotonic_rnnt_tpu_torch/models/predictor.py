@@ -6,7 +6,9 @@ history (the lattice's s=0 row). Two families:
 
   * LstmPredictor: embedding + unidirectional LSTM over the label sequence;
   * ConvPredictor: stateless limited-context predictor (embedding + causal
-    conv).
+    conv). With ``stateless`` it is icefall's stateless decoder (a conv in
+    ``dim // 4`` groups without a bias, then ReLU, and no output layer: the
+    joint projects), which the Zipformer transducer takes.
 
 Both expose, besides the batched training ``forward``, a stepwise decoding
 interface, so frame-synchronous decoders advance in O(1) work per emitted
@@ -45,6 +47,7 @@ class PredictorConfig:
     dim: int = 256
     embed_dim: int = 128
     context: int = 2                 # ConvPredictor history length
+    stateless: bool = False          # ConvPredictor as icefall's decoder
     dtype: torch.dtype = torch.bfloat16
 
 
@@ -134,31 +137,39 @@ class ConvPredictor(nn.Module):
                  generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
         self.cfg = cfg
+        self.groups = cfg.dim // 4 if cfg.stateless else 1
         self.embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
-        self.conv = nn.Conv1d(cfg.embed_dim, cfg.dim, cfg.context)
-        self.out = nn.Linear(cfg.dim, cfg.dim)
+        self.conv = nn.Conv1d(cfg.embed_dim, cfg.dim, cfg.context,
+                              groups=self.groups, bias=not cfg.stateless)
+        self.out = None if cfg.stateless else nn.Linear(cfg.dim, cfg.dim)
         finish_init(self, generator, device)
 
     def _conv(self, emb):
         """VALID conv over [B, L, E] -> relu'd [B, L - context + 1, dim]."""
         dt = self.cfg.dtype
+        bias = self.conv.bias
         y = F.conv1d(emb.transpose(1, 2), self.conv.weight.to(dt),
-                     self.conv.bias.to(dt))
+                     None if bias is None else bias.to(dt),
+                     groups=self.groups)
         return F.relu(y.transpose(1, 2))
+
+    def _out(self, y):
+        if self.out is None:
+            return y.float()
+        return dense(self.out, y, self.cfg.dtype).float()
 
     def forward(self, labels, deterministic: bool = True):
         cfg = self.cfg
         emb = _embed(self.embed, _shift_with_bos(labels), cfg.dtype)
         # Causal conv: pad left so position s sees only labels < s.
-        y = self._conv(F.pad(emb, (0, 0, cfg.context - 1, 0)))
-        return dense(self.out, y, cfg.dtype).float()
+        return self._out(self._conv(F.pad(emb, (0, 0, cfg.context - 1, 0))))
 
     def init_state(self, batch: int):
         # Ring of the last `context` tokens with a validity mask: unfilled
         # slots enter the conv as zero VECTORS, matching the training path's
         # zero left-padding (embed(0) is the BOS embedding, distinct from
         # padding). The decoder's first step pushes BOS (token 0).
-        dev = self.out.weight.device
+        dev = self.embed.weight.device
         ctx = self.cfg.context
         return (torch.zeros((batch, ctx), dtype=torch.int32, device=dev),
                 torch.zeros((batch, ctx), dtype=torch.bool, device=dev))
@@ -171,5 +182,4 @@ class ConvPredictor(nn.Module):
                            dim=1)
         emb = _embed(self.embed, ring, self.cfg.dtype)
         emb = emb * filled[..., None].to(emb.dtype)
-        y = self._conv(emb)[:, 0]
-        return (ring, filled), dense(self.out, y, self.cfg.dtype).float()
+        return (ring, filled), self._out(self._conv(emb)[:, 0])

@@ -1,6 +1,9 @@
 """Conformer-transducer: encoder + predictor + joint -> monotonic RNN-T loss.
 
 PyTorch counterpart of ``monotonic_rnnt_tpu/models/transducer.py``. The
+encoder is the Conformer, or the Zipformer (``models/zipformer.py``, which
+the JAX package lacks) where ``TransducerConfig.encoder`` is a
+``ZipformerConfig``; the joint takes the encoder's output width. The
 joint network produces the per-(t, s) logits the loss consumes
 ([B, T', S+1, V], float32 whatever the compute dtype), so the loss runs the
 port's float32 kernels: on the card ``stats_alpha_fused`` in the forward
@@ -26,7 +29,7 @@ lengths and raises ``RnntError``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -38,11 +41,12 @@ from ..utils.profiling import span
 from .conformer import ConformerConfig, ConformerEncoder, subsampled_length
 from .init import finish_init
 from .predictor import ConvPredictor, LstmPredictor, PredictorConfig
+from .zipformer import ZipformerConfig, ZipformerEncoder
 
 
 @dataclasses.dataclass(frozen=True)
 class TransducerConfig:
-    encoder: ConformerConfig = ConformerConfig()
+    encoder: Union[ConformerConfig, ZipformerConfig] = ConformerConfig()
     predictor: PredictorConfig = PredictorConfig()
     joint_dim: int = 256
     vocab_size: int = 1024           # includes blank at index blank_id
@@ -112,7 +116,9 @@ class MonotonicTransducer(nn.Module):
                              f"{cfg.predictor_kind!r}")
         self.cfg = cfg
         kw = {"generator": generator, "device": "cpu"}
-        self.encoder = ConformerEncoder(cfg.encoder, feat_dim, **kw)
+        encoder = (ZipformerEncoder if isinstance(cfg.encoder, ZipformerConfig)
+                   else ConformerEncoder)
+        self.encoder = encoder(cfg.encoder, feat_dim, **kw)
         predictor = (LstmPredictor if cfg.predictor_kind == "lstm"
                      else ConvPredictor)
         self.predictor = predictor(cfg.predictor, **kw)
@@ -227,6 +233,9 @@ class MonotonicTransducer(nn.Module):
         and emitted slice are index arithmetic on it, so one exported
         streaming_step serves every chunk, and no chunk copies it to the
         host."""
+        if isinstance(self.cfg.encoder, ZipformerConfig):
+            raise ValueError("chunked streaming needs a causal encoder; the "
+                             "Zipformer is not causal")
         sub = self.cfg.encoder.subsample_factor
         if lookback % sub:
             raise ValueError(f"lookback {lookback} not a multiple of the "

@@ -16,6 +16,10 @@ function call. The port's spans, all named ``mrnnt.<...>``:
 * model step: ``mrnnt.train_step`` around each training step, holding
   ``mrnnt.encode``, ``mrnnt.predict``, ``mrnnt.joint`` (the transducer's
   logits), ``mrnnt.backward`` and ``mrnnt.update`` (clip, AdamW, schedule);
+  a Zipformer encoder opens ``mrnnt.zipformer.embed``,
+  ``mrnnt.zipformer.stack<i>``, ``mrnnt.zipformer.attn_weights`` (each
+  layer's shared softmax) and ``mrnnt.zipformer.attend`` (each module that
+  reads it) inside ``mrnnt.encode``;
 * loss entry points: ``mrnnt.loss`` around the public padded and banded
   losses, holding ``mrnnt.validate`` (the input checks) and ``mrnnt.bands``
   (the default or alignment bands);
