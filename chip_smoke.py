@@ -788,7 +788,7 @@ def kernel_operands(mt, logits, labels, ilen, slen, blank, bands=None):
         bands = mt.bands.default_bands(ilen, slen, t_max)
     lab, a_lo, a_hi, b_lo, b_hi = K.loss_prologue_plain(
         labels, ilen, slen, bands.min_s, bands.max_s, t_max, s1)
-    sa_args = (logits, lab, a_lo, a_hi, blank)
+    sa_args = (logits, lab, a_lo, a_hi, ilen, slen, blank)
     denom, lpb, lpl, alphas = K.stats_alpha_fused_plain(*sa_args)
     ll, _ = K.loss_costs_plain(alphas, ilen, slen)
     lpbb, lplb, aprev, llb, bvirt = K.beta_operands_plain(
@@ -977,7 +977,10 @@ def stats_bit_equality(mt, logits, lab, blank, what):
     batch, t_max, s1, _ = logits.shape
     zeros = torch.zeros((batch, t_max), dtype=torch.int32, device=DEVICE)
     full = torch.full_like(zeros, s1)
-    row1 = K.stats_alpha_fused(logits, lab, zeros, full - 1, blank)
+    # Full lengths: every cell is live, as rows 3 and 7 read all.
+    t_b = torch.full((batch,), t_max, dtype=torch.int32, device=DEVICE)
+    row1 = K.stats_alpha_fused(logits, lab, zeros, full - 1, t_b,
+                               torch.full_like(t_b, s1 - 1), blank)
     row3 = SK.softmax_stats(logits, lab, blank)
     lab3 = lab[:, None, :].expand(-1, t_max, -1).contiguous()
     row7 = BK.softmax_stats_banded(logits, lab3,
@@ -1162,7 +1165,7 @@ def rows12_alone_ms(mt, sa_args, bg_args, scale):
     scratch zeroed outside the timed window: (stats_alpha ms, beta_grad ms,
     the coefficients [3, B, T, S1] that beta_grad wrote)."""
     K = mt.K
-    lg, lab, a_lo, a_hi, blank = sa_args
+    lg, lab, a_lo, a_hi, il, sl, blank = sa_args
     n_b, n_t, n_s1 = lg.shape[:3]
     out4 = torch.empty((4, n_b, n_t, n_s1), device=DEVICE)
     betas = torch.empty((n_b, n_t, n_s1), device=DEVICE)
@@ -1172,7 +1175,7 @@ def rows12_alone_ms(mt, sa_args, bg_args, scale):
     grads = torch.empty_like(lg)
     _, denom, lpbb, lplb, aprev, il32, llb, bvirt, _, _ = bg_args
     t_sa = kernel_ms(lambda: K.launch_stats_alpha(
-        lg, lab, a_lo, a_hi, blank, out4, sync_sa), sync_sa)
+        lg, lab, a_lo, a_hi, il, sl, blank, out4, sync_sa), sync_sa)
     t_bg = kernel_ms(lambda: K.launch_beta_grad(
         lg, denom, lpbb, lplb, aprev, il32, llb, scale, bvirt, lab, blank,
         grads, betas, coef, sync_bg), sync_bg)
@@ -1203,12 +1206,16 @@ def phase_timing(mt, main_inputs, weights, errs, main_launches):
         occ, cb, cl = coef
         live = int(((occ != 0) | (cb != 0) | (cl != 0)).sum())
         read_live = live * lg.shape[3] * isz
+        # Row 1 reads the live cells t < T'_b, s <= S_b only.
+        live_sa = int(K.live_cells(*sa_args[4:6], n_t, n_s1).sum())
         sa = {
             "ms": cuda_ms(lambda: K.stats_alpha_fused(*sa_args)),
             "plain_ms": cuda_ms(lambda: K.stats_alpha_fused_plain(*sa_args)),
             "library_ms": cuda_ms(lambda: torch.logsumexp(lg, dim=-1)),
-            "bound": bound_ms(big + n_b * n_s1 * 4 + 2 * n_b * n_t * 4
-                              + 4 * small, 4 * lg.numel()),
+            "bound": bound_ms(live_sa * lg.shape[3] * isz + n_b * n_s1 * 4
+                              + 2 * n_b * n_t * 4 + 2 * n_b * 4 + 4 * small,
+                              4 * live_sa * lg.shape[3]),
+            "live_rows": live_sa, "rows": n_cells,
             "kernel_ms": t_sa,
             "parts": [
                 {"name": "mrnnt_stats_alpha_kernel", "ms": t_sa},
@@ -1308,7 +1315,7 @@ def glue_timing(mt, main_inputs):
     pro_args = (labels, il, sl, bands.min_s, bands.max_s, t_max, s1)
     lab, a_lo, a_hi, b_lo, b_hi = K.loss_prologue_plain(*pro_args)
     _, lpb, lpl, alphas = K.stats_alpha_fused_plain(logits, lab, a_lo, a_hi,
-                                                    0)
+                                                    il, sl, 0)
     ll, _ = K.loss_costs_plain(alphas, il, sl)
     calls = {"loss_prologue": pro_args, "loss_costs": (alphas, il, sl),
              "beta_operands": (lpb, lpl, alphas, ll, il, sl, b_lo, b_hi)}

@@ -2,15 +2,23 @@
 // loss, in one persistent launch.
 //
 // Replaces the TPU kernel monotonic_rnnt_tpu/ops/pallas/kernels.py:
-// stats_alpha_fused (body _stats_alpha_kernel). Same operands and outputs:
+// stats_alpha_fused (body _stats_alpha_kernel). Operands and outputs:
 // logits [B,T,S1,V] f32 or bf16, labels_ext [B,S1] int32 (-1 on invalid
-// slots), inclusive alpha windows a_lo/a_hi [B,T] int32 (hi < lo = empty)
-// -> denom, lp_blank, lp_label, alphas, each [B,T,S1] f32.
+// slots), inclusive alpha windows a_lo/a_hi [B,T] int32 (hi < lo = empty),
+// input_lengths T'_b and label_lengths S_b [B] int32 -> denom, lp_blank,
+// lp_label, alphas, each [B,T,S1] f32.
 //
-// What bounds it on an H100: HBM bytes. The logits are read once
-// (B*T*S1*V*itemsize: 1.31 GB f32 / 0.65 GB bf16 at B=32,T=200,S=50,V=1000,
-// ~0.39 / 0.20 ms at 3.35 TB/s); the four [B,T,S1] outputs add 0.3%. The
-// arithmetic (an exp per element) is far below the f32 rate.
+// Only the live lattice is read: the cells t < T'_b, s <= S_b. Every other
+// cell, which no caller reads, gets the fill of a row of probability zero
+// (denom 0, lp_blank = lp_label = alphas = -inf) without a read of its
+// logits. There this kernel departs from the Pallas one, which computes
+// the stats of every cell of the padded lattice.
+//
+// What bounds it on an H100: HBM bytes. The live logits are read once
+// (sum_b T'_b*(S_b+1)*V*itemsize; at full lengths B=32,T=200,S=50,V=1000
+// that is 1.31 GB f32 / 0.65 GB bf16, ~0.39 / 0.20 ms at 3.35 TB/s); the
+// four [B,T,S1] outputs add 0.3%. The arithmetic (an exp per element) is
+// far below the f32 rate.
 //
 // Design. On the TPU one sequential grid streamed V and advanced the DP, so
 // the DP hid behind the block DMAs. Here one launch of as many CTAs as are
@@ -18,7 +26,9 @@
 // global counters, which the wrapper zeroes with B*T ready flags in one
 // int32 scratch:
 //  * stats tiles (counter 1, tickets 0..B*T-1): one (b,t) lattice row block
-//    of S1 rows, in ascending t, t-major across samples. A warp a row,
+//    of S1 rows, in ascending t, t-major across samples. A tile with
+//    t >= T'_b writes the fill to its S1 slots; a live tile reduces its
+//    min(S_b+1, S1) live rows and writes the fill to the rest. A warp a row,
 //    reduced by common.cuh's walk_rows (the stats reduction that the split
 //    and banded routes' stats kernels share, so their stats are equal bit
 //    for bit): loads as wide as the rows' alignment allows (16 bytes a lane
@@ -33,7 +43,8 @@
 //    flags of the next `win` rows at once; the CTA reads the rows that are
 //    ready through L2 into shared memory in one go and advances over them
 //    with one __syncthreads a step, so the chain pays one global latency
-//    per window and trails the stats frontier.
+//    per window and trails the stats frontier. It waits on rows t < T'_b
+//    only, keeps its window to s <= S_b, and writes -inf rows from T'_b.
 //
 // Why it cannot deadlock, at any B and any occupancy, with no cooperative
 // launch: a chain whose next row is not ready checks the stats counter; if
@@ -55,6 +66,8 @@ struct StatsAlphaArgs {
   const int* labels;
   const int* a_lo;
   const int* a_hi;
+  const int* ilen;  // T'_b
+  const int* slen;  // S_b
   int batch, t_max, s1, v, blank, win;
   float* denom;
   float* lp_blank;
@@ -92,18 +105,34 @@ struct TileRows {
   }
 };
 
-// Stats of the S1 rows of lattice row (b, t) = ticket k, warp w taking rows
-// w, w + 8, ... (half-warps rows 2w + h, 2w + 16 + h, ... on short rows)
-// with common.cuh's walk_rows, then ready[b,t].
+// The live slots of lattice row (b, t): min(S_b + 1, S1), none where
+// t >= T'_b.
+__device__ __forceinline__ int live_slots(const StatsAlphaArgs& a, int b,
+                                          int t) {
+  if (t >= a.ilen[b]) return 0;
+  const int n = a.slen[b] + 1;
+  return n < 0 ? 0 : (n > a.s1 ? a.s1 : n);
+}
+
+// Stats of the live rows of lattice row (b, t) = ticket k, warp w taking
+// rows w, w + 8, ... (half-warps rows 2w + h, 2w + 16 + h, ... on short
+// rows) with common.cuh's walk_rows, the fill on the other slots, then
+// ready[b,t].
 template <typename T, int kBytes, int kG>
 __device__ void stats_tile(const StatsAlphaArgs& a, int k) {
   const int t = k / a.batch, b = k % a.batch;
   const long long row0 = (static_cast<long long>(b) * a.t_max + t) * a.s1;
+  const int live = live_slots(a, b, t);
   const T* logits = static_cast<const T*>(a.logits);
   TileRows<T> rows{{logits, a.v, a.blank}, &a, a.labels + b * a.s1, row0};
   // One round buffer: two spill under the kernel's 64 registers.
   walk_rows<T, kBytes, kG, false>(logits, a.v, row0, threadIdx.x / kWarp,
-                                  kWarps, row0 + a.s1, rows);
+                                  kWarps, row0 + live, rows);
+  for (int s = live + threadIdx.x; s < a.s1; s += kThreads) {
+    a.denom[row0 + s] = 0.f;
+    a.lp_blank[row0 + s] = MRNNT_NEG_INF;
+    a.lp_label[row0 + s] = MRNNT_NEG_INF;
+  }
   __syncthreads();
   if (threadIdx.x == 0)
     publish_flag(a.sync + static_cast<long long>(b) * a.t_max + t, 1);
@@ -115,6 +144,8 @@ __device__ void alpha_chain(const StatsAlphaArgs& a, int b, float* sh,
                             int* ctrl) {
   const int tid = threadIdx.x, s1 = a.s1, t_max = a.t_max, win = a.win;
   const int tiles = a.batch * t_max;
+  // Rows t < t_live are waited on and advanced; from there the rows are -inf.
+  const int t_live = max(0, min(a.ilen[b], t_max)), s_top = a.slen[b];
   const int* ready = a.sync + static_cast<long long>(b) * t_max;
   int* stats_counter = a.sync + tiles + 1;
   float* bufs[2] = {sh, sh + s1};
@@ -127,12 +158,12 @@ __device__ void alpha_chain(const StatsAlphaArgs& a, int b, float* sh,
     bufs[0][s] = s == 0 ? 0.f : MRNNT_NEG_INF;
 
   int cur = 0;
-  for (int t = 0; t < t_max;) {
+  for (int t = 0; t < t_live;) {
     if (tid < kWarp) {
       // Rows t.. that are ready, at most win; or a stats ticket to take.
       int r = t, help = -1;
       for (;;) {
-        const bool ok = tid < win && t + tid < t_max &&
+        const bool ok = tid < win && t + tid < t_live &&
                         load_acquire(ready + t + tid) != 0;
         const unsigned mask = __ballot_sync(0xffffffffu, ok);
         r = t + __ffs(~mask) - 1;  // win < 32, so ~mask has a set bit
@@ -163,7 +194,7 @@ __device__ void alpha_chain(const StatsAlphaArgs& a, int b, float* sh,
     }
     if (tid < rows) {
       w_lo[tid] = a.a_lo[b * t_max + t + tid];
-      w_hi[tid] = a.a_hi[b * t_max + t + tid];
+      w_hi[tid] = min(a.a_hi[b * t_max + t + tid], s_top);
     }
     __syncthreads();
     for (int j = 0; j < rows; ++j) {
@@ -187,6 +218,10 @@ __device__ void alpha_chain(const StatsAlphaArgs& a, int b, float* sh,
     }
     t = c;
   }
+  const long long end = static_cast<long long>(b + 1) * t_max * s1;
+  for (long long i = (static_cast<long long>(b) * t_max + t_live) * s1 + tid;
+       i < end; i += kThreads)
+    a.alphas[i] = MRNNT_NEG_INF;
 }
 
 // At most 64 registers a thread: four CTAs an SM.
@@ -232,10 +267,12 @@ int launch_stats_alpha(const StatsAlphaArgs& a, cudaStream_t stream) {
 // sync: B*T + 2 int32 zeros.
 extern "C" int mrnnt_stats_alpha(const void* logits, int is_bf16,
                                  const int* labels_ext, const int* a_lo,
-                                 const int* a_hi, int batch, int t_max, int s1,
-                                 int v, int blank, float* denom,
-                                 float* lp_blank, float* lp_label,
-                                 float* alphas, int* sync, void* stream) {
+                                 const int* a_hi, const int* input_lengths,
+                                 const int* label_lengths, int batch,
+                                 int t_max, int s1, int v, int blank,
+                                 float* denom, float* lp_blank,
+                                 float* lp_label, float* alphas, int* sync,
+                                 void* stream) {
   using namespace mrnnt;
   if (batch == 0 || t_max == 0 || s1 == 0) return 0;
   // Tickets are int: B*T, plus one overshoot a CTA, must fit.
@@ -244,8 +281,9 @@ extern "C" int mrnnt_stats_alpha(const void* logits, int is_bf16,
   // Rows a chain takes at once: up to 8, while the window stays ~16 KB.
   int win = 2048 / s1;
   win = win < 1 ? 1 : (win > 8 ? 8 : win);
-  const StatsAlphaArgs a{logits, labels_ext, a_lo, a_hi, batch, t_max, s1, v,
-                         blank, win, denom, lp_blank, lp_label, alphas, sync};
+  const StatsAlphaArgs a{logits, labels_ext, a_lo, a_hi, input_lengths,
+                         label_lengths, batch, t_max, s1, v, blank, win,
+                         denom, lp_blank, lp_label, alphas, sync};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_row_type(is_bf16, logits, v, [&](auto rt) {
     using R = decltype(rt);

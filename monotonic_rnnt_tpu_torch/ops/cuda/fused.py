@@ -5,7 +5,7 @@ pipeline (fused.py:140-285) makes two passes over the [B, T, S1, V] logits,
 the minimum HBM traffic of the algorithm:
 
   * forward, ``stats_alpha_fused``: one read gives the stats, the alphas
-    and the costs;
+    and the costs; it reads only the live lattice (t < T'_b, s <= S_b);
   * backward, ``beta_grad_fused``: one read and one write give the betas,
     the occupancy coefficients and the gradient, with the per-sample cost
     cotangent folded in (the deferred-gradient route).
@@ -25,10 +25,12 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...utils.config import get_config
 from ...utils.debug import emit_loss_debug, report_space
+from ...utils.profiling import ROWS
 from ..bands import Bands, default_bands, lattice_masks
 from ..helpers import NEG_INF, extend_labels, mask_to_additive
 from ..reference import _gather_ll, occupancy_coefficients
@@ -43,6 +45,21 @@ def deferred_grad_supported() -> bool:
     turns it off; a training step then takes the eager route.
     """
     return get_config().pipeline != "split"
+
+
+ROWS.update({"stats_alpha_fused.read": 0, "stats_alpha_fused.padded": 0})
+
+
+def count_live_rows(host_ilen: torch.Tensor, host_slen: torch.Tensor,
+                    t_max: int, s1: int) -> None:
+    """Adds one call of row 1 to ``ROWS``: the lattice rows it reads,
+    sum_b T'_b * (S_b + 1), and those of the padded lattice, B * T * S1.
+    The lengths are validated host copies (1 <= T'_b <= T, 0 <= S_b < S1),
+    so nothing here reads the device."""
+    ilen = host_ilen.numpy().astype(np.int64)
+    slen = host_slen.numpy().astype(np.int64)
+    ROWS["stats_alpha_fused.read"] += int(np.dot(ilen, slen + 1))
+    ROWS["stats_alpha_fused.padded"] += len(ilen) * t_max * s1
 
 
 def _lengths(input_lengths, label_lengths):
@@ -62,10 +79,11 @@ def _prologue(logits, labels, ilen, slen, bands):
 
 
 def _dp_fused_alpha_half(logits, labels_ext, ilen, slen, awin, blank_id):
-    """stats_alpha_fused + the ll gather (the one-read forward). Returns
+    """stats_alpha_fused + the ll gather (the one-read forward, of the live
+    lattice t < T'_b, s <= S_b only). Returns
     (costs, (denom, lp_blank, lp_label, alphas, ll_fwd))."""
     denom, lp_blank, lp_label, alphas = stats_alpha_fused(
-        logits, labels_ext, *awin, blank_id)
+        logits, labels_ext, *awin, ilen, slen, blank_id)
     ll_fwd, costs = loss_costs(alphas, ilen, slen)
     return costs, (denom, lp_blank, lp_label, alphas, ll_fwd)
 

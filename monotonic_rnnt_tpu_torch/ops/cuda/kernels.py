@@ -4,7 +4,7 @@ Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:505-776, 1304-1360``:
 
 * ``stats_alpha_fused`` (TPU kernel at kernels.py:586) launches
   ``mrnnt_stats_alpha_kernel`` (csrc/stats_alpha.cu), one persistent launch
-  whose alpha chains trail its stats tiles;
+  whose alpha chains trail its stats tiles, over the live lattice only;
 * ``beta_grad_fused`` (TPU kernel at kernels.py:712) launches
   ``mrnnt_beta_grad_kernel`` (csrc/beta_grad.cu), one persistent launch
   whose beta chains run ahead of its gradient tiles;
@@ -98,7 +98,7 @@ def kernel_or_plain(kernel, plain, x: torch.Tensor):
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> (library, argtypes); see csrc/*.cu for the parameters.
 _ENTRIES = {
-    "mrnnt_stats_alpha": ("stats_alpha", [_P, _I] + [_P] * 3 + [_I] * 5
+    "mrnnt_stats_alpha": ("stats_alpha", [_P, _I] + [_P] * 5 + [_I] * 5
                           + [_P] * 6),
     "mrnnt_beta_grad": ("beta_grad", [_P, _I] + [_P] * 9 + [_I] * 5
                         + [_P] * 5),
@@ -239,14 +239,16 @@ def _small(shape, device) -> torch.Tensor:
 
 # --- single-kernel launchers (no checks: the wrappers check) -----------------
 
-def launch_stats_alpha(logits, labels_ext, a_lo, a_hi, blank_id, out, sync):
+def launch_stats_alpha(logits, labels_ext, a_lo, a_hi, input_lengths,
+                       label_lengths, blank_id, out, sync):
     """mrnnt_stats_alpha_kernel: out [4, B, T, S1] f32 gets denom, lp_blank,
     lp_label and alphas; sync: B*T + 2 int32 zeros (ready flags, tickets)."""
     batch, t_max, s1, v = logits.shape
     _call("mrnnt_stats_alpha", logits.device, _ptr(logits),
           int(logits.dtype == torch.bfloat16), _ptr(labels_ext), _ptr(a_lo),
-          _ptr(a_hi), batch, t_max, s1, v, blank_id, _ptr(out[0]),
-          _ptr(out[1]), _ptr(out[2]), _ptr(out[3]), _ptr(sync))
+          _ptr(a_hi), _ptr(input_lengths), _ptr(label_lengths), batch, t_max,
+          s1, v, blank_id, _ptr(out[0]), _ptr(out[1]), _ptr(out[2]),
+          _ptr(out[3]), _ptr(sync))
 
 
 def launch_beta_grad(logits, denom, lpb_bmask, lpl_bmask, aprev_masked,
@@ -279,17 +281,32 @@ def launch_grad(logits, denom, occ, cb, cl, labels_ext, blank_id, grads):
 
 # --- stats + alpha -------------------------------------------------------------
 
-def stats_alpha_fused_plain(logits, labels_ext, a_lo, a_hi, blank_id: int):
-    """Plain-torch stats_alpha_fused: the same arguments and outputs."""
+def live_cells(input_lengths, label_lengths, t_max: int, s1: int):
+    """[B, T, S1] bool: the live lattice cells t < T'_b, s <= S_b, the only
+    ones whose logits row 1 reads."""
+    dev = input_lengths.device
+    t_idx = torch.arange(t_max, dtype=torch.int32, device=dev)
+    s_idx = torch.arange(s1, dtype=torch.int32, device=dev)
+    return ((t_idx[None, :, None] < input_lengths[:, None, None])
+            & (s_idx[None, None, :] <= label_lengths[:, None, None]))
+
+
+def stats_alpha_fused_plain(logits, labels_ext, a_lo, a_hi, input_lengths,
+                            label_lengths, blank_id: int):
+    """Plain-torch stats_alpha_fused: the same arguments and outputs, the
+    fill on the same cells."""
     x = logits.float()
     batch, t_max, s1, _ = x.shape
+    live = live_cells(input_lengths, label_lengths, t_max, s1)
     denom = -torch.logsumexp(x, dim=-1)
-    lp_blank = x[..., blank_id] + denom
+    lp_blank = torch.where(live, x[..., blank_id] + denom, NEG_INF)
     picked = select_label_logits(x, labels_ext[:, None, :])
-    lp_label = torch.where(labels_ext[:, None, :] >= 0, picked + denom, NEG_INF)
+    lp_label = torch.where(live & (labels_ext[:, None, :] >= 0),
+                           picked + denom, NEG_INF)
+    denom = torch.where(live, denom, 0.0)
 
     s_idx = torch.arange(s1, dtype=torch.int32, device=x.device)
-    win = (s_idx >= a_lo[..., None]) & (s_idx <= a_hi[..., None])
+    win = (s_idx >= a_lo[..., None]) & (s_idx <= a_hi[..., None]) & live
     prev = torch.where(s_idx == 0, 0.0, NEG_INF).expand(batch, s1)
     alphas = torch.empty_like(denom)
     for t in range(t_max):
@@ -300,7 +317,8 @@ def stats_alpha_fused_plain(logits, labels_ext, a_lo, a_hi, blank_id: int):
     return denom, lp_blank, lp_label, alphas
 
 
-def stats_alpha_cuda(logits, labels_ext, a_lo, a_hi, blank_id: int):
+def stats_alpha_cuda(logits, labels_ext, a_lo, a_hi, input_lengths,
+                     label_lengths, blank_id: int):
     """The launch of mrnnt_stats_alpha_kernel behind the op's CUDA
     implementation: checks, allocation, launch, count. Returns the stacked
     [4, B, T, S1] f32 outputs."""
@@ -309,36 +327,48 @@ def stats_alpha_cuda(logits, labels_ext, a_lo, a_hi, blank_id: int):
     _check(labels_ext, "labels_ext", torch.int32, (batch, s1), dev)
     _check(a_lo, "a_lo", torch.int32, (batch, t_max), dev)
     _check(a_hi, "a_hi", torch.int32, (batch, t_max), dev)
+    _check(input_lengths, "input_lengths", torch.int32, (batch,), dev)
+    _check(label_lengths, "label_lengths", torch.int32, (batch,), dev)
     out = _small((4, batch, t_max, s1), dev)
     sync = torch.zeros(batch * t_max + 2, dtype=torch.int32, device=dev)
-    launch_stats_alpha(logits, labels_ext, a_lo, a_hi, blank_id, out, sync)
+    launch_stats_alpha(logits, labels_ext, a_lo, a_hi, input_lengths,
+                       label_lengths, blank_id, out, sync)
     LAUNCHES["stats_alpha_fused"] += 1
     return out
 
 
 define_op("stats_alpha_fused",
           "(Tensor logits, Tensor labels_ext, Tensor a_lo, Tensor a_hi, "
-          "SymInt blank_id) -> Tensor",
+          "Tensor input_lengths, Tensor label_lengths, SymInt blank_id) -> "
+          "Tensor",
           _stacked(stats_alpha_fused_plain), stats_alpha_cuda,
           lambda logits, *_: logits.new_empty((4, *logits.shape[:3]),
                                               dtype=torch.float32))
 
 
-def stats_alpha_fused(logits, labels_ext, a_lo, a_hi, blank_id: int):
-    """One read of the logits: log-softmax stats and the alpha recurrence.
+def stats_alpha_fused(logits, labels_ext, a_lo, a_hi, input_lengths,
+                      label_lengths, blank_id: int):
+    """One read of the live logits: log-softmax stats and the alpha
+    recurrence.
 
     logits [B, T, S1, V] f32 or bf16; labels_ext [B, S1] int32 (-1 on
     invalid slots); a_lo / a_hi [B, T] int32 inclusive alpha windows,
-    already conjoined with t < T_b (hi < lo on invalid rows).
+    already conjoined with t < T_b (hi < lo on invalid rows);
+    input_lengths T'_b and label_lengths S_b [B] int32.
     Returns (denom, lp_blank, lp_label, alphas), each [B, T, S1] f32;
-    lp_label is -inf where the label slot is invalid.
+    lp_label is -inf where the label slot is invalid. Only the live cells
+    (t < T'_b, s <= S_b, ``live_cells``) are read; every other cell holds
+    the fill of a row of probability zero: denom 0, lp_blank, lp_label
+    and alphas -inf. The Pallas kernel computes the stats of those cells
+    too; no caller reads them, and costs and gradients are the same.
 
     Goes through the operator ``torch.ops.mrnnt.stats_alpha_fused``, which
     returns one stacked tensor; the four views are taken here.
     """
     _check_device(logits)
     return tuple(torch.ops.mrnnt.stats_alpha_fused(
-        logits, labels_ext, a_lo, a_hi, blank_id).unbind(0))
+        logits, labels_ext, a_lo, a_hi, input_lengths, label_lengths,
+        blank_id).unbind(0))
 
 
 # --- beta + grad ---------------------------------------------------------------

@@ -31,8 +31,8 @@ from ..utils.config import get_config
 from ..utils.profiling import phase_timer, span, spanned
 from ..utils.status import tracing, validate_loss_inputs
 from .bands import Bands, bands_from_alignment, default_bands
-from .cuda.fused import (deferred_grad_supported, rnnt_loss_cuda,
-                         rnnt_loss_cuda_deferred_bwd,
+from .cuda.fused import (count_live_rows, deferred_grad_supported,
+                         rnnt_loss_cuda, rnnt_loss_cuda_deferred_bwd,
                          rnnt_loss_cuda_deferred_fwd)
 from .reference import rnnt_loss_reference
 
@@ -132,7 +132,8 @@ def monotonic_rnnt_loss(
       [B] float32 costs (negative log-likelihoods), differentiable w.r.t.
       logits; the gradient comes in the logits' dtype.
     """
-    validate_loss_inputs(logits, labels, input_lengths, label_lengths)
+    host_lengths = validate_loss_inputs(logits, labels, input_lengths,
+                                        label_lengths)
     dev = logits.device
     labels = labels.to(dev)
     input_lengths = input_lengths.to(device=dev, dtype=torch.int32)
@@ -148,8 +149,13 @@ def monotonic_rnnt_loss(
                     max_distance_from_alignment, blank_id)
             else:
                 bands = default_bands(input_lengths, label_lengths, t_max)
+    route = _resolve_backend(backend, logits)
+    if (host_lengths is not None and route == "cuda"
+            and deferred_grad_supported()):
+        # This call runs row 1 once (deferred or not).
+        count_live_rows(*host_lengths, t_max, logits.shape[2])
     return loss_on_route(logits, labels, input_lengths, label_lengths, bands,
-                         blank_id, _resolve_backend(backend, logits))
+                         blank_id, route)
 
 
 def loss_on_route(logits, labels, input_lengths, label_lengths, bands: Bands,

@@ -32,9 +32,14 @@ function call. The port's spans, all named ``mrnnt.<...>``:
 
 Counters. Plain integers, always on: ``LAUNCHES[row]``, one per kernel
 launch by kernel-table row (each row's CUDA implementation adds one when
-it has launched; ``ops/cuda/kernels.py`` names the rows), and
-``syncs[site]``, one per host read of device data. ``counters()`` returns
-a copy of both, ``reset_counters()`` zeroes them.
+it has launched; ``ops/cuda/kernels.py`` names the rows),
+``syncs[site]``, one per host read of device data, and ``ROWS[name]``,
+lattice rows (a row: one cell's V logits) by what a kernel did with them:
+``stats_alpha_fused.read``, the live rows row 1 reads, and
+``stats_alpha_fused.padded``, the rows of the padded lattice it was given,
+counted by the padded loss from the host copy of the lengths that its
+validation makes (none where it makes none). ``counters()`` returns a
+copy of them, ``reset_counters()`` zeroes them.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from torch.autograd import profiler as _autograd_profiler
 _NULL = nullcontext()
 LAUNCHES: Dict[str, int] = {}
 _SYNCS: Dict[str, int] = {}
+ROWS: Dict[str, int] = {}
 
 
 def tracing() -> bool:
@@ -95,14 +101,21 @@ def to_host(t: torch.Tensor, site: str) -> torch.Tensor:
 
 def counters() -> Dict[str, Dict[str, int]]:
     """A copy of the counters that are not zero: {"launches": {row: n},
-    "syncs": {site: n}}."""
-    return {"launches": {k: n for k, n in LAUNCHES.items() if n},
-            "syncs": dict(_SYNCS)}
+    "syncs": {site: n}}, and "rows": {name: n} once a kernel has counted
+    rows (so a process that runs no row 1 reads the same two kinds)."""
+    out = {"launches": {k: n for k, n in LAUNCHES.items() if n},
+           "syncs": dict(_SYNCS)}
+    rows = {k: n for k, n in ROWS.items() if n}
+    if rows:
+        out["rows"] = rows
+    return out
 
 
 def reset_counters() -> None:
     for row in LAUNCHES:
         LAUNCHES[row] = 0
+    for name in ROWS:
+        ROWS[name] = 0
     _SYNCS.clear()
 
 

@@ -8,6 +8,7 @@ messages, on torch tensors.
 from __future__ import annotations
 
 import enum
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,13 +42,15 @@ def _is_integer(dtype: torch.dtype) -> bool:
 
 
 @spanned("mrnnt.validate")
-def validate_loss_inputs(logits, labels, input_lengths, label_lengths) -> None:
+def validate_loss_inputs(logits, labels, input_lengths, label_lengths
+                         ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """Eager shape/dtype/length validation of the padded-layout API.
 
     Enforces the reference's constraints (cpu_workspace_manager.h:99-115):
     B > 0, T_b > 0, S_b >= 0 and T_b >= S_b. Under torch.export and
     torch.compile only the shape and dtype checks run: the length values
-    are data.
+    are data. Returns the host copies of the lengths the value checks
+    read, None where they did not run.
     """
     if logits.dim() != 4:
         raise RnntError(Status.INVALID_VALUE,
@@ -81,7 +84,7 @@ def validate_loss_inputs(logits, labels, input_lengths, label_lengths) -> None:
     # graph that torch.export or torch.compile traces holds no such check,
     # as JAX holds none on traced lengths (status.py:65-70).
     if tracing():
-        return
+        return None
     ilen = to_host(input_lengths.detach(), "validate.input_lengths")
     slen = to_host(label_lengths.detach(), "validate.label_lengths")
     if bool((ilen <= 0).any()):
@@ -97,3 +100,4 @@ def validate_loss_inputs(logits, labels, input_lengths, label_lengths) -> None:
     if bool((slen > s1 - 1).any()):
         raise RnntError(Status.INVALID_VALUE,
                         f"label_lengths exceed padded S_max={s1 - 1}")
+    return ilen, slen

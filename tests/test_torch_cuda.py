@@ -62,7 +62,7 @@ def _plain_operands(lg, lb, il, sl, bands, blank):
     il, sl = il.to(torch.int32), sl.to(torch.int32)
     lab, a_lo, a_hi, b_lo, b_hi = K.loss_prologue_plain(
         lb, il, sl, bands.min_s, bands.max_s, t, s1)
-    sa_args = (lg, lab, a_lo, a_hi, blank)
+    sa_args = (lg, lab, a_lo, a_hi, il, sl, blank)
     denom, lpb, lpl, alphas = K.stats_alpha_fused_plain(*sa_args)
     ll, _ = K.loss_costs_plain(alphas, il, sl)
     lpbb, lplb, aprev, llb, bvirt = K.beta_operands_plain(
@@ -104,6 +104,11 @@ def _hold_stats_alpha(sa_args, valid=None):
     want = K.stats_alpha_fused_plain(*sa_args)
     torch.cuda.synchronize()
     assert K.LAUNCHES["stats_alpha_fused"] == before + 1
+    # Past the live lattice (t >= T'_b or s > S_b) both write the fill,
+    # bit for bit.
+    dead = ~K.live_cells(*sa_args[4:6], *sa_args[0].shape[1:3])
+    for g, w in zip(got, want):
+        assert torch.equal(g[dead].view(torch.int32), w[dead].view(torch.int32))
     # The kernel sums V in another order than torch.logsumexp; the alphas
     # carry that rounding through T log-space steps.
     for g, w in zip(got[:3], want[:3]):
@@ -266,13 +271,16 @@ def test_readme_golden_on_gpu(device):
 
 def test_wrappers_check_their_operands(device):
     sa_args, bg_args = _inputs(device, *SHAPES[0], torch.float32)
-    lg, lab, a_lo, a_hi, blank = sa_args
+    lg, lab, a_lo, a_hi, il, sl, blank = sa_args
     with pytest.raises(ValueError, match="labels_ext must be torch.int32"):
-        K.stats_alpha_fused(lg, lab.long(), a_lo, a_hi, blank)
+        K.stats_alpha_fused(lg, lab.long(), a_lo, a_hi, il, sl, blank)
+    with pytest.raises(ValueError, match="input_lengths must be torch.int32"):
+        K.stats_alpha_fused(lg, lab, a_lo, a_hi, il.long(), sl, blank)
     with pytest.raises(ValueError, match="blank_id must be in"):
-        K.stats_alpha_fused(lg, lab, a_lo, a_hi, lg.shape[3])
+        K.stats_alpha_fused(lg, lab, a_lo, a_hi, il, sl, lg.shape[3])
     with pytest.raises(ValueError, match="contiguous"):
-        K.stats_alpha_fused(lg.transpose(1, 2), lab, a_lo, a_hi, blank)
+        K.stats_alpha_fused(lg.transpose(1, 2), lab, a_lo, a_hi, il, sl,
+                            blank)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         K.beta_grad_fused(lg.half(), *bg_args[1:])
     with pytest.raises(ValueError, match="must be on"):
@@ -404,7 +412,8 @@ def test_glue_kernels_equal_their_plain_versions(device, case):
     pro = K.loss_prologue_plain(*args)
     for g, w in zip(K.loss_prologue(*args), pro):
         _same_bits(g, w)
-    _, lpb, lpl, alphas = K.stats_alpha_fused_plain(lg, *pro[:3], case[6])
+    _, lpb, lpl, alphas = K.stats_alpha_fused_plain(lg, *pro[:3], il, sl,
+                                                    case[6])
     ll, costs = K.loss_costs_plain(alphas, il, sl)
     for g, w in zip(K.loss_costs(alphas, il, sl), (ll, costs)):
         _same_bits(g, w)
@@ -955,7 +964,10 @@ def test_stats_kernels_agree_bit_for_bit(device, v, dtype, offset):
     lab[lab >= v] = 0
     zeros = torch.zeros((batch, t_max), dtype=torch.int32, device=device)
     full = torch.full_like(zeros, s1)
-    sa = K.stats_alpha_fused(lg, lab, zeros, full - 1, blank)
+    # Full lengths: every cell is live, as the other two kernels read all.
+    t_b = torch.full((batch,), t_max, dtype=torch.int32, device=device)
+    sa = K.stats_alpha_fused(lg, lab, zeros, full - 1, t_b,
+                             torch.full_like(t_b, s1 - 1), blank)
     sp = SK.softmax_stats(lg, lab, blank)
     lab3 = lab[:, None, :].expand(-1, t_max, -1).contiguous()
     bd = BK.softmax_stats_banded(lg, lab3, (zeros, full, zeros, full - 1),

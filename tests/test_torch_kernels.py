@@ -8,12 +8,14 @@ against the plain versions on a GPU.
 
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import golden
+import monotonic_rnnt_tpu as jmr
 from glue_lattices import GLUE_LATTICES, glue_case
 from monotonic_rnnt_tpu.ops import bands as jbands
 from monotonic_rnnt_tpu.ops import helpers as jhelpers
@@ -22,7 +24,7 @@ from monotonic_rnnt_tpu_torch import config_override, convert
 from monotonic_rnnt_tpu_torch import monotonic_rnnt_loss as mt_loss
 from monotonic_rnnt_tpu_torch.ops import bands as tbands
 from monotonic_rnnt_tpu_torch.ops import loss as tloss
-from monotonic_rnnt_tpu_torch.ops.cuda import _build
+from monotonic_rnnt_tpu_torch.ops.cuda import _build, fused
 from monotonic_rnnt_tpu_torch.ops.cuda import kernels as tk
 
 # (seed, B, T, S, V, blank[, (T_b...), (S_b...)]): V not a multiple of 128,
@@ -71,19 +73,132 @@ def _windows(j_in, t_in):
     return j_args, t_args
 
 
+ROW1_OUTPUTS = ("denom", "lp_blank", "lp_label", "alphas")
+# Row 1's fill on the cells past the live lattice: a row of probability 0.
+ROW1_FILL = (0.0, float("-inf"), float("-inf"), float("-inf"))
+
+
+def _hold_row1_contract(got, want, live):
+    """Row 1's outputs `got` against the Pallas kernel's `want` on the live
+    cells (t < T'_b, s <= S_b; torch.logsumexp sums in another order than
+    JAX, an ulp apart), and exactly the fill on every other cell."""
+    for name, g, w, fill in zip(ROW1_OUTPUTS, got, want, ROW1_FILL):
+        assert g.dtype == torch.float32, name
+        np.testing.assert_allclose(g[live].numpy(), np.asarray(w)[live.numpy()],
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+        dead = g[~live]          # the fill's bits: +0.0, never -0.0
+        assert torch.equal(dead.view(torch.int32),
+                           torch.full_like(dead, fill).view(torch.int32)), name
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
 def test_stats_alpha_plain_matches_pallas(shape, dtype):
     blank = shape[5]
     t_in, j_in = _inputs(*shape, dtype=dtype)
     j_args, t_args = _windows(j_in, t_in)
+    ilen, slen = (x.to(torch.int32) for x in t_in[2:])
     want = jk.stats_alpha_fused(*j_args, blank, interpret=True)
-    got = tk.stats_alpha_fused_plain(*t_args, blank)
-    for name, g, w in zip(("denom", "lp_blank", "lp_label", "alphas"), got,
-                          want):
-        assert g.dtype == torch.float32, name
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
-                                   atol=1e-6, err_msg=name)
+    got = tk.stats_alpha_fused_plain(*t_args, ilen, slen, blank)
+    _hold_row1_contract(got, want, tk.live_cells(ilen, slen,
+                                                 *t_in[0].shape[1:3]))
+
+
+# Row 1's live-lattice contract is held on GLUE_LATTICES' first eight (S_b
+# = 0, T_b = 1, T_b = T_max, alignment bands narrower than the default,
+# +-inf padding, lengths past the shape) and on "infeasible": the default
+# lattice with sample 2's band cut below S_b, so its cost is +inf.
+ROW1_LATTICES = [*GLUE_LATTICES[:8], ("infeasible", *GLUE_LATTICES[0][1:])]
+
+
+def _row1_case(case, dtype):
+    """_glue_case's arrays as torch tensors in `dtype` (logits with the
+    case's padding, the JAX side's finite-padding logits) and each
+    package's bands, sample 2's cut below S_b where the case is
+    "infeasible"."""
+    logits, clean, labels, ilen, slen, tb, jb = _glue_case(case)
+    if case[0] == "infeasible":
+        tb = tbands.Bands(tb.min_s, tb.max_s.clone())
+        tb.max_s[2] = int(slen[2]) - 1
+        jb = jbands.Bands(jb.min_s, jb.max_s.at[2].set(int(slen[2]) - 1))
+    tdt, jdt = DTYPES[dtype]
+    x, lab, il, sl = (torch.from_numpy(a) for a in (logits, labels, ilen,
+                                                     slen))
+    return (x.to(tdt), lab, il, sl, tb, jnp.asarray(clean).astype(jdt),
+            labels, ilen, slen, jb)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ROW1_LATTICES, ids=lambda c: c[0])
+def test_stats_alpha_plain_reads_only_the_live_lattice(case, dtype):
+    """The plain twin (the operator's CPU implementation) against the
+    Pallas kernel on ragged lattices: the live cells at the tolerance of
+    the shapes above, the fill elsewhere. The live cells equal bit for bit
+    what the twin gives with every cell live: the fill moves no value that
+    a caller reads."""
+    x, lab, il, sl, tb, jx, *_ = _row1_case(case, dtype)
+    blank, (_, t_max, s1, _) = case[6], x.shape
+    lab_ext, a_lo, a_hi, _, _ = tk.loss_prologue(lab, il, sl, tb.min_s,
+                                                 tb.max_s, t_max, s1)
+    got = tk.stats_alpha_fused(x, lab_ext, a_lo, a_hi, il, sl, blank)
+    want = jk.stats_alpha_fused(
+        jx, *(jnp.asarray(a.numpy()) for a in (lab_ext, a_lo, a_hi)), blank,
+        interpret=True)
+    live = tk.live_cells(il, sl, t_max, s1)
+    _hold_row1_contract(got, want, live)
+    every = tk.stats_alpha_fused_plain(
+        x, lab_ext, a_lo, a_hi, torch.full_like(il, t_max),
+        torch.full_like(sl, s1 - 1), blank)
+    for name, g, w in zip(ROW1_OUTPUTS, got, every):
+        assert torch.equal(g[live], w[live]), name
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", [c for c in ROW1_LATTICES
+                                  if c[0] != "past-shape"],
+                         ids=lambda c: c[0])
+def test_padded_loss_on_the_live_lattice_matches_the_oracle(monkeypatch, case,
+                                                            dtype):
+    """monotonic_rnnt_loss through the operators' CPU implementations (the
+    deferred route of rows 1-2) on ragged lattices: costs and gradients
+    equal the JAX oracle's at the loss tests' tolerances, and equal bit for
+    bit those of the same route with row 1 reading every cell."""
+    x, lab, il, sl, tb, jx, labels, ilen, slen, jb = _row1_case(case, dtype)
+    blank = case[6]
+    w = torch.linspace(-0.5, 2.0, x.shape[0])
+
+    def port():
+        xg = x.clone().requires_grad_(True)
+        costs = tloss.loss_on_route(xg, lab, il, sl, tb, blank, "cuda")
+        grads, = torch.autograd.grad((costs * w).sum(), xg)
+        return costs.detach(), grads
+
+    def oracle(lg):
+        return jnp.sum(jnp.asarray(w.numpy()) * jmr.monotonic_rnnt_loss(
+            lg, jnp.asarray(labels), jnp.asarray(ilen), jnp.asarray(slen),
+            blank_id=blank, bands=jb, backend="reference"))
+
+    costs, grads = port()
+    want_costs = jmr.monotonic_rnnt_loss(
+        jx, jnp.asarray(labels), jnp.asarray(ilen), jnp.asarray(slen),
+        blank_id=blank, bands=jb, backend="reference")
+    want_grads = jax.grad(oracle)(jx)
+    np.testing.assert_allclose(costs.numpy(), np.asarray(want_costs),
+                               rtol=1e-5)
+    rtol = 8e-3 if dtype == "bf16" else 1e-4
+    np.testing.assert_allclose(grads.float().numpy(),
+                               np.asarray(want_grads.astype(jnp.float32)),
+                               rtol=rtol, atol=1e-6)
+    assert bool(torch.isinf(costs).any()) == (case[0] == "infeasible")
+
+    t_max, s1 = x.shape[1], x.shape[2]
+    monkeypatch.setattr(
+        fused, "stats_alpha_fused",
+        lambda lg, lab_ext, a_lo, a_hi, i, s, b: tk.stats_alpha_fused(
+            lg, lab_ext, a_lo, a_hi, torch.full_like(i, t_max),
+            torch.full_like(s, s1 - 1), b))
+    for got, want in zip((costs, grads), port()):
+        assert torch.equal(got, want)
 
 
 def _plain_glue(t_in, blank):
@@ -95,7 +210,7 @@ def _plain_glue(t_in, blank):
     ilen, slen = ti.to(torch.int32), ts.to(torch.int32)
     lab, a_lo, a_hi, b_lo, b_hi = tk.loss_prologue_plain(
         tlab, ilen, slen, *tbands.default_bands(ilen, slen, t_max), t_max, s1)
-    row1 = tk.stats_alpha_fused_plain(tl, lab, a_lo, a_hi, blank)
+    row1 = tk.stats_alpha_fused_plain(tl, lab, a_lo, a_hi, ilen, slen, blank)
     ll, _ = tk.loss_costs_plain(row1[3], ilen, slen)
     ops = tk.beta_operands_plain(row1[1], row1[2], row1[3], ll, ilen, slen,
                                  b_lo, b_hi)
@@ -165,8 +280,9 @@ def test_wrappers_raise_off_the_cpu_without_cuda():
     logits = torch.empty((2, 3, 4, 5), device="meta")
     lab = torch.empty((2, 4), dtype=torch.int32, device="meta")
     bound = torch.empty((2, 3), dtype=torch.int32, device="meta")
+    lens = torch.empty((2,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tk.stats_alpha_fused(logits, lab, bound, bound, 0)
+        tk.stats_alpha_fused(logits, lab, bound, bound, lens, lens, 0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tk.beta_grad_fused(logits, *([None] * 8), 0)
 
@@ -200,7 +316,8 @@ def _op_args(shape, dtype, scaled):
     lab, a_lo, a_hi, _, _ = _plain_glue(t_in, shape[5])
     ops = _beta_operands(t_in, shape[5])
     scale = torch.linspace(-0.5, 2.0, shape[1]) if scaled else None
-    return ((t_in[0], lab, a_lo, a_hi, shape[5]),
+    ilen, slen = (x.to(torch.int32) for x in t_in[2:])
+    return ((t_in[0], lab, a_lo, a_hi, ilen, slen, shape[5]),
             (*ops, shape[5], scale))
 
 
@@ -330,7 +447,7 @@ def test_glue_operators_match_jax_fused_glue(monkeypatch, case):
         lab, il, sl, tb.min_s, tb.max_s, t_max, s1)
     for got, want in zip((lab_ext, a_lo, a_hi), j_sa[1:4]):
         np.testing.assert_array_equal(got.numpy(), want)
-    row1 = tk.stats_alpha_fused(x, lab_ext, a_lo, a_hi, blank)
+    row1 = tk.stats_alpha_fused(x, lab_ext, a_lo, a_hi, il, sl, blank)
     ll, costs = tk.loss_costs(row1[3], il, sl)
     torch.testing.assert_close(costs, -ll, rtol=0, atol=0, equal_nan=True)
     np.testing.assert_allclose(costs.numpy(), j_costs, rtol=1e-5)

@@ -243,7 +243,8 @@ GLUE = ("loss_prologue", "loss_costs", "beta_operands")
 def test_every_row_is_an_operator_on_the_routes():
     """The eleven rows and the three glue operators are registered, each
     with its CUDA implementation named <row>_cuda; the routes above call
-    each of them, rows 1-2 under their PR-15 schemas."""
+    each of them, rows 1-2 under their schemas (row 1 takes the lengths
+    whose live lattice it reads)."""
     assert sorted(tk.OPS) == sorted([*ROW_DTYPES, *GLUE])
     for name, (_, module, attr) in tk.OPS.items():
         assert callable(getattr(module, attr)) and attr.endswith("_cuda")
@@ -251,7 +252,8 @@ def test_every_row_is_an_operator_on_the_routes():
     assert seen == {*ROW_DTYPES, *GLUE}
     assert str(torch.ops.mrnnt.stats_alpha_fused.default._schema) == (
         "mrnnt::stats_alpha_fused(Tensor logits, Tensor labels_ext, "
-        "Tensor a_lo, Tensor a_hi, SymInt blank_id) -> Tensor")
+        "Tensor a_lo, Tensor a_hi, Tensor input_lengths, "
+        "Tensor label_lengths, SymInt blank_id) -> Tensor")
     assert str(torch.ops.mrnnt.beta_grad_fused.default._schema) == (
         "mrnnt::beta_grad_fused(Tensor logits, Tensor denom, "
         "Tensor lpb_bmask, Tensor lpl_bmask, Tensor aprev_masked, "

@@ -173,13 +173,49 @@ def test_counters_copy_and_reset():
     host = torch.arange(3)
     assert tprof.to_host(host, "unit.host") is host     # no copy, no sync
     tk.LAUNCHES["grad_pass"] += 2
+    tprof.ROWS["stats_alpha_fused.read"] += 7
     seen = tprof.counters()
-    assert seen == {"launches": {"grad_pass": 2}, "syncs": {"unit.site": 3}}
+    assert seen == {"launches": {"grad_pass": 2}, "syncs": {"unit.site": 3},
+                    "rows": {"stats_alpha_fused.read": 7}}
     seen["syncs"]["unit.site"] = 99                      # a copy
+    seen["rows"]["stats_alpha_fused.read"] = 99
     assert tprof.counters()["syncs"]["unit.site"] == 3
+    assert tprof.counters()["rows"]["stats_alpha_fused.read"] == 7
     tprof.reset_counters()
     assert tprof.counters() == {"launches": {}, "syncs": {}}
     assert tk.LAUNCHES["grad_pass"] == 0                 # the rows stay
+    assert tprof.ROWS["stats_alpha_fused.padded"] == 0
+
+
+@pytest.mark.parametrize("route, pipeline, traced, counted", [
+    ("cuda", "auto", False, True), ("cuda", "split", False, False),
+    ("reference", "auto", False, False), ("cuda", "auto", True, False)],
+    ids=["deferred", "split", "reference", "traced"])
+def test_rows_counter_counts_row_1s_live_lattice(monkeypatch, route, pipeline,
+                                                 traced, counted):
+    """A padded loss call on the route that runs row 1 adds the lattice rows
+    row 1 reads, sum_b T'_b (S_b + 1), and those of the padded lattice,
+    B T S1, to counters()["rows"], from validation's host copy of the
+    lengths: no sync of its own. No other route counts, nor a call whose
+    validation made no host copy (a traced graph's). The 'cuda' route on
+    CPU tensors runs the operators' CPU implementations."""
+    from monotonic_rnnt_tpu_torch.utils import status
+
+    x, labels, il, sl = _loss_case()          # [2, 6, 5, 5]: T' 6, 5; S 4, 2
+    monkeypatch.setattr(tloss, "_resolve_backend", lambda b, x: route)
+    monkeypatch.setattr(status, "tracing", lambda: traced)
+    tprof.reset_counters()
+    with mt.config_override(pipeline=pipeline):
+        xg = x.clone().requires_grad_(True)
+        mt.monotonic_rnnt_loss(xg, labels, il, sl).sum().backward()
+        with torch.no_grad():
+            mt.monotonic_rnnt_loss(x, labels, il, sl)
+    seen = tprof.counters()
+    assert seen.get("rows") == ({"stats_alpha_fused.read": 2 * (6 * 5 + 5 * 3),
+                                 "stats_alpha_fused.padded": 2 * 2 * 6 * 5}
+                                if counted else None)
+    assert seen["syncs"] == {}
+    assert seen["launches"] == {}             # the CPU implementations
 
 
 def test_sync_span_names_its_site():
@@ -231,7 +267,8 @@ def test_glue_operators_launch_once_in_their_spans(monkeypatch, op, entry):
     bands = mt.default_bands(il, sl, t_max)
     lab, a_lo, a_hi, b_lo, b_hi = tk.loss_prologue_plain(
         labels, il, sl, *bands, t_max, s1)
-    _, lpb, lpl, alphas = tk.stats_alpha_fused_plain(x, lab, a_lo, a_hi, 0)
+    _, lpb, lpl, alphas = tk.stats_alpha_fused_plain(x, lab, a_lo, a_hi, il,
+                                                     sl, 0)
     ll, _ = tk.loss_costs_plain(alphas, il, sl)
     args = {"loss_prologue": (labels, il, sl, *bands, t_max, s1),
             "loss_costs": (alphas, il, sl),
