@@ -61,20 +61,16 @@ once more with the second
 sample at T_b = T/2 (its beta chain then reads the virtual row on half its
 steps), held against its plain version there too.
 
-The split phase holds the split pipeline's four kernels (softmax_stats,
-fwdbwd_scan, alpha_scan, beta_scan) against their plain versions at
-S1 = 1, 51 and 1101, at the scans' register-chain edges (S1 = 31-33, 64,
-65, 96, 97, 128, 129, 256, 257: warp counts and the cut), and at the benchmark
-lattice in float32 and bfloat16,
-drives ``monotonic_rnnt_loss`` under ``pipeline='split'`` (a weighted
-training step, then a cost-only call, launch counts read after each part)
-against the deferred route and the oracle, holds each kernel call that path
-made against its plain version on the path's own operands, checks the
-goldens through it, and, on the banded case's full [2, 1600, 201, 1024]
-lattice, holds the scans at T=1600 and the split route against the
-deferred one. The split scans' times are also printed in ns per dependent
-step, from one call, queued, and as the kernel alone (``kernel_queued_ms``:
-wrapper calls captured in a CUDA graph and replayed).
+The split phase holds the four split kernels (softmax_stats, fwdbwd_scan,
+alpha_scan, beta_scan), which serve alignment, the fused-joint losses and
+sharding (the padded loss has one CUDA route, rows 1-2), against their
+plain versions at S1 = 1, 51 and 1101, at the scans' register-chain edges
+(S1 = 31-33, 64, 65, 96, 97, 128, 129, 256, 257: warp counts and the cut),
+at the benchmark lattice in float32 and bfloat16, and on the banded case's
+full [2, 1600, 201, 1024] lattice (the scans at T=1600). The split scans'
+times are also printed in ns per dependent step, from one call, queued,
+and as the kernel alone (``kernel_queued_ms``: wrapper calls captured in a
+CUDA graph and replayed).
 
 The fused-joint phase runs ``rnnt_loss_fused_joint`` at
 benchmarks/memory_bench.py's case (B=4, T'=1024, S=63, V=8192, H=512,
@@ -135,11 +131,8 @@ runs the Joint as the joint_fn of rnnt_loss_fused_joint and, under
 default_bands, of rnnt_loss_fused_joint_banded, and its banded form under
 monotonic_rnnt_loss_banded, each against the materialised model loss, with
 every kept kernel call held against its plain version. The bf16 model's
-costs are held against the f32 model's. Then it prints, each on its own
-line beside the card's name and power limit, CUDA-event medians of 10
-calls: the cost-only forward, the loss step (forward and backward, no
-optimiser), rows 1+2 alone on the step's logits and their share of the
-step, greedy decode, and the step's peak memory above its inputs.
+costs are held against the f32 model's. The benchmark's train cells
+(h100_bench) time the model; this phase times nothing.
 
 The train phase (``run_train``) drives ``models/train.py`` at the model
 cell: ``create_train_state`` (lr 3e-3, one warmup update, so the first
@@ -154,11 +147,8 @@ chunk 32, through ``train_step_with_loss``; softmax_stats, alpha_scan,
 beta_scan and grad_pass in the chunking's counts) against the padded
 steps; ``make_grad_accum_train_step(4)`` against the first two; and a
 checkpoint round trip on the card (saved, restored into a state from seed
-7, one more step on each). Then, f32 and bf16, CUDA-event medians of 10
-steps after 3 warm-up steps, of ``train_step`` and of the memory-efficient
-step, in ms and kframes/s (16 x 400 input frames a step), each step's peak
-memory above what was allocated before it, and rows 1+2's share of the
-train step. The sharded phase's ranks also take two
+7, one more step on each); it times nothing, as run_model. The sharded
+phase's ranks also take two
 ``make_sharded_train_step`` steps on (4,1) and two
 ``make_tp_sharded_train_step`` steps (chunk 32) on (2,2) of the model cell
 cut to one Conformer block, held against the parent's single-process
@@ -215,14 +205,12 @@ held against the plain versions (path export_debug).
 
 The traced-routes phase (``phase_traced_routes``, after the serving
 phase) takes each kernel route as one traced graph, as JAX's jax.export
-and jax.jit take them: it exports through bytes the split loss
-(``export_loss(backend="cuda")`` under pipeline='split', rows 3, 4 and 6)
-at the benchmark lattice in f32 and bf16, the banded kernel route's costs
-and grads and its cost-only costs at the banded case, the fused-joint
-loss's cost-only forward at memory_bench's cell and Viterbi with the
-occupancies at TRACED_ALIGN_CASE, and compiles with
-``torch.compile(fullgraph=True, backend="aot_eager")`` the padded loss on
-the deferred and the split pipelines, the banded loss (forward and
+and jax.jit take them: it exports through bytes the banded kernel route's
+costs and grads and its cost-only costs at the banded case, the
+fused-joint loss's cost-only forward at memory_bench's cell and Viterbi
+with the occupancies at TRACED_ALIGN_CASE (the serving phase exports the
+padded loss), and compiles with ``torch.compile(fullgraph=True,
+backend="aot_eager")`` the padded loss, the banded loss (forward and
 backward) and the fused-joint forward. Each artifact and compiled call
 equals its live call bit for bit and launches what the live call does
 (so no export and no trace launched a kernel), and every kernel call of
@@ -243,10 +231,10 @@ The acceptance phase (``run_acceptance``, last, after the traced phases:
 it allocates 8.4 GB and runs thousands of small ops) runs the
 port's acceptance harness short (``monotonic_rnnt_tpu_torch/scripts/``):
 ``fuzz_gpu``'s overflow probe (the NaN-cost input with finite logits at
-c = 50, 100 and 1e4 through rows 1-2 and rows 3, 4, 6: the same
-non-finite gradient cells as the plain versions and the oracle) and its
-ACCEPTANCE_CASES drawn cases at seed 0 (each the kernel route under its
-drawn pipeline against the oracle, banded cases on the packed layout too;
+c = 50, 100 and 1e4 through rows 1-2: the same non-finite gradient cells
+as the plain versions and the oracle) and its ACCEPTANCE_CASES drawn cases
+at seed 0 (each the kernel route against the oracle, banded cases on the
+packed layout too;
 among them cases at scale 50/100, sharded cases on a one-rank gloo group
 with a NaN-cost sample, and export cases at T_b = T + 1 and S_b = S + 1
 through the reference and cuda artifacts), then ``gpu_acceptance``'s
@@ -321,8 +309,7 @@ Tolerances, each with its reason:
     1e-4, bf16 8e-3 relative. Both routes share the stats code and the DP
     operation order, so they differ at most by the exp of the occupancy
     coefficients (in-kernel expf against torch.exp), a few ulps;
-  * split kernels vs plain versions, and the split route vs the deferred
-    route and the oracle: as the padded kernels and main path above (the
+  * split kernels vs plain versions: as the padded kernels above (the
     same stats and DP arithmetic); every kernel call a path made, against
     its plain version on the same operands, as kernel vs plain above;
   * fused-joint losses: costs |d| <= 1e-4 + 1e-5|ref| against every other
@@ -910,7 +897,7 @@ def probe_edge(mt, case, dtype):
     check(bool((grads[pad] == 0).all()),
           f"edge {kind}: gradient exactly zero on padding cells")
     if kind == "infeasible":
-        ll = mt.fused._gather_ll(alphas, ilen, slen)
+        ll = mt.reference._gather_ll(alphas, ilen, slen)
         check(bool(torch.isinf(ll[2])) and float(ll[2]) < 0
               and bool((grads[2] == 0).all()),
               f"edge {kind}: cost +inf and a zero gradient ({ll})")
@@ -1047,7 +1034,7 @@ def phase_cost_only(mt, main_inputs, costs_f32):
     log(f"cost-only: launches {launched(K)}; costs equal to fwd+bwd")
 
 
-def phase_goldens(mt, golden, route="deferred"):
+def phase_goldens(mt, golden):
     conv = mt.convert
 
     def run(lg, lb, il, sl, **kw):
@@ -1074,7 +1061,7 @@ def phase_goldens(mt, golden, route="deferred"):
             check(abs(costs[0] - expected) < 1e-4,
                   f"restricted loss shift={shift}: {costs} vs {expected}")
             check(np.isfinite(grads).all(), "restricted grads finite")
-    log(f"goldens ({route} route): README -log 0.363 + gradient table, "
+    log("goldens (deferred route): README -log 0.363 + gradient table, "
         "multibatch 0.39/0.363, restricted 0.2958/0.072/0.192/0.0672 ok")
 
 
@@ -1793,7 +1780,7 @@ def run_banded(mt, golden, main_inputs, weights, restricted):
     phase_banded_goldens(mt, golden)
     phase_banded_train(mt, case)
     phase_banded_restricted(mt, main_inputs, weights, *restricted)
-    phase_split_long(mt, case, band_w)
+    phase_split_long(mt, case)
     kernels, e2e = phase_banded_timing(mt, case, band_w, errs, launches)
     # What the sharded phase's ranks read: the packed band tensor, not the
     # 2.6 GB lattice it was packed from.
@@ -1804,7 +1791,7 @@ def run_banded(mt, golden, main_inputs, weights, restricted):
     return kernels, e2e, keep, case
 
 
-# --- the split pipeline ---------------------------------------------------------
+# --- the split kernels ----------------------------------------------------------
 
 def split_operands(mt, logits, labels, ilen, slen, blank=0, bands=None):
     """Every split kernel's operands, from the plain stats on the card."""
@@ -1870,62 +1857,11 @@ def compare_split_kernels(mt, ops, what):
     return errs
 
 
-def phase_split_main(mt, main_inputs, weights, dtype):
-    """The split main path: a weighted training step, then a cost-only call,
-    under pipeline='split'; counts reset once before, read after each part.
-    Costs and gradients against the deferred route and the oracle."""
-    K = mt.K
-    logits, labels, ilen, slen = main_inputs
-    args = (labels, ilen, slen)
-    cap = Capture(mt.fused, {"softmax_stats": {0, 1}, "fwdbwd_scan": {0},
-                             "alpha_scan": {0}, "grad_pass": {0}})
-    K.reset_launch_counts()
-    with mt.config_override(pipeline="split"), cap:
-        x = leaf(logits, dtype)
-        costs = mt.monotonic_rnnt_loss(x, *args)
-        (costs * weights).sum().backward()
-        torch.cuda.synchronize()
-        after_step = launched(K)
-        with torch.no_grad():
-            costs_only = mt.monotonic_rnnt_loss(x, *args)
-        torch.cuda.synchronize()
-    launches = launched(K)
-    path_errs = compare_captured(mt, cap, f"split main path {dtype}")
-    del cap
-    costs, grads = costs.detach(), x.grad
-    check(after_step == {"softmax_stats": 1, "fwdbwd_scan": 1,
-                         "grad_pass": 1},
-          f"split training step {dtype} launches {after_step}")
-    check(launches == {"softmax_stats": 2, "fwdbwd_scan": 1, "grad_pass": 1,
-                       "alpha_scan": 1},
-          f"split cost-only {dtype} launches {launches}")
-    check(torch.equal(costs_only, costs), "split cost-only costs differ")
-    check(grads.dtype == dtype, f"split grad dtype {grads.dtype}")
-    check(tuple(costs.shape) == (B,) and bool(torch.isfinite(costs).all()),
-          "split costs must be [B] and finite")
-    bf16 = dtype == torch.bfloat16
-    errs = []
-    for backend, g_rtol in (("cuda", 1.6e-2 if bf16 else 1e-4),
-                            ("reference", 1.6e-2 if bf16 else 1e-3)):
-        xr = leaf(logits, dtype)
-        ref = mt.monotonic_rnnt_loss(xr, *args, backend=backend)
-        (ref * weights).sum().backward()
-        errs += [assert_close(costs, ref, 1e-4, 1e-5,
-                              f"split {dtype} costs vs {backend}"),
-                 assert_close(grads, xr.grad, 1e-6, g_rtol,
-                              f"split {dtype} grads vs {backend}")]
-    log(f"split main path {dtype}: launches step {after_step}, +cost-only "
-        f"{launches}; max|d| vs the deferred route costs {errs[0]:.3g}, grads "
-        f"{errs[1]:.3g}; vs the oracle costs {errs[2]:.3g}, grads "
-        f"{errs[3]:.3g}")
-    return launches, path_errs
-
-
-def phase_split_long(mt, case, weights):
-    """The split route on the banded case's full [2, 1600, 201, 1024]
-    lattice with its band: the scans at T=1600 and S1=201, kernels against
-    plain versions, then split against deferred costs and gradients."""
-    K, SK = mt.K, mt.SK
+def phase_split_long(mt, case):
+    """The split kernels on the banded case's full [2, 1600, 201, 1024]
+    lattice with its band: the scans at T=1600 and S1=201, against their
+    plain versions, and timed."""
+    SK = mt.SK
     args = (case["labels"], case["ilen"], case["slen"])
     shape = "[%d,%d,%d,%d]" % tuple(case["logits"].shape)
     ops = split_operands(mt, case["logits"], *args, bands=case["bands"])
@@ -1934,34 +1870,14 @@ def phase_split_long(mt, case, weights):
     scan_ms = {"fwdbwd_scan": cuda_ms(lambda: SK.fwdbwd_scan(*scan)),
                "alpha_scan": cuda_ms(lambda: SK.alpha_scan(*scan[:3]))}
     del ops, scan
-    out = {}
-    for pipeline in ("auto", "split"):
-        K.reset_launch_counts()
-        with mt.config_override(pipeline=pipeline):
-            x = leaf(case["logits"], torch.float32)
-            costs = mt.monotonic_rnnt_loss(x, *args, bands=case["bands"])
-            (costs * weights).sum().backward()
-        torch.cuda.synchronize()
-        out[pipeline] = (costs.detach(), x.grad, launched(K))
-        del x
-    check(out["split"][2] == {"softmax_stats": 1, "fwdbwd_scan": 1,
-                              "grad_pass": 1},
-          f"long-T split launches {out['split'][2]}")
-    e_c = assert_close(out["split"][0], out["auto"][0], 1e-4, 1e-5,
-                       "long-T split vs deferred costs")
-    e_g = assert_close(out["split"][1], out["auto"][1], 1e-6, 1e-4,
-                       "long-T split vs deferred grads")
-    log(f"long-T split vs deferred on {shape}, +-{BAND_SHIFT} band: "
-        f"costs max|d| {e_c:.3g}, grads max|d| {e_g:.3g}; costs "
-        f"{out['split'][0].tolist()}; scans at T={shape.split(',')[1]} (ms, "
-        f"f32): {json.dumps(scan_ms)}")
-    del out
+    log(f"long-T split scans on {shape}, +-{BAND_SHIFT} band, at "
+        f"T={shape.split(',')[1]} (ms, f32): {json.dumps(scan_ms)}")
     torch.cuda.empty_cache()
 
 
-def phase_split_timing(mt, main_inputs, weights):
-    """Each split kernel against its bound, plain version and yardstick, and
-    the split loss end to end, at the benchmark lattice."""
+def phase_split_timing(mt, main_inputs):
+    """Each split kernel against its bound, plain version and yardstick, at
+    the benchmark lattice."""
     SK = mt.SK
     logits, labels, ilen, slen = main_inputs
     rows = {}
@@ -2013,40 +1929,25 @@ def phase_split_timing(mt, main_inputs, weights):
                 out[name]["kernel_queued_ms"] = graph_ms(kern)
                 out[name]["kernel_queued_ns_per_step"] = (
                     out[name]["kernel_queued_ms"] * 1e6 / n_t)
-        lg_leaf = leaf(lg, dtype)
-
-        def fwd_bwd():
-            costs = mt.monotonic_rnnt_loss(lg_leaf, labels, ilen, slen)
-            (costs * weights).sum().backward()
-            lg_leaf.grad = None
-
-        def cost_only():
-            with torch.no_grad():
-                mt.monotonic_rnnt_loss(lg, labels, ilen, slen)
-
-        with mt.config_override(pipeline="split"):
-            e2e = {"split_fwd_bwd_ms": cuda_ms(fwd_bwd),
-                   "split_cost_only_ms": cuda_ms(cost_only)}
-        rows[dtype] = (out, e2e)
+        rows[dtype] = out
         log(f"split timing {dtype}: " + "; ".join(
             f"{n} {r['ms']:.4f} ms (bound {r['bound'][0]:.4f}, plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']})"
-            for n, r in out.items()) + "; " + json.dumps(e2e))
+            for n, r in out.items()))
         log(f"split scans {dtype}, ns per dependent step (T={n_t}), one "
             "call / queued / kernel alone: " + ", ".join(
                 f"{n} {r['ns_per_step']:.1f} / {r['queued_ns_per_step']:.1f}"
                 f" / {r['kernel_queued_ns_per_step']:.1f}"
                 for n, r in out.items() if "ns_per_step" in r))
-        del ops, scan, lg_leaf
+        del ops, scan
         torch.cuda.empty_cache()
     return rows
 
 
-def run_split(mt, golden, main_inputs, weights):
-    """Every split phase at the benchmark lattice; returns the kernels' errors
-    (grad_pass's from the split path's own call), the split path's launches
-    and the timing rows."""
-    errs, launches = {}, {}
+def run_split(mt, main_inputs):
+    """Every split phase at the benchmark lattice; returns the kernels'
+    errors and the timing rows."""
+    errs = {}
     # Small shapes first: S1 = 1, and S1 = 1101 (strided threads, T=1200).
     # Then the scans' register-chain edges: S1 = 31-33 (one or two warps),
     # 64-65, 96-97, 128-129, 256 (eight) and 257 (the block chain), T = 300.
@@ -2064,15 +1965,7 @@ def run_split(mt, golden, main_inputs, weights):
         errs[dtype] = compare_split_kernels(
             mt, split_operands(mt, lg.to(dtype), lab, il, sl),
             f"benchmark {dtype}")
-        launched_d, path_errs = phase_split_main(mt, main_inputs, weights,
-                                                 dtype)
-        errs[dtype] = {n: max(errs[dtype].get(n, 0.0), e)
-                       for n, e in {**errs[dtype], **path_errs}.items()}
-        if dtype == torch.float32:
-            launches = launched_d
-    with mt.config_override(pipeline="split"):
-        phase_goldens(mt, golden, "split")
-    return errs, launches, phase_split_timing(mt, main_inputs, weights)
+    return errs, phase_split_timing(mt, main_inputs)
 
 
 def phase_step_floor(mt, shapes):
@@ -2105,19 +1998,20 @@ def add_step_floor(entries, floors, shapes):
                                    > e["bound_ms"] else e["bound_by"])
 
 
-def split_kernel_entries(errs, launches, rows):
-    """The four split kernels' JSON entries (f32, bf16 nested), with the
-    split path's launches and errors; by_path adds the other paths'."""
+def split_kernel_entries(errs, rows):
+    """The four split kernels' JSON entries (f32, bf16 nested), with their
+    errors at the benchmark lattice under path split, whose calls are
+    checks, not a loss route (launches 0); by_path adds the other paths'."""
     spec = (("softmax_stats", 244), ("fwdbwd_scan", 1053),
             ("alpha_scan", 921), ("beta_scan", 947))
     kernels = []
     for name, line in spec:
-        f32, b16 = rows[torch.float32][0][name], rows[torch.bfloat16][0][name]
+        f32, b16 = rows[torch.float32][name], rows[torch.bfloat16][name]
         entry = {
             "name": name, "route": "cuda",
             "source": "monotonic_rnnt_tpu_torch/csrc/split.cu",
             "replaces": f"monotonic_rnnt_tpu/ops/pallas/kernels.py:{line}",
-            "launches": launches.get(name, 0),
+            "launches": 0,
             "max_abs_err": errs[torch.float32][name],
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound"][0], "bound_by": f32["bound"][1],
@@ -2139,8 +2033,8 @@ def split_kernel_entries(errs, launches, rows):
             entry["library_note"] = "no single PyTorch call computes a scan"
         if name == "beta_scan":
             entry["path_note"] = ("the fused-joint backward's per-chunk beta "
-                                  "recurrence; the split route runs "
-                                  "fwdbwd_scan, whose beta half it equals")
+                                  "recurrence; fwdbwd_scan's beta half "
+                                  "equals it")
         kernels.append(entry)
     return kernels
 
@@ -2854,70 +2748,17 @@ def phase_model_fused_joint(mt, model, batch):
     return launches, errs
 
 
-def phase_model_timing(mt, model, batch, dtype, gpu):
-    """The model forward (cost-only), the loss step, greedy decode and the
-    step's peak memory, with CUDA events (medians of MODEL_REPS calls); rows
-    1 and 2 alone on the step's logits, and their share of the step."""
-    feats, flen, labels, slen = batch
-    name = dtype_name(dtype)
-
-    def forward():
-        with torch.no_grad():
-            model(*batch)
-
-    def step():
-        model.zero_grad(set_to_none=True)
-        model(*batch).mean().backward()
-
-    with torch.no_grad():
-        logits, enc_len = model.logits(feats, flen, labels)
-    sa_args, bg_args, _ = kernel_operands(mt, logits, labels, enc_len, slen,
-                                          model.cfg.blank_id)
-    scale = torch.full((logits.shape[0],), 1.0 / logits.shape[0],
-                       device=DEVICE)
-    t_sa, t_bg, _ = rows12_alone_ms(mt, sa_args, bg_args, scale)
-    del sa_args, bg_args, logits
-    figures = {"forward_ms": cuda_ms(forward, reps=MODEL_REPS),
-               "step_ms": cuda_ms(step, reps=MODEL_REPS),
-               "decode_ms": cuda_ms(lambda: model.greedy_decode(
-                   feats, flen, MODEL_MAX_LABELS), reps=MODEL_REPS,
-                   warmup=1),
-               "stats_alpha_kernel_ms": t_sa, "beta_grad_kernel_ms": t_bg}
-    figures["rows12_share_of_step"] = (t_sa + t_bg) / figures["step_ms"]
-    model.zero_grad(set_to_none=True)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    step()
-    torch.cuda.synchronize()
-    figures["step_peak_bytes"] = torch.cuda.max_memory_allocated() - base
-    model.zero_grad(set_to_none=True)
-    for label, value in (
-            ("forward (cost-only)", f"{figures['forward_ms']:.3f} ms"),
-            ("loss step (forward + backward)",
-             f"{figures['step_ms']:.3f} ms"),
-            ("rows 1+2 share of the loss step", f"{t_sa:.4f} + {t_bg:.4f} "
-             f"ms kernels alone = {figures['rows12_share_of_step']:.4f}"),
-            (f"greedy decode (max_labels {MODEL_MAX_LABELS})",
-             f"{figures['decode_ms']:.3f} ms"),
-            ("loss step peak memory above the inputs",
-             f"{figures['step_peak_bytes'] / 2**20:.1f} MiB")):
-        log(f"model {name} {label}: {value} ({gpu})")
-    return figures
-
-
-def run_model(mt, gpu):
+def run_model(mt):
     """The Conformer transducer at train_bench.py's defaults on the card:
     the f32 model against the same model on the CPU (costs, every gradient,
     greedy hypotheses), rows 1 and 2 against their plain versions on its
     logits, launch counts of the loss step, a cost-only forward and greedy
-    decode, the Joint as joint_fn, and the bf16 model; then both timed.
-    Returns (launches by path, max |d| by path, figures by dtype)."""
+    decode, the Joint as joint_fn, and the bf16 model. Returns (launches by
+    path, max |d| by path)."""
     K = mt.K
     b, t, s, f = MODEL_BATCH
     batch, cpu_batch = model_batch(DEVICE), model_batch("cpu")
-    figures, costs_by_dtype = {}, {}
+    costs_by_dtype = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
         model = make_model(mt, dtype, DEVICE)
@@ -2981,15 +2822,12 @@ def run_model(mt, gpu):
                                2e-2, "model bf16 vs f32 costs")
             log(f"model bf16: costs vs the f32 model's (same weights) max|d| "
                 f"{e_b:.3g}; mean cost {float(costs.mean()):.4f}")
-        del grads
-        figures[name] = phase_model_timing(mt, model, batch, dtype, gpu)
-        del model
+        del grads, model
         torch.cuda.empty_cache()
     model_launches["model"] = main_launches
     model_errs["model"] = {"stats_alpha_fused": err_12[0],
                            "beta_grad_fused": err_12[1]}
-    log("model timing: " + json.dumps(figures))
-    return model_launches, model_errs, figures
+    return model_launches, model_errs
 
 
 # --- the training step (Models B) -----------------------------------------------
@@ -3089,17 +2927,6 @@ def train_lrs(mt, n):
     """The lrs of the first n updates (create_train_state's schedule)."""
     return [TRAIN_LR * mt.train.warmup_cosine_factor(c, TRAIN_WARMUP, 10_000)
             for c in range(n)]
-
-
-def peak_step_bytes(step):
-    """Peak device memory of one step above what was allocated before it."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    step()
-    torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() - base
 
 
 def phase_train_vs_cpu(mt, batch, cpu_batch):
@@ -3229,63 +3056,11 @@ def phase_train_accum_and_checkpoint(mt, batch, after2, padded_metrics,
         f"{a[0]!r} and {b[0]!r}, relative {rel:.3g} (<= 1e-6)")
 
 
-def phase_train_timing(mt, batch, dtype, gpu, rows12_ms):
-    """The loss step of a train state's model (no optimiser), train_step
-    and the memory-efficient step, one call of each in turn MODEL_REPS
-    times after 3 warm-up calls each (CUDA events, each call from an idle
-    card), so that host drift falls on all three alike: medians in ms and
-    kframes/s (B * input frames over the step), the clip and AdamW as
-    train_step less the loss step, each step's peak memory above what was
-    allocated before it, and rows 1+2's share of the train step."""
-    name = dtype_name(dtype)
-    frames = MODEL_BATCH[0] * MODEL_BATCH[1]
-    state = train_state(mt, dtype, DEVICE)
-    fused = train_state(mt, dtype, DEVICE)
-    loss_fn = mt.train.make_memory_efficient_loss(fused.model,
-                                                  chunk_t=TRAIN_CHUNK)
-
-    def loss_step():
-        state.model.zero_grad(set_to_none=True)
-        state.model(*batch).mean().backward()
-
-    steps = {"loss_step": loss_step,
-             "train_step": lambda: mt.train.train_step(state, batch),
-             "memory_efficient_step": lambda: mt.train.train_step_with_loss(
-                 fused, loss_fn, batch)}
-    times = {key: [] for key in steps}
-    for fn in steps.values():
-        cuda_times(fn, 0)
-    for _ in range(MODEL_REPS):
-        for key, fn in steps.items():
-            times[key] += cuda_times(fn, 1, warmup=0)
-    figures = {}
-    for key, fn in steps.items():
-        ms = statistics.median(times[key])
-        figures[f"{key}_ms"] = ms
-        figures[f"{key}_kframes_per_s"] = frames / ms
-        figures[f"{key}_peak_bytes"] = peak_step_bytes(fn)
-    figures["clip_adamw_ms"] = (figures["train_step_ms"]
-                                - figures["loss_step_ms"])
-    figures["rows12_share_of_train_step"] = rows12_ms / figures[
-        "train_step_ms"]
-    for key in steps:
-        log(f"train {name} {key.replace('_', ' ')}: "
-            f"{figures[key + '_ms']:.3f} ms, "
-            f"{figures[key + '_kframes_per_s']:.1f} kframes/s, peak "
-            f"{figures[key + '_peak_bytes'] / 2**20:.1f} MiB above its "
-            f"inputs ({gpu})")
-    log(f"train {name} clip + AdamW (train step less loss step): "
-        f"{figures['clip_adamw_ms']:.3f} ms; rows 1+2 share of the train "
-        f"step: {rows12_ms:.4f} ms kernels alone = "
-        f"{figures['rows12_share_of_train_step']:.4f} ({gpu})")
-    return figures
-
-
-def run_train(mt, gpu, model_figures):
+def run_train(mt):
     """The training step at the model cell on the card: f32 against the
     CPU, the loss's descent, the memory-efficient step, gradient
-    accumulation and a checkpoint round trip; then f32 and bf16 timed.
-    Returns (launches by path, max |d| by path, figures by dtype)."""
+    accumulation and a checkpoint round trip. Returns (launches by path,
+    max |d| by path)."""
     batch, cpu_batch = model_batch(DEVICE), model_batch("cpu")
     card, after2, after3, padded, errs = phase_train_vs_cpu(mt, batch,
                                                             cpu_batch)
@@ -3294,17 +3069,8 @@ def run_train(mt, gpu, model_figures):
     phase_train_accum_and_checkpoint(mt, batch, after2, padded, card)
     del card, after2, after3
     torch.cuda.empty_cache()
-    figures = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = dtype_name(dtype)
-        m = model_figures[name]
-        figures[name] = phase_train_timing(
-            mt, batch, dtype, gpu,
-            m["stats_alpha_kernel_ms"] + m["beta_grad_kernel_ms"])
-        torch.cuda.empty_cache()
-    log("train timing: " + json.dumps(figures))
     return ({"train": LOSS_STEP, "train_fused_joint": fused_launches},
-            {"train": errs, "train_fused_joint": fused_errs}, figures)
+            {"train": errs, "train_fused_joint": fused_errs})
 
 
 # --- the serving decoders (Models C) --------------------------------------------
@@ -4017,14 +3783,6 @@ def traced_compile(mt, what, fn, x, rest, weights):
                                       "launches": want_launches}
 
 
-def on_pipeline(mt, pipeline, fn):
-    """fn() under the config's pipeline `pipeline`."""
-    def call():
-        with mt.config_override(pipeline=pipeline):
-            return fn()
-    return call
-
-
 def compile_probe(fn, args, what):
     """Whether torch.compile(fullgraph=True) of fn(*args) with a backward
     runs and equals eager bit for bit; the error's first line where it
@@ -4079,15 +3837,13 @@ def sharded_probe(mt, main_inputs, weights, compile_fn):
 def phase_traced_routes(mt, gpu, main_inputs, weights, band_case):
     """The kernel routes as one traced graph, as JAX's jax.export and
     jax.jit take them. (a) Artifacts (export, import, call; bit for bit
-    with the live call): the split loss through export_loss(backend=
-    'cuda') under pipeline='split' at the padded lattice, f32 and bf16;
-    the banded kernel route's costs and grads, and its cost-only costs, at
-    the banded case; the
-    fused-joint loss's cost-only forward at memory_bench's cell; Viterbi
-    and the occupancies at TRACED_ALIGN_CASE. (b) torch.compile(fullgraph,
-    aot_eager) of monotonic_rnnt_loss on the deferred and the split
-    pipelines and of monotonic_rnnt_loss_banded (forward and backward),
-    and of the fused-joint forward, each bit for bit with eager. (c) No
+    with the live call): the banded kernel route's costs and grads, and its
+    cost-only costs, at the banded case; the fused-joint loss's cost-only
+    forward at memory_bench's cell; Viterbi and the occupancies at
+    TRACED_ALIGN_CASE. (b) torch.compile(fullgraph, aot_eager) of
+    monotonic_rnnt_loss and of monotonic_rnnt_loss_banded (forward and
+    backward), and of the fused-joint forward, each bit for bit with
+    eager. (c) No
     trace launches a kernel. (d) Every kernel call of the phase is held
     against its plain version (Hold at the operators' CUDA
     implementations). Then probes (logged): the fused-joint training step
@@ -4105,10 +3861,6 @@ def phase_traced_routes(mt, gpu, main_inputs, weights, band_case):
     fkeys = tuple(fcase["params"])
     f_args = (fcase["enc"], fcase["pred"], fcase["labels"], fcase["ilen"],
               fcase["slen"], *fcase["params"].values())
-
-    def split_live(*a):
-        with mt.config_override(pipeline="split"):
-            return mt.fused.rnnt_loss_cuda(*a)
 
     def banded_live(x, lab, il, sl, lo, hi):
         return mt.cuda_banded.rnnt_loss_banded_cuda(
@@ -4134,18 +3886,6 @@ def phase_traced_routes(mt, gpu, main_inputs, weights, band_case):
     K = mt.K
     K.reset_launch_counts()
     with Hold(mt, "traced") as hold:
-        for dtype in (torch.float32, torch.bfloat16):
-            args = (logits.to(dtype), labels, ilen, slen)
-            name = f"split_export_{dtype_name(dtype)}"
-
-            def export(args=args):
-                with mt.config_override(pipeline="split"):
-                    return mt.serving.export_loss(*args, backend="cuda",
-                                                  device=DEVICE)
-            art, figs[name] = traced_artifact(mt, name, export, split_live,
-                                              args)
-            timed[name] = ([lambda art=art, args=args: art(*args),
-                            lambda args=args: split_live(*args)])
         for name, fn, args in (("banded_export", banded_live, band_args),
                                ("banded_cost_only_export", banded_cost_only,
                                 band_args),
@@ -4159,21 +3899,17 @@ def phase_traced_routes(mt, gpu, main_inputs, weights, band_case):
                            lambda fn=fn, args=args: fn(*args)]
         banded_public = lambda x, *a: mt.monotonic_rnnt_loss_banded(
             x, *a, bands=bands)
-        for name, pipeline, fn, x, rest, w in (
-                ("deferred_compile", "auto", mt.monotonic_rnnt_loss, logits,
+        for name, fn, x, rest, w in (
+                ("deferred_compile", mt.monotonic_rnnt_loss, logits,
                  (labels, ilen, slen), weights),
-                ("split_compile", "split", mt.monotonic_rnnt_loss, logits,
-                 (labels, ilen, slen), weights),
-                ("banded_compile", "auto", banded_public,
-                 band_case["logits_band"], band_args[1:4], weights[:2]),
-                ("fused_joint_forward_compile", "auto",
+                ("banded_compile", banded_public, band_case["logits_band"],
+                 band_args[1:4], weights[:2]),
+                ("fused_joint_forward_compile",
                  lambda enc, *a: fused_forward(enc, *a), fcase["enc"],
                  f_args[1:], None)):
-            with mt.config_override(pipeline=pipeline):
-                step, figs[name] = traced_compile(mt, name, fn, x, rest, w)
-            timed[name] = [on_pipeline(mt, pipeline, f) for f in (
-                step, lambda fn=fn, x=x, rest=rest, w=w: grad_step(fn, x,
-                                                                  rest, w))]
+            step, figs[name] = traced_compile(mt, name, fn, x, rest, w)
+            timed[name] = [step, lambda fn=fn, x=x, rest=rest, w=w:
+                           grad_step(fn, x, rest, w)]
         torch.cuda.synchronize()
     launches = launched(K)
     held_s = time.perf_counter() - t0
@@ -5590,7 +5326,7 @@ def phase_gather_cost(mt):
         t_last = (ilen.to(torch.int64) - 1).clamp(min=0)
         return alphas[b_idx, t_last, slen.to(torch.int64)]
 
-    checked = lambda: mt.fused._gather_ll(alphas, ilen, slen)
+    checked = lambda: mt.reference._gather_ll(alphas, ilen, slen)
     check(torch.equal(bare(), checked()), "the checked gather differs from "
           "the bare one on in-range lengths")
     figs = {"bare_gather": host_ms(bare, GATHER_REPS),
@@ -5807,7 +5543,8 @@ class _Port:
                                               parallel)
         from monotonic_rnnt_tpu_torch.ops import (alignment, banded, bands,
                                                   chunked, chunked_banded,
-                                                  collective, helpers, loss)
+                                                  collective, helpers, loss,
+                                                  reference)
         from monotonic_rnnt_tpu_torch.models import lm, train
         from monotonic_rnnt_tpu_torch.parallel import sharding
         from monotonic_rnnt_tpu_torch.ops.cuda import (_build, banded_kernels,
@@ -5836,7 +5573,7 @@ class _Port:
                                                     sharding)
         self.ST, self.interop, self.profiling = stream, interop, profiling
         self.models, self.loss, self.cuda_banded = models, loss, cuda_banded
-        self.alignment = alignment
+        self.alignment, self.reference = alignment, reference
         self.train, self.lm = train, lm
         self.serving, self.provenance = serving, provenance
         for name in ("pack_acts", "unpack_acts", "monotonic_rnnt_loss_packed",
@@ -5887,11 +5624,7 @@ def main() -> int:
     glue_timing(mt, main_inputs)
     add_roofline(e2e, rates, main_inputs[0].numel() * 4)
     log(f"end-to-end loss at B={B},T={T},S={S},V={V}: {json.dumps(e2e)}")
-    split_errs, split_launches, split_rows = run_split(mt, golden, main_inputs,
-                                                      weights)
-    log(f"end-to-end split loss at B={B},T={T},S={S},V={V}: " + json.dumps(
-        {str(d).removeprefix("torch."): split_rows[d][1]
-         for d in split_rows}))
+    split_errs, split_rows = run_split(mt, main_inputs)
     scan_shapes = {"fwdbwd_scan": (B, T), "alpha_scan": (B, T),
                    "beta_scan": (B, T),
                    "fwdbwd_scan_banded": tuple(BANDED_CASE[:2]),
@@ -5913,8 +5646,8 @@ def main() -> int:
     sharded_launches, sharded_errs, partial_entry = run_sharded(
         mt, band_keep, {torch.float32: costs_f32, torch.bfloat16: costs_bf16})
     del band_keep
-    model_launches, model_errs, model_figures = run_model(mt, gpu)
-    train_launches, train_errs, _ = run_train(mt, gpu, model_figures)
+    model_launches, model_errs = run_model(mt)
+    train_launches, train_errs = run_train(mt)
     decode_launches, decode_errs, _ = run_decode(mt, gpu)
     # The alignment, packed and traced phases run last, so that the figures
     # above are taken as without them (a profiler session or thousands of
@@ -5946,16 +5679,14 @@ def main() -> int:
     acc_launches, acc_errs, _ = run_acceptance(mt)
     # Every path's launches and kept calls' max |d|; by_path takes, for
     # each kernel row, the paths that ran it.
-    path_launches = {"split": split_launches, **fused_launches,
+    path_launches = {**fused_launches,
                      **sharded_launches, **packed_launches, **align_launches,
                      **model_launches, **train_launches, **decode_launches,
                      **serving_launches, **traced_launches, **acc_launches}
-    path_errs = {"split": {"grad_pass": split_errs[torch.float32][
-        "grad_pass"]}, **fused_errs, **sharded_errs, **packed_errs,
+    path_errs = {**fused_errs, **sharded_errs, **packed_errs,
         **align_errs, **model_errs, **train_errs, **decode_errs,
         **serving_errs, **traced_errs, **acc_errs}
-    split_kernels = split_kernel_entries(split_errs, split_launches,
-                                         split_rows)
+    split_kernels = split_kernel_entries(split_errs, split_rows)
     for entries, base in ((kernels, "padded"), (band_kernels, "banded"),
                           (split_kernels, "split"),
                           ([partial_entry], "tp_padded")):

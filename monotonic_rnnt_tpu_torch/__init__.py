@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of the monotonic RNN-T training loss.
 
 Counterpart of the JAX package ``monotonic_rnnt_tpu``, which stays the
-reference. The padded loss (on the DP-fused or the split pipeline), the
+reference. The padded loss (on the DP-fused pipeline), the
 reference's packed [sum T_b(S_b+1), V] layout over it, the banded loss
 (packed [B, T, W, V] layout) and the two fused-joint losses, which compute
 the loss from encoder and predictor outputs in T-chunks, run forward,

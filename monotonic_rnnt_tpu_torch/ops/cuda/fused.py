@@ -1,8 +1,8 @@
-"""The padded monotonic RNN-T loss's two pipelines on the CUDA kernels.
+"""The padded monotonic RNN-T loss on the CUDA kernels.
 
-Counterpart of ``monotonic_rnnt_tpu/ops/pallas/fused.py``. The DP-fused
-pipeline (fused.py:140-285) makes two passes over the [B, T, S1, V] logits,
-the minimum HBM traffic of the algorithm:
+Counterpart of ``monotonic_rnnt_tpu/ops/pallas/fused.py``'s DP-fused
+pipeline (fused.py:140-285), which makes two passes over the [B, T, S1, V]
+logits, the minimum HBM traffic of the algorithm:
 
   * forward, ``stats_alpha_fused``: one read gives the stats, the alphas
     and the costs; it reads only the live lattice (t < T'_b, s <= S_b);
@@ -11,14 +11,12 @@ the minimum HBM traffic of the algorithm:
     cotangent folded in (the deferred-gradient route).
 
 The JAX package admits this route only when its tiles fit the TPU's VMEM
-(fused.py:210-216); the port takes it at every shape unless the config's
-``pipeline`` is 'split'. The split pipeline (fused.py:79-137) runs
-``softmax_stats``, then ``fwdbwd_scan`` (or ``alpha_scan`` for costs only),
-then ``grad_pass``, and makes the gradient in the forward; everything
-between its kernels is O(B*T*S1) torch glue. The DP-fused pipeline's glue
-is three small kernels of its own (kernels.py): ``loss_prologue`` before
-row 1, ``loss_costs`` after it and ``beta_operands`` before row 2, so a
-loss step is a few launches the card queues behind row 1.
+(fused.py:210-216) and otherwise runs its split pipeline; the port takes it
+at every shape, so the padded loss has this one CUDA route. Its glue is
+three small kernels of its own (kernels.py): ``loss_prologue`` before row
+1, ``loss_costs`` after it and ``beta_operands`` before row 2, so a loss
+step is a few launches the card queues behind row 1. The split kernels
+(split_kernels.py) serve alignment, the fused-joint losses and sharding.
 """
 
 from __future__ import annotations
@@ -28,24 +26,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ...utils.config import get_config
 from ...utils.debug import emit_loss_debug, report_space
 from ...utils.profiling import ROWS
-from ..bands import Bands, default_bands, lattice_masks
-from ..helpers import NEG_INF, extend_labels, mask_to_additive
-from ..reference import _gather_ll, occupancy_coefficients
-from .kernels import (beta_grad_fused, beta_operands, grad_pass, loss_costs,
+from ..bands import Bands, default_bands
+from .kernels import (beta_grad_fused, beta_operands, loss_costs,
                       loss_prologue, stats_alpha_fused)
-from .split_kernels import alpha_scan, fwdbwd_scan, softmax_stats
-
-def deferred_grad_supported() -> bool:
-    """True unless the config forces the split pipeline (fused.py:210-216).
-
-    The deferred route holds at every shape here, so only pipeline='split'
-    turns it off; a training step then takes the eager route.
-    """
-    return get_config().pipeline != "split"
-
 
 ROWS.update({"stats_alpha_fused.read": 0, "stats_alpha_fused.padded": 0})
 
@@ -115,18 +100,12 @@ def rnnt_loss_cuda(
 
     Same contract as ops.reference.rnnt_loss_reference, except that the
     gradient comes in the logits' dtype. The forward makes the gradient
-    here (grad_scale 1), on the pipeline the config names; a training step
-    goes through the deferred route unless that is 'split'.
+    here (row 2 at grad_scale 1): the route serving.export_loss holds. A
+    training step goes through the deferred route instead.
     """
     ilen, slen = _lengths(input_lengths, label_lengths)
-    pipeline = "dp-fused" if deferred_grad_supported() else "split"
-    report_space(pipeline, logits.shape, logits.dtype,
+    report_space("dp-fused", logits.shape, logits.dtype,
                  reads=2 if with_grads else 1, writes=1 if with_grads else 0)
-    if pipeline == "split":
-        if bands is None:
-            bands = default_bands(ilen, slen, logits.shape[1])
-        return _split(logits, extend_labels(labels, slen, logits.shape[2]),
-                      ilen, slen, bands, blank_id, with_grads)
     labels_ext, awin, bwin = _prologue(logits, labels, ilen, slen, bands)
     costs, stats = _dp_fused_alpha_half(logits, labels_ext, ilen, slen, awin,
                                         blank_id)
@@ -135,37 +114,6 @@ def rnnt_loss_cuda(
     grads = _dp_fused_grad_half(logits, labels_ext, ilen, slen, blank_id,
                                 stats, bwin)
     return costs, grads
-
-
-def _split(logits, labels_ext, ilen, slen, bands, blank_id, with_grads):
-    """The split pipeline (fused.py:79-137): stats, scans, gradient pass.
-
-    The CUDA scans take any B and T, so the JAX package's padding of the
-    small arrays to full DP tiles has no counterpart.
-    """
-    _, t_max, s1, _ = logits.shape
-    masks = lattice_masks(ilen, slen, bands, t_max, s1)
-    denom, lp_blank, lpl_raw = softmax_stats(logits, labels_ext, blank_id)
-    s_idx = torch.arange(s1, dtype=torch.int32, device=logits.device)
-    lp_label = torch.where(s_idx[None, None, :] < slen[:, None, None],
-                           lpl_raw, NEG_INF)
-    amask = mask_to_additive(masks.alpha)
-    if with_grads:
-        # One launch advances both serial chains side by side.
-        alphas, betas = fwdbwd_scan(
-            lp_blank, lp_label, amask, mask_to_additive(masks.beta), ilen,
-            mask_to_additive(s_idx[None, :] == slen[:, None]))
-    else:
-        alphas = alpha_scan(lp_blank, lp_label, amask)
-    ll_fwd = _gather_ll(alphas, ilen, slen)
-    if not with_grads:
-        return -ll_fwd, None
-    occ, cb, cl = occupancy_coefficients(alphas, betas, ll_fwd, ilen, slen)
-    # The gradient in the logits' dtype (fused.py:131-135); the DP ran in f32.
-    grads = grad_pass(logits, denom, occ, cb, cl, labels_ext, blank_id,
-                      out_dtype=logits.dtype)
-    emit_loss_debug(ll_fwd, betas[:, 0, 0], grads)
-    return -ll_fwd, grads
 
 
 def rnnt_loss_cuda_deferred_fwd(logits, labels, input_lengths, label_lengths,

@@ -34,7 +34,9 @@ them: an operator's outputs may not alias each other. The copy kernels of
 rows 12-14 (ops/cuda/stream.py) are on no loss route and stay ctypes calls.
 The operators are registered through ``torch.library.Library``'s
 ``define`` and ``impl``, which add less host time to a call than
-``torch.library.custom_op`` (scripts/op_dispatch.py times both).
+``torch.library.custom_op``: 7.75 µs against 23.08 µs for an operator
+around ``Tensor.clone`` on an NVIDIA H100 (700 W), measured once when the
+rows became operators (CHANGES.md).
 
 Each wrapper keeps its name and arguments and calls its operator on every
 device: tensors on the CPU take the plain version through it, CUDA tensors

@@ -1,7 +1,9 @@
 """The split pipeline's CUDA kernels, their wrappers and their plain versions.
 
 Counterpart of ``monotonic_rnnt_tpu/ops/pallas/kernels.py:187-289, 846-1101``
-on the padded [B, T, S1(, V)] lattice:
+on the padded [B, T, S1(, V)] lattice. Alignment, the fused-joint losses
+and the sharded losses run them; the padded loss does not (its one CUDA
+route is rows 1-2, ops/cuda/fused.py):
 
 * ``softmax_stats`` (TPU kernel at kernels.py:244) launches
   ``mrnnt_softmax_stats_kernel``;

@@ -9,10 +9,6 @@ PyTorch counterpart of ``monotonic_rnnt_tpu/ops/loss.py``:
     and the beta+grad kernel with the incoming cotangent folded in (the
     deferred-gradient route). A cost-only call never launches the
     beta+grad kernel;
-  * on the ``cuda`` backend under ``pipeline='split'`` the forward makes
-    the gradient through the split kernels and the backward scales it by
-    the cotangent (the eager route, loss.py:102-124); a cost-only call runs
-    softmax_stats and the alpha scan only;
   * on the ``reference`` backend the forward makes the gradient with the
     plain-torch oracle and the backward scales it by the cotangent;
   * the alignment-restricted variant is the same lattice with band masks
@@ -31,8 +27,7 @@ from ..utils.config import get_config
 from ..utils.profiling import phase_timer, span, spanned
 from ..utils.status import tracing, validate_loss_inputs
 from .bands import Bands, bands_from_alignment, default_bands
-from .cuda.fused import (count_live_rows, deferred_grad_supported,
-                         rnnt_loss_cuda, rnnt_loss_cuda_deferred_bwd,
+from .cuda.fused import (count_live_rows, rnnt_loss_cuda_deferred_bwd,
                          rnnt_loss_cuda_deferred_fwd)
 from .reference import rnnt_loss_reference
 
@@ -60,21 +55,19 @@ class _LossCore(torch.autograd.Function):
                 band_max, blank_id, backend):
         bands = Bands(band_min, band_max)
         need_grad = ctx.needs_input_grad[0]
-        ctx.deferred = backend == "cuda" and deferred_grad_supported()
+        ctx.deferred = backend == "cuda"
         ctx.blank_id = blank_id
-        if backend == "cuda":
-            logits = logits.contiguous()  # the kernels take contiguous rows
         if ctx.deferred:
+            logits = logits.contiguous()  # the kernels take contiguous rows
             costs, res = rnnt_loss_cuda_deferred_fwd(
                 logits, labels, input_lengths, label_lengths,
                 blank_id=blank_id, bands=bands)
             if need_grad:
                 ctx.save_for_backward(logits, *res)
             return costs
-        loss_fn = rnnt_loss_cuda if backend == "cuda" else rnnt_loss_reference
-        costs, grads = loss_fn(logits, labels, input_lengths, label_lengths,
-                               blank_id=blank_id, bands=bands,
-                               with_grads=need_grad)
+        costs, grads = rnnt_loss_reference(
+            logits, labels, input_lengths, label_lengths, blank_id=blank_id,
+            bands=bands, with_grads=need_grad)
         if need_grad:
             ctx.logits_dtype = logits.dtype
             ctx.save_for_backward(grads)
@@ -150,9 +143,8 @@ def monotonic_rnnt_loss(
             else:
                 bands = default_bands(input_lengths, label_lengths, t_max)
     route = _resolve_backend(backend, logits)
-    if (host_lengths is not None and route == "cuda"
-            and deferred_grad_supported()):
-        # This call runs row 1 once (deferred or not).
+    if host_lengths is not None and route == "cuda":
+        # This call runs row 1 once.
         count_live_rows(*host_lengths, t_max, logits.shape[2])
     return loss_on_route(logits, labels, input_lengths, label_lengths, bands,
                          blank_id, route)

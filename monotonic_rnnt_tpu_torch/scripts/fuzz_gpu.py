@@ -2,15 +2,14 @@
 
 The counterpart of ``scripts/fuzz_tpu.py``, on the card. Each case draws
 (``draw_case``) a shape, the dtype, degenerate lengths (S_b = 0, T_b = S_b,
-T_b = 1), a blank anywhere in [0, V), a random alignment band, a logit
-scale and the pipeline (auto | split | fused; the port has no DP-tile gate,
-so 'fused' is never downgraded), and holds the kernel route
-(``monotonic_rnnt_loss`` with backend='cuda' under that pipeline) against
-the port's oracle (backend='reference') on the same tensor: costs,
-gradients (``torch.autograd.grad`` of the summed costs), feasibility (+inf
-on the same samples, with a zero gradient there), and for banded cases the
-packed band layout (``pack_band`` -> ``monotonic_rnnt_loss_banded`` ->
-``unpack_band``). Three dimensions that fuzz_tpu lacks:
+T_b = 1), a blank anywhere in [0, V), a random alignment band and a
+logit scale, and holds the kernel route (``monotonic_rnnt_loss`` with
+backend='cuda') against the port's oracle (backend='reference') on the
+same tensor: costs, gradients (``torch.autograd.grad`` of the summed
+costs), feasibility (+inf on the same samples, with a zero gradient
+there), and for banded cases the packed band layout (``pack_band`` ->
+``monotonic_rnnt_loss_banded`` -> ``unpack_band``). Three dimensions that
+fuzz_tpu lacks:
 
   * scale 50 and 100: there the gradient may overflow (0 * inf) on cells
     whose cost stays finite, in the JAX package's oracle as in the port's,
@@ -27,9 +26,12 @@ packed band layout (``pack_band`` -> ``monotonic_rnnt_loss_banded`` ->
 
 Every run first probes the overflow at fixed inputs (``overflow_probe``):
 the NaN-cost input of the ROADMAP with finite logits, scaled by 50, 100
-and 1e4, through the deferred route (row 2 makes the gradient) and the
-split route (row 6), on the device against the same route on the CPU
-(the kernels' plain versions) and the oracle: the same non-finite cells.
+and 1e4, through the deferred route (row 2 makes the gradient), on the
+device against the same route on the CPU (the kernels' plain versions)
+and the oracle: the same non-finite cells.
+
+fuzz_tpu's pipeline dimension has no counterpart: the port's padded loss
+has one CUDA route at every shape.
 
 Tolerances are fuzz_tpu's: costs 2e-3 relative to max(1, |cost|) (2e-2 in
 bf16), gradients 1e-3 absolute (2e-2 in bf16); a bf16 case holds both
@@ -57,7 +59,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import config_override
 from ..ops import bands as bd
 from ..parallel import (rnnt_loss_banded_vocab_sharded,
                         rnnt_loss_vocab_sharded)
@@ -70,7 +71,7 @@ from ._cases import (CheckFailed, band_layout, banded_route, check,
 # The randomized dimensions each case draws from (recorded in the
 # acceptance artifact so the fuzz surface is auditable).
 DIMENSIONS = ["B", "T", "S", "V", "blank_id", "bf16", "scale",
-              "alignment_band+shift", "pipeline(auto|split|fused)",
+              "alignment_band+shift",
               "scale 50/100: non-finite gradient cells",
               "sharded: one-rank gloo group, NaN-cost sample",
               "export: lengths T+1 and S+1"]
@@ -79,7 +80,6 @@ T_SET = (1, 4, 9, 33, 100, 257)
 V_SET = (2, 3, 17, 100, 384, 1500)
 SCALES = (0.5, 2.0, 8.0, 50.0, 100.0)
 OVERFLOW_SCALE = 50.0      # from this scale on the gradient may overflow
-PIPELINES = ("auto", "split", "fused")
 P_BAND, P_BF16, P_SHARDED, P_EXPORT = 0.4, 0.25, 0.3, 0.3
 EXPORT_SHAPE = (4, 12, 4, 37)   # B, T, S, V of the export artifacts
 
@@ -97,7 +97,6 @@ class Case:
     blank: int
     bf16: bool
     scale: float
-    pipeline: str
     labels: np.ndarray
     ilen: np.ndarray
     slen: np.ndarray
@@ -110,8 +109,7 @@ class Case:
         return (f"case {self.index}: seed={self.seed} B={self.B} T={self.T} "
                 f"S={self.S} V={self.V} blank={self.blank} bf16={self.bf16} "
                 f"scale={self.scale} shift={self.shift} "
-                f"pipeline={self.pipeline} sharded={self.sharded} "
-                f"export={self.export}")
+                f"sharded={self.sharded} export={self.export}")
 
 
 def draw_case(rng: np.random.RandomState, index: int = 0) -> Case:
@@ -127,7 +125,6 @@ def draw_case(rng: np.random.RandomState, index: int = 0) -> Case:
     blank = int(r.randint(0, V))
     bf16 = bool(r.rand() < P_BF16)
     scale = float(r.choice(SCALES))
-    pipeline = str(r.choice(PIPELINES))
     pool = np.setdiff1d(np.arange(V), [blank])     # labels avoid the blank
     labels = pool[r.randint(0, len(pool), (B, S))].astype(np.int32)
     ilen = r.randint(max(S, 1), T + 1, (B,)).astype(np.int32)
@@ -138,8 +135,8 @@ def draw_case(rng: np.random.RandomState, index: int = 0) -> Case:
         align = random_alignment(r, ilen, slen, labels, T, blank)
     sharded = bool(r.rand() < P_SHARDED)
     export = bool(r.rand() < P_EXPORT)
-    return Case(index, seed, B, T, S, V, blank, bf16, scale, pipeline,
-                labels, ilen, slen, shift, align, sharded, export)
+    return Case(index, seed, B, T, S, V, blank, bf16, scale, labels, ilen,
+                slen, shift, align, sharded, export)
 
 
 def case_logits(case: Case, dev) -> torch.Tensor:
@@ -205,33 +202,28 @@ def nan_cost_input(scale: float = 1.0):
 
 def overflow_probe(dev, log=print):
     """The overflow at large margins, at fixed inputs (nan_cost_input at c
-    = 50, 100, 1e4): on the deferred route (rows 1-2) and the split route
-    (rows 3, 4, 6), the device's gradient has its non-finite values on the
-    same cells as the same route on the CPU (the plain versions) and as
-    the oracle, and the finite cells agree. Returns the worst |d|."""
+    = 50, 100, 1e4): on the deferred route (rows 1-2) the device's
+    gradient has its non-finite values on the same cells as the same route
+    on the CPU (the plain versions) and as the oracle, and the finite cells
+    agree. Returns the worst |d|."""
     worst = 0.0
     for scale in (50.0, 100.0, 1e4):
         x, labels, ilen, slen = nan_cost_input(scale)
         ref = costs_and_grads(lambda z: loss_route(
             z, *int32(dev, labels, ilen, slen), backend="reference"),
             torch.from_numpy(x).to(dev))
-        counts = [int((~torch.isfinite(ref[1])).sum())]
-        for pipeline in ("fused", "split"):
-            with config_override(pipeline=pipeline):
-                runs = [costs_and_grads(lambda z: loss_route(
-                    z, *int32(d, labels, ilen, slen), backend="cuda"),
-                    torch.from_numpy(x).to(d)) for d in (dev, "cpu")]
-            what = f"overflow probe c={scale:g} pipeline={pipeline}"
-            for got, against in ((runs[0], (runs[1], "plain")),
-                                 (runs[0], (ref, "oracle"))):
-                other = tuple(t.to(dev) for t in against[0])
-                worst = max(worst, *compare(got, other, bf16=False,
-                                            masks=True,
-                                            what=f"{what} vs {against[1]}"))
-            counts.append(int((~torch.isfinite(runs[0][1])).sum()))
+        got, plain = (costs_and_grads(lambda z: loss_route(
+            z, *int32(d, labels, ilen, slen), backend="cuda"),
+            torch.from_numpy(x).to(d)) for d in (dev, "cpu"))
+        what = f"overflow probe c={scale:g}"
+        for other, name in ((plain, "plain"), (ref, "oracle")):
+            other = tuple(t.to(dev) for t in other)
+            worst = max(worst, *compare(got, other, bf16=False, masks=True,
+                                        what=f"{what} vs {name}"))
         log(f"overflow probe c={scale:g}: non-finite gradient cells oracle "
-            f"{counts[0]}, deferred route {counts[1]}, split route "
-            f"{counts[2]} (each the same cells as its plain versions')")
+            f"{int((~torch.isfinite(ref[1])).sum())}, deferred route "
+            f"{int((~torch.isfinite(got[1])).sum())} (the same cells as its "
+            "plain versions')")
     return worst
 
 
@@ -277,8 +269,7 @@ class Fuzz:
             return loss_route(z, labels, ilen, slen, backend=backend,
                               blank=case.blank, bands=bands)
 
-        with config_override(pipeline=case.pipeline):
-            got = costs_and_grads(lambda z: padded("cuda", z), x)
+        got = costs_and_grads(lambda z: padded("cuda", z), x)
         ref = costs_and_grads(lambda z: padded("reference", z), x)
         errs = list(compare(got, ref, what="kernel route", **kw))
         layout = None

@@ -12,11 +12,12 @@ the oracle on random shapes (small, large V, long S, where S1 > 256 takes
 the scans' block chain, odd V, the banded long sequence); the shapes that
 were VMEM boundaries on the TPU, as large-shape parity; the packed band
 layout; the cost-only route, bf16 inputs, the deferred route against the
-forward-made gradient times the cotangent, the forced split route; the
-data- and vocab-sharded losses on a one-rank gloo group; the fused-joint
-loss; streaming decode against full decode; the export round trip; and the
-two shapes that the TPU's DP-tile gate sent to its split pipeline
-("over-cap"; the port takes its deferred route at every shape). It prints
+forward-made gradient times the cotangent, a blank of V-1 with repeated
+labels; the data- and vocab-sharded losses on a one-rank gloo group; the
+fused-joint loss; streaming decode against full decode; the export round
+trip; and the two shapes that the TPU's DP-tile gate sent to its split
+pipeline ("over-cap"; the port takes its deferred route at every shape).
+It prints
 one PASS/FAIL line per check and exits nonzero on any failure. --only and
 --skip (each repeatable) run only, or skip, the checks whose name contains
 one of their substrings. With --device cpu (no fallback: without it a
@@ -45,7 +46,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import config_override
 from ..ops import bands as bd
 from ..ops.cuda import banded_kernels as BK
 from ..ops.cuda.fused import rnnt_loss_cuda
@@ -248,8 +248,7 @@ def run(acc: Acceptance) -> None:
         check(err < 1e-3, f"dp {dp}, tp {tp}, oracle {want}")
         return err
 
-    def dp_grad(seed, pipeline="auto", dtype=torch.float32, tol_v=1e-3,
-                tol_g=1e-4):
+    def dp_grad(seed, dtype=torch.float32, tol_v=1e-3, tol_g=1e-4):
         """The data-parallel loss's value and gradient (through a cast to
         `dtype` where it is not f32) against the oracle's on the same
         logits, its gradient over B."""
@@ -258,10 +257,9 @@ def run(acc: Acceptance) -> None:
                                             256 if dtype != torch.float32
                                             else 512)
         x = logits.to(dtype) if dtype != torch.float32 else logits
-        with config_override(pipeline=pipeline):
-            loss = make_data_parallel_loss(mesh())
-            val, g = costs_and_grads(
-                lambda z: loss(z.to(dtype), labels, il, sl), logits)
+        loss = make_data_parallel_loss(mesh())
+        val, g = costs_and_grads(lambda z: loss(z.to(dtype), labels, il, sl),
+                                 logits)
         c_ref, g_ref = costs_and_grads(lambda z: oracle(z, labels, il, sl), x)
         return max(assert_close(val, c_ref.mean(), tol_v, 0.0, "value"),
                    assert_close(g, g_ref.float() / logits.shape[0], tol_g,
@@ -272,8 +270,8 @@ def run(acc: Acceptance) -> None:
                   sharded)
         acc.check("dp sharded gradient (deferred route, one-rank gloo "
                   "group)", lambda: dp_grad(6))
-        acc.check("dp sharded loss+grad, pipeline='split' forced (one-rank "
-                  "gloo group)", lambda: dp_grad(9, pipeline="split"))
+        acc.check("dp sharded loss+grad, seed 9 (deferred route, one-rank "
+                  "gloo group)", lambda: dp_grad(9))
         acc.check("dp sharded bf16 loss+grad (deferred route, one-rank gloo "
                   "group)", lambda: dp_grad(10, dtype=torch.bfloat16,
                                             tol_v=0.1, tol_g=5e-3))
@@ -446,7 +444,7 @@ def run(acc: Acceptance) -> None:
 
     acc.check("export round-trip == live pipeline", export_roundtrip)
 
-    def split_forced_parity():
+    def last_blank_parity():
         rng = np.random.RandomState(23)
         B, T, S, V = 4, 48, 12, 384
         labels = rng.randint(0, V - 1, (B, S)).astype(np.int32)
@@ -455,16 +453,15 @@ def run(acc: Acceptance) -> None:
         logits = acc.host(rng.randn(B, T, S + 1, V).astype(np.float32))
         la, il, sl = int32(dev, labels, rng.randint(S + 1, T + 1, (B,)),
                               [S, S - 3, 0, S])
-        with config_override(pipeline="split"):
-            c1, g1 = costs_and_grads(lambda z: kernel(z, la, il, sl,
-                                                  blank=V - 1), logits)
+        c1, g1 = costs_and_grads(lambda z: kernel(z, la, il, sl, blank=V - 1),
+                                 logits)
         c2, g2 = costs_and_grads(lambda z: oracle(z, la, il, sl, blank=V - 1),
                                  logits)
         return max(assert_close(c1, c2, 1e-3, 0.0, "costs"),
                    assert_close(g1, g2, 5e-4, 0.0, "grads"))
 
-    acc.check("split pipeline forced (blank=V-1, repeats)",
-              split_forced_parity)
+    acc.check("parity blank=V-1 with repeated labels (kernel route)",
+              last_blank_parity)
 
     def over_cap(B, T, S, V, seed, with_grads, full_lengths):
         """The kernel route on the whole batch, the oracle a half-batch at

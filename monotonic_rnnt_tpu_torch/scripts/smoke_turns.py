@@ -10,7 +10,7 @@ its output kept in ``DIR/run<i>-<parent|change>.log``; ``--order`` gives
 the turns (``p`` parent, ``c`` change). From each run: the card's name
 and power limit; every kernel's ``ms`` (its wrapper, one call from an
 idle card, host prelude included) and ``queued_ms`` from the kernels JSON
-line; the end-to-end lines' figures (the padded, split and banded
+line; the end-to-end lines' figures (the padded and banded
 ``*fwd_bwd_ms``, the fused-joint and banded fused-joint step ms, and every
 other number on those lines); the script's total seconds. Prints one JSON
 object: the runs, and for each figure its values in the parent's runs and
@@ -28,7 +28,6 @@ from pathlib import Path
 
 # The log lines whose JSON tail holds end-to-end figures, by prefix.
 E2E_LINES = {"end-to-end loss at": "padded",
-             "end-to-end split loss at": "split",
              "end-to-end banded loss at": "banded",
              "end-to-end fused-joint losses at": "fused_joint",
              "traced routes (": "traced"}

@@ -16,10 +16,8 @@ compiled contract, with shapes and dtypes checked at call time.
 A JAX artifact lowers for several platforms at once; an artifact here
 holds the device it was traced on (its tensors' device), and
 ``import_fn(blob, device=...)`` moves it to another. The ``cuda`` loss holds
-the kernels of the pipeline the config names as ``torch.ops.mrnnt``
-operators (ops/cuda/kernels.py): rows 1-2 (``stats_alpha_fused``,
-``beta_grad_fused``), or under ``pipeline='split'`` rows 3, 4 and 6
-(``softmax_stats``, ``fwdbwd_scan``, ``grad_pass``), so it serves CUDA
+rows 1-2 (``stats_alpha_fused``, ``beta_grad_fused``) and their glue as
+``torch.ops.mrnnt`` operators (ops/cuda/kernels.py), so it serves CUDA
 devices only. An artifact checks no length values: those are data, as on a
 JAX artifact, whose traced lengths skip the value checks.
 """
@@ -118,10 +116,9 @@ def export_loss(example_logits, example_labels, example_input_lengths,
     batch, on the unrestricted lattice.
 
     backend: "reference" (default) holds the plain-torch oracle; "cuda"
-    holds the operators the live route of the config's pipeline calls,
-    gradient scale 1, and needs device="cuda": rows 1 then 2
-    (stats_alpha_fused, beta_grad_fused), or under pipeline='split' rows
-    3, 4 and 6 (softmax_stats, fwdbwd_scan, grad_pass).
+    holds the operators rnnt_loss_cuda calls, gradient scale 1, and needs
+    device="cuda": rows 1 then 2 (stats_alpha_fused, beta_grad_fused) with
+    their glue.
     """
     if backend not in _LOSS_BACKENDS:
         raise ValueError(f"backend must be one of {_LOSS_BACKENDS}, got "

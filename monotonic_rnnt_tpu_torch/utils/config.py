@@ -1,11 +1,13 @@
 """Runtime configuration flags.
 
 PyTorch counterpart of ``monotonic_rnnt_tpu/utils/config.py``: the loss
-backend, the pipeline and the debug flags, each settable by the same
-environment variable as in the JAX package or programmatically. The debug
-flags (the reference's DEBUG_* printf macros) are read by utils/debug.py.
-The JAX package's ``interpret`` flag has no counterpart: the kernels' plain
-versions serve CPU tensors.
+backend and the debug flags, each settable by the same environment
+variable as in the JAX package or programmatically. The debug flags (the
+reference's DEBUG_* printf macros) are read by utils/debug.py. The JAX
+package's ``interpret`` flag has no counterpart: the kernels' plain
+versions serve CPU tensors. Nor has its ``pipeline`` flag: the padded loss
+has one CUDA route, the DP-fused kernels with the deferred gradient, at
+every shape (the JAX package's VMEM gate has no counterpart).
 """
 
 from __future__ import annotations
@@ -30,15 +32,6 @@ class Config:
       CUDA kernels on CUDA tensors and the plain-torch oracle on CPU
       tensors; 'cuda' insists on the kernels (the JAX package's 'pallas');
       'reference' forces the oracle on any device.
-    pipeline: 'auto' | 'fused' | 'split', the orchestration of the padded
-      loss on the 'cuda' backend. 'auto' takes the DP-fused kernels and the
-      deferred-gradient route at every shape (the JAX package's VMEM gate
-      has no counterpart); 'fused' is an alias of 'auto', the JAX
-      package's name for that route. 'split' forces the split pipeline
-      (softmax_stats, the scans, grad_pass), whose forward makes the
-      gradient (the eager route); it is slower and serves as the JAX
-      package's parity route. Neither route ever becomes the other. A value
-      outside the three raises where it is set.
     debug_time: wall-clock each public loss call (reference DEBUG_TIME),
       after the card has finished its work; not inside an exported graph.
     debug_fwdbwd / debug_grads: per-call log-likelihood prints and gradient
@@ -51,25 +44,12 @@ class Config:
     """
 
     backend: str = os.environ.get("MRNNT_BACKEND", "auto")
-    pipeline: str = os.environ.get("MRNNT_PIPELINE", "auto")
     debug_time: bool = _env_bool("MRNNT_DEBUG_TIME", False)
     debug_space: bool = _env_bool("MRNNT_DEBUG_SPACE", False)
     debug_fwdbwd: bool = _env_bool("MRNNT_DEBUG_FWDBWD", False)
     debug_grads: bool = _env_bool("MRNNT_DEBUG_GRADS", False)
     check_fwd_bwd: bool = _env_bool("MRNNT_CHECK_FWD_BWD", False)
     fwd_bwd_tol: float = float(os.environ.get("MRNNT_FWD_BWD_TOL", "0.1"))
-
-    def __post_init__(self):
-        _check_pipeline(self.pipeline)
-
-
-PIPELINES = ("auto", "fused", "split")
-
-
-def _check_pipeline(value) -> None:
-    if value not in PIPELINES:
-        raise ValueError(f"pipeline must be one of {PIPELINES}, got "
-                         f"{value!r}")
 
 
 _config = Config()
@@ -80,11 +60,9 @@ def get_config() -> Config:
 
 
 def update_config(**kwargs) -> Config:
-    for key, value in kwargs.items():
+    for key in kwargs:
         if not hasattr(_config, key):
             raise AttributeError(f"unknown config field: {key}")
-        if key == "pipeline":
-            _check_pipeline(value)
     for key, value in kwargs.items():
         setattr(_config, key, value)
     return _config
@@ -93,7 +71,7 @@ def update_config(**kwargs) -> Config:
 @contextmanager
 def config_override(**kwargs):
     """Temporarily override config fields (test / debug scoping)."""
-    saved = {k: getattr(_config, k) for k in kwargs}
+    saved = {k: getattr(_config, k) for k in kwargs if hasattr(_config, k)}
     update_config(**kwargs)
     try:
         yield _config

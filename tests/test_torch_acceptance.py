@@ -25,7 +25,7 @@ CPU_SIZED = [
     "bf16 inputs (grads written bf16)",
     "dp and dp-tp sharded losses (one-rank gloo group)",
     "dp sharded gradient (deferred route, one-rank gloo group)",
-    "dp sharded loss+grad, pipeline='split' forced (one-rank gloo group)",
+    "dp sharded loss+grad, seed 9 (deferred route, one-rank gloo group)",
     "dp sharded bf16 loss+grad (deferred route, one-rank gloo group)",
     "deferred-gradient route == forward-produced grads * ct",
     "banded packed pipeline (3,64,16,256, shift 2)",
@@ -33,7 +33,7 @@ CPU_SIZED = [
     "fused-joint loss parity (loss + enc/pred/param grads)",
     "streaming greedy+beam(+LM) == full decode",
     "export round-trip == live pipeline",
-    "split pipeline forced (blank=V-1, repeats)",
+    "parity blank=V-1 with repeated labels (kernel route)",
 ]
 CPU = torch.device("cpu")
 

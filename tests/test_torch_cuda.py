@@ -1,5 +1,5 @@
 """The port's CUDA kernels on a GPU: each against its plain version, and the
-padded (DP-fused and split) and banded losses and the fused-joint losses
+padded (DP-fused) and banded losses and the fused-joint losses
 through them against the plain-torch oracles; the copy-ceiling kernels bit
 for bit; the packed binding and Viterbi alignment through the kernels; the
 stats kernels (rows 1, 3, 7, 10) against each other bit for bit and against
@@ -340,7 +340,7 @@ def test_exported_cuda_loss_past_the_padded_shape(device):
     assert bool(torch.isnan(flat[lg.numel():]).all())
 
 
-@pytest.mark.parametrize("route", ["fused", "split", "sharded"])
+@pytest.mark.parametrize("route", ["deferred", "sharded"])
 def test_a_nan_cost_stays_nan_through_the_scans(device, group_of_one, route):
     """A row of +inf logits at lattice cell (0, 0) of sample 1: its stats
     are NaN and the scans' first step meets them with -inf, LSE(NaN, -inf),
@@ -361,8 +361,7 @@ def test_a_nan_cost_stays_nan_through_the_scans(device, group_of_one, route):
                 x, lb, il, sl, bands.min_s, bands.max_s, 0, group_of_one)
         else:
             from monotonic_rnnt_tpu_torch.scripts._cases import loss_route
-            with mt.config_override(pipeline=route):
-                costs = loss_route(x, lb, il, sl, backend="cuda")
+            costs = loss_route(x, lb, il, sl, backend="cuda")
         costs.sum().backward()
         return costs.detach().cpu(), x.grad.cpu()
 
@@ -718,8 +717,6 @@ def test_banded_golden_alignment_losses_on_gpu(device):
                                        atol=1e-4)
 
 
-# --- the split pipeline ----------------------------------------------------------
-
 # --- the stats reduction's order (csrc/common.cuh), as a torch model ------------
 
 def _equal(got, want):
@@ -802,34 +799,6 @@ def test_split_scan_kernels_match_plain(device, shape):
         assert torch.equal(torch.isfinite(got), torch.isfinite(want))
         _close(got, want, 1e-4, 1e-5)
     assert torch.equal(a_only, alphas) and torch.equal(b_only, betas)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_split_loss_through_kernels_matches_oracle(device, dtype):
-    logits, labels, ilen, slen = golden.repeat_label_case(7, 4, 30, 8, 300)
-    lg, lb, il, sl = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
-                                                    device=device, dtype=dtype)
-    w = torch.tensor([1.0, -0.5, 2.0, 0.25], device=device)
-    out = {}
-    for backend in ("cuda", "reference"):
-        K.reset_launch_counts()
-        x = lg.clone().requires_grad_(True)
-        with mt.config_override(pipeline="split"):
-            costs = mt.monotonic_rnnt_loss(x, lb, il, sl, backend=backend)
-            (costs * w).sum().backward()
-        torch.cuda.synchronize()
-        out[backend] = (costs.detach(), x.grad, _launched())
-    assert out["cuda"][2] == {"softmax_stats": 1, "fwdbwd_scan": 1,
-                              "grad_pass": 1}
-    assert out["cuda"][1].dtype == dtype
-    _close(out["cuda"][0], out["reference"][0], 1e-4, 1e-5)
-    _close(out["cuda"][1], out["reference"][1], 1e-6,
-           1.6e-2 if dtype == torch.bfloat16 else 1e-4)
-    K.reset_launch_counts()
-    with torch.no_grad(), mt.config_override(pipeline="split"):
-        costs = mt.monotonic_rnnt_loss(lg, lb, il, sl)
-    assert _launched() == {"softmax_stats": 1, "alpha_scan": 1}
-    assert torch.equal(costs, out["cuda"][0])
 
 
 # --- the fused-joint losses --------------------------------------------------------
@@ -1516,28 +1485,6 @@ def _band_case(device):
             bands.min_s, bands.max_s)
 
 
-def _split_live(*args):
-    with mt.config_override(pipeline="split"):
-        return fused.rnnt_loss_cuda(*args)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_exported_split_loss_equals_the_live_split_route(device, dtype):
-    """export_loss(backend='cuda') under pipeline='split': the artifact
-    launches rows 3, 4 and 6 once each, every launch a held operator call,
-    and equals the live split route bit for bit."""
-    from monotonic_rnnt_tpu_torch import serving
-
-    args = _traced_case(device, dtype)
-    with mt.config_override(pipeline="split"):
-        blob = serving.export_loss(*args, backend="cuda")
-    want, want_launches = _launches_of(lambda: _split_live(*args))
-    got, got_launches = _launches_of(lambda: serving.import_fn(blob)(*args))
-    assert got_launches == want_launches == {
-        "softmax_stats": 1, "fwdbwd_scan": 1, "grad_pass": 1}
-    _assert_equal(got, want)
-
-
 def test_exported_routes_equal_the_live_calls(device):
     """The banded kernel route (costs and grads), the fused-joint loss's
     cost-only forward and Viterbi with the occupancies, each through
@@ -1583,7 +1530,7 @@ def test_exported_routes_equal_the_live_calls(device):
         _assert_equal(got, want)
 
 
-@pytest.mark.parametrize("route", ["deferred", "split", "banded"])
+@pytest.mark.parametrize("route", ["deferred", "banded"])
 def test_compiled_losses_equal_eager(device, route):
     """torch.compile(fullgraph=True, backend='aot_eager') of the public
     losses, forward and backward (a weighted sum of the costs): the first
@@ -1604,11 +1551,9 @@ def test_compiled_losses_equal_eager(device, route):
         grads, = torch.autograd.grad((costs * weights).sum(), leaf)
         return costs.detach(), grads
 
-    pipeline = "split" if route == "split" else "auto"
-    with mt.config_override(pipeline=pipeline):
-        want, want_launches = _launches_of(lambda: step(fn))
-        compiled = torch.compile(fn, fullgraph=True, backend="aot_eager")
-        got, got_launches = _launches_of(lambda: step(compiled))
+    want, want_launches = _launches_of(lambda: step(fn))
+    compiled = torch.compile(fn, fullgraph=True, backend="aot_eager")
+    got, got_launches = _launches_of(lambda: step(compiled))
     torch._dynamo.reset()
     assert want_launches and got_launches == want_launches
     _assert_equal(got, want)

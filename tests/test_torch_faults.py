@@ -11,7 +11,8 @@
 * At large logit margins the gradient overflows (0 * inf) while the cost
   stays finite, in the port as in the JAX oracle: the same non-finite
   cells at c = 50, 100 and 1e4, on the oracle and on the plain versions of
-  the deferred and split routes.
+  rows 1-2 (the deferred route) and of the split kernels (the vocab-sharded
+  loss on a one-rank gloo group: rows 10, 4 and 6).
 
 Tolerances: costs 1e-5 relative and gradients 1e-4 + 1e-6 against the JAX
 package (tests/test_torch_reference.py's agreement of the two oracles);
@@ -35,7 +36,7 @@ from monotonic_rnnt_tpu.ops import bands as jbands
 from monotonic_rnnt_tpu.ops.reference import rnnt_loss_reference as j_ref
 from monotonic_rnnt_tpu.parallel import make_mesh
 from monotonic_rnnt_tpu.parallel import sharding as jsharding
-from monotonic_rnnt_tpu_torch import config_override, serving
+from monotonic_rnnt_tpu_torch import serving
 from monotonic_rnnt_tpu_torch.ops.cuda import fused
 from monotonic_rnnt_tpu_torch.parallel import sharding as tsharding
 from monotonic_rnnt_tpu_torch.scripts._cases import (loss_route,
@@ -233,24 +234,26 @@ def _overflow_case(scale):
 
 @pytest.mark.parametrize("route", ["oracle", "deferred", "split"])
 @pytest.mark.parametrize("scale", [50.0, 100.0, 1e4])
-def test_overflow_cells_are_the_jax_oracles(route, scale):
+def test_overflow_cells_are_the_jax_oracles(group, route, scale):
     """Costs stay finite; the gradient's non-finite values sit on exactly
     the JAX oracle's cells (3, 11, 20 of them), on the port's oracle and on
-    the plain versions of rows 1-2 (deferred) and rows 3, 4, 6 (split); the
+    the plain versions of rows 1-2 (deferred) and of the split kernels,
+    rows 10, 4 and 6 (the vocab-sharded loss on a one-rank group); the
     finite cells agree. The formula is JAX's, kept: parity, not a fix."""
     case = _overflow_case(scale)
     want_c, want_g = (np.asarray(a) for a in jax.jit(j_ref)(
         *(jnp.asarray(a) for a in case)))
     x = torch.from_numpy(case[0]).requires_grad_(True)
     rest = T_(*case[1:])
-    if route == "oracle":
-        costs = mt.monotonic_rnnt_loss(x, *rest, backend="reference")
+    if route == "split":
+        got_c, got_g = _port_sharded(False, group, case[0], *case[1:],
+                                     *_sharded_case(*case, False)[1:])
     else:
-        with config_override(pipeline="fused" if route == "deferred"
-                             else "split"):
-            costs = loss_route(x, *rest, backend="cuda")
-    costs.sum().backward()
-    got_c, got_g = costs.detach().numpy(), x.grad.numpy()
+        costs = (mt.monotonic_rnnt_loss(x, *rest, backend="reference")
+                 if route == "oracle" else loss_route(x, *rest,
+                                                      backend="cuda"))
+        costs.sum().backward()
+        got_c, got_g = costs.detach().numpy(), x.grad.numpy()
     bad = ~np.isfinite(want_g)
     assert np.isfinite(want_c).all() and np.isfinite(got_c).all()
     assert int(bad.sum()) == {50.0: 3, 100.0: 11, 1e4: 20}[scale]

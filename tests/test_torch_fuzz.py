@@ -26,7 +26,6 @@ import torch
 from monotonic_rnnt_tpu.ops.bands import \
     bands_from_alignment as j_bands_from_alignment
 from monotonic_rnnt_tpu.ops.reference import rnnt_loss_reference as j_ref
-from monotonic_rnnt_tpu_torch import config_override
 from monotonic_rnnt_tpu_torch.ops.reference import compute_stats
 from monotonic_rnnt_tpu_torch.scripts import fuzz_gpu as F
 from monotonic_rnnt_tpu_torch.scripts._cases import (CheckFailed,
@@ -34,7 +33,7 @@ from monotonic_rnnt_tpu_torch.scripts._cases import (CheckFailed,
                                                      one_rank_group)
 
 ROOT = Path(__file__).resolve().parents[1]
-SMALL_CAP = 60000
+SMALL_CAP = 5000
 N_DRAWS = 300
 
 
@@ -74,7 +73,6 @@ def test_draw_case_covers_every_value_set_and_added_dimension():
     assert {c.T for c in cases} == set(F.T_SET)
     assert {c.V for c in cases} == set(F.V_SET)
     assert {c.scale for c in cases} == set(F.SCALES)
-    assert {c.pipeline for c in cases} == set(F.PIPELINES)
     assert {c.shift for c in cases} == {None, 0, 1, 2, 3, 4}
     for flag in ("bf16", "sharded", "export"):
         assert {getattr(c, flag) for c in cases} == {False, True}
@@ -141,10 +139,9 @@ def test_small_drawn_case_passes_and_matches_jax(fuzz, index):
     if case.align is not None:
         bands = F.bd.bands_from_alignment(torch.from_numpy(case.align), ilen,
                                           slen, case.shift, case.blank)
-    with config_override(pipeline=case.pipeline):
-        got = costs_and_grads(lambda z: F.loss_route(
-            z, labels, ilen, slen, backend="cuda", blank=case.blank,
-            bands=bands), x)
+    got = costs_and_grads(lambda z: F.loss_route(
+        z, labels, ilen, slen, backend="cuda", blank=case.blank,
+        bands=bands), x)
     want = _jax_oracle(case, x)
     # XLA's exp on the CPU flushes a subnormal result to 0; torch's (and
     # the card's) keeps it. Where p(v|t,s) is subnormal, a near-overflowing

@@ -42,7 +42,7 @@ from monotonic_rnnt_tpu.ops import alignment as jal
 from monotonic_rnnt_tpu.ops import bands as jbands
 from monotonic_rnnt_tpu.ops.banded import \
     monotonic_rnnt_loss_banded as jax_banded
-from monotonic_rnnt_tpu_torch import config_override, convert, serving
+from monotonic_rnnt_tpu_torch import convert, serving
 from monotonic_rnnt_tpu_torch.ops import alignment as tal
 from monotonic_rnnt_tpu_torch.ops import banded as tbanded
 from monotonic_rnnt_tpu_torch.ops import bands as tbands
@@ -131,11 +131,6 @@ def _fused_joint_loss(joint):
     return loss
 
 
-def _split_route(logits, labels, ilen, slen):
-    with config_override(pipeline="split"):
-        return fused.rnnt_loss_cuda(logits, labels, ilen, slen)
-
-
 def _banded_route(band, labels, ilen, slen, band_min, band_max):
     return cbanded.rnnt_loss_banded_cuda(band, labels, ilen, slen,
                                          tbands.Bands(band_min, band_max))
@@ -185,7 +180,7 @@ def _route_calls(dtype_name):
     """Every operator call of the kernel routes on the CPU, in `dtype`."""
     dtype = DTYPES[dtype_name]
     rec = _Recorder(torch.ops.mrnnt)
-    real_ops = torch.ops.mrnnt
+    real_ops, use_kernels = torch.ops.mrnnt, tal._use_kernels
     torch.ops.mrnnt = rec
     try:
         x, lab, il, sl = _padded(dtype=dtype)
@@ -195,9 +190,6 @@ def _route_calls(dtype_name):
                                       bands.max_s, 0, "cuda")
         (costs * WEIGHTS).sum().backward()
         fused.rnnt_loss_cuda(x, lab, il, sl)
-        with config_override(pipeline="split"):
-            fused.rnnt_loss_cuda(x, lab, il, sl)
-            fused.rnnt_loss_cuda(x, lab, il, sl, with_grads=False)
         band_args, _ = _banded(dtype=dtype)
         _banded_route(*band_args)
         cbanded.rnnt_loss_banded_cuda(*band_args[:4],
@@ -214,8 +206,11 @@ def _route_calls(dtype_name):
             bands=tb,
             band_width=w, chunk_t=CHUNK).sum().backward()
         tsk.softmax_stats_partial(x)
+        tal._use_kernels = lambda x: True
+        _alignment_route(*_padded())      # f32: rows 3 and 4 (fwdbwd_scan)
     finally:
         torch.ops.mrnnt = real_ops
+        tal._use_kernels = use_kernels
     return rec.calls
 
 
@@ -367,10 +362,25 @@ def _fused_joint_route(dtype):
     return _fused_joint_loss(joint), args
 
 
+def _split_route(dtype):
+    """The split kernels on the band (rows 3 and 5): the banded fused-joint
+    loss's cost-only forward, a softmax_stats on per-t labels a T-chunk,
+    then the one alpha scan."""
+    (band, _, _, _, lo, hi), _ = _banded(dtype=dtype)
+    args, _ = _fused_joint(dtype=dtype)
+
+    def loss(enc, pred, labels, ilen, slen, w, band_min, band_max):
+        return mt.rnnt_loss_fused_joint_banded(
+            enc, pred, labels, ilen, slen, _band_joint(dtype), {"w": w},
+            bands=tbands.Bands(band_min, band_max), band_width=band.shape[2],
+            chunk_t=CHUNK)
+    return loss, (*args, lo, hi)
+
+
 # route -> dtype -> (the route's function, its CPU inputs)
 FAKE_ROUTES = {
     "padded-deferred": lambda dt: (_deferred_route, _padded(dtype=dt)),
-    "split": lambda dt: (_split_route, _padded(dtype=dt)),
+    "split": _split_route,
     "banded": lambda dt: (_banded_route, _banded(dtype=dt)[0]),
     "banded-cost-only": lambda dt: (_banded_cost_only, _banded(dtype=dt)[0]),
     "fused-joint-forward": _fused_joint_route,
@@ -482,20 +492,13 @@ def _assert_jax(costs, grads, want):
                                    atol=1e-6)
 
 
-def test_split_route_exports_rows_3_4_6():
+def test_cost_only_route_exports_row_1():
+    """The padded loss's cost-only call: row 1 between its two glue
+    operators, and no row 2."""
     args = _padded(seed=1)
-    costs, grads = _exported(_split_route, args,
-                             ["softmax_stats", "fwdbwd_scan", "grad_pass"])
-    _assert_jax(costs, grads, _jax_costs_grads(*(a.numpy() for a in args)))
-
-
-def test_split_cost_only_route_exports_rows_3_5():
-    args = _padded(seed=1)
-
-    def cost_only(*a):
-        with config_override(pipeline="split"):
-            return fused.rnnt_loss_cuda(*a, with_grads=False)[0]
-    costs = _exported(cost_only, args, ["softmax_stats", "alpha_scan"])
+    costs = _exported(
+        lambda *a: fused.rnnt_loss_cuda(*a, with_grads=False)[0], args,
+        ["loss_prologue", "stats_alpha_fused", "loss_costs"])
     _assert_jax(costs, None, _jax_costs_grads(*(a.numpy() for a in args)))
 
 
@@ -568,11 +571,12 @@ def kernel_routes(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("pipeline", ["auto", "split"])
-def test_public_loss_compiles_fullgraph(kernel_routes, pipeline, dtype):
+@pytest.mark.parametrize("backend", ["auto"])
+def test_public_loss_compiles_fullgraph(kernel_routes, backend, dtype):
     x, *rest = _padded(seed=5, dtype=DTYPES[dtype])
-    with config_override(pipeline=pipeline):
-        _compiled_equals_eager(mt.monotonic_rnnt_loss, x, *rest)
+    _compiled_equals_eager(
+        lambda x, *a: mt.monotonic_rnnt_loss(x, *a, backend=backend), x,
+        *rest)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -82,42 +82,28 @@ def test_export_shape_contract_enforced(loss_artifact):
         fn(bad, *t(labels[:2], ilen[:2], slen[:2]))
 
 
-def test_export_loss_refuses_what_it_cannot_hold(monkeypatch):
-    """backend='cuda' holds the kernels: only for device 'cuda'. Under
-    pipeline='split' it holds the split route's operators, rows 3, 4 and 6
-    (softmax_stats, fwdbwd_scan, grad_pass), and equals the live split
-    route bit for bit: traced here on the CPU tensors (export_fn keeps
-    them where they lie), where the operators run their plain versions."""
+def test_export_loss_refuses_what_it_cannot_hold():
+    """backend='cuda' holds the kernels: only for device 'cuda'; a backend
+    outside the two is refused."""
     case = t(*_loss_batch())
     with pytest.raises(ValueError, match="device='cuda'"):
         serving.export_loss(*case, device="cpu", backend="cuda")
     with pytest.raises(ValueError, match="backend must be"):
         serving.export_loss(*case, device="cpu", backend="pallas")
+
+
+def test_cuda_route_exports_rows_1_2_as_operators(monkeypatch):
+    """export_loss(backend='cuda'), traced on CPU tensors (export_fn keeps
+    them where they lie): the graph holds torch.ops.mrnnt.stats_alpha_fused
+    and beta_grad_fused once each, with the glue operators around them
+    (loss_prologue, loss_costs, beta_operands), and the artifact equals the
+    live route bit for bit (the same plain versions on the CPU, counted as
+    no launch)."""
+    case = t(*_loss_batch(seed=1))
     export_fn = serving.export_fn
     monkeypatch.setattr(serving, "export_fn",
                         lambda fn, args, device: export_fn(fn, args))
-    with config_override(pipeline="split"):
-        blob = serving.export_loss(*case, backend="cuda")
-        live_c, live_g = fused.rnnt_loss_cuda(*case)
-    program = torch.export.load(io.BytesIO(blob))
-    targets = [str(n.target) for n in program.graph.nodes
-               if n.op == "call_function" and "mrnnt" in str(n.target)]
-    assert targets == ["mrnnt.softmax_stats.default",
-                       "mrnnt.fwdbwd_scan.default",
-                       "mrnnt.grad_pass.default"]
-    costs, grads = serving.import_fn(blob)(*case)
-    assert torch.equal(costs, live_c) and torch.equal(grads, live_g)
-
-
-def test_cuda_route_exports_rows_1_2_as_operators():
-    """The cuda backend's function, traced on CPU tensors: the graph holds
-    torch.ops.mrnnt.stats_alpha_fused and beta_grad_fused once each, with
-    the glue operators around them (loss_prologue, loss_costs,
-    beta_operands), and the artifact equals the live route bit for bit
-    (the same plain versions on the CPU, counted as no launch)."""
-    case = t(*_loss_batch(seed=1))
-    blob = serving.export_fn(
-        lambda *a: fused.rnnt_loss_cuda(*a, blank_id=0), case)
+    blob = serving.export_loss(*case, backend="cuda")
     program = torch.export.load(io.BytesIO(blob))
     targets = [str(n.target) for n in program.graph.nodes
                if n.op == "call_function" and "mrnnt" in str(n.target)]

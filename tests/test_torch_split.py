@@ -1,11 +1,12 @@
-"""The port's split pipeline against the JAX package's.
+"""The port's split kernels against the JAX package's split pipeline.
 
 The four kernels' plain versions (softmax_stats, alpha_scan, beta_scan,
 fwdbwd_scan) against the Pallas kernels in interpret mode; a torch model of
 the CUDA stats reduction's order (tests/torch_stats_model.py's stats_model)
 against softmax_stats and softmax_stats_partial in interpret mode and the
-plain versions, with its -inf, NaN and +inf rules; and the split
-route (``pipeline='split'``) against ``rnnt_loss_pallas`` under the same
+plain versions, with its -inf, NaN and +inf rules; and the port's
+padded 'cuda' route (the DP-fused kernels, the only CUDA route of the
+padded loss) against ``rnnt_loss_pallas`` under the JAX package's split
 pipeline and against the oracle, on CPU tensors, where the port's wrappers
 take their plain versions. Tolerances: costs and statistics 1e-5 relative,
 gradients 1e-4 relative and 1e-5 absolute (f32).
@@ -29,7 +30,6 @@ from monotonic_rnnt_tpu.ops.reference import (compute_stats,
 from monotonic_rnnt_tpu.utils.config import config_override as jax_config
 from monotonic_rnnt_tpu_torch import convert
 from monotonic_rnnt_tpu_torch.ops import loss as tloss
-from monotonic_rnnt_tpu_torch.ops.cuda import fused
 from monotonic_rnnt_tpu_torch.ops.cuda import split_kernels as SK
 from monotonic_rnnt_tpu_torch.utils import config
 from test_torch_reference import nan_cost_case
@@ -313,7 +313,7 @@ def test_alpha_chain_model_matches_pallas_and_plain(s1):
                                atol=1e-6)
 
 
-# --- the split route ---------------------------------------------------------------
+# --- the padded 'cuda' route against the JAX split pipeline -----------------------
 
 def _loss_case(seed=29, blank=0):
     return golden.repeat_label_case(seed, 3, 16, 7, 33, blank_id=blank)
@@ -328,9 +328,26 @@ def _alignment(labels, ilen, slen, t, seed=3):
     return align
 
 
+def _cuda_route(logits, labels, ilen, slen, bands=None, blank=0,
+                weights=None):
+    """The port's padded 'cuda' route (tloss.loss_on_route: the deferred
+    route, whose operators run their plain versions on CPU tensors): the
+    costs and the gradient of the costs' sum, or of their sum weighted by
+    `weights`."""
+    if bands is None:
+        bands = mt.default_bands(ilen, slen, logits.shape[1])
+    x = logits.clone().requires_grad_(True)
+    costs = tloss.loss_on_route(x, labels, ilen, slen, bands, blank, "cuda")
+    (costs if weights is None else costs * weights).sum().backward()
+    return costs.detach(), x.grad
+
+
 @pytest.mark.parametrize("banded", [False, True], ids=["full", "band"])
 @pytest.mark.parametrize("blank", [0, 32])
 def test_split_route_matches_jax_split_pipeline_and_oracle(blank, banded):
+    """The port's padded 'cuda' route, its one CUDA route, against the JAX
+    package's split pipeline (Pallas, interpret mode) and the oracle: costs,
+    cost-only costs and the gradient."""
     lg, lb, il, sl = _loss_case(blank=blank)
     args = tuple(jnp.asarray(a) for a in (lg, lb, il, sl))
     j_bands = t_bands = None
@@ -345,12 +362,17 @@ def test_split_route_matches_jax_split_pipeline_and_oracle(blank, banded):
             "blank_id", "with_grads", "interpret"))(
             *args, blank_id=blank, bands=j_bands, interpret=True)
     c_ref, g_ref = rnnt_loss_reference(*args, blank_id=blank, bands=j_bands)
+    # JAX's asynchronous CPU work ends first: run beside it, the port's first
+    # CPU call was seen (under pytest-xdist) to round a cost apart.
+    jax.block_until_ready((c_pal, g_pal, c_ref, g_ref))
     t_in = convert.loss_inputs_from_numpy(lg, lb, il, sl, device="cpu")
-    with mt.config_override(pipeline="split"):
-        c, g = fused.rnnt_loss_cuda(*t_in, blank_id=blank, bands=t_bands)
-        c_only, none = fused.rnnt_loss_cuda(*t_in, blank_id=blank,
-                                            bands=t_bands, with_grads=False)
-    assert none is None and torch.equal(c_only, c)
+    c, g = _cuda_route(*t_in, bands=t_bands, blank=blank)
+    with torch.no_grad():
+        c_only = tloss.loss_on_route(
+            t_in[0], *t_in[1:],
+            t_bands or mt.default_bands(t_in[2], t_in[3], lg.shape[1]),
+            blank, "cuda")
+    assert torch.equal(c_only, c)
     for want_c, want_g in ((c_pal, g_pal), (c_ref, g_ref)):
         np.testing.assert_allclose(c.numpy(), np.asarray(want_c), rtol=1e-5)
         np.testing.assert_allclose(g.numpy(), np.asarray(want_g), rtol=1e-4,
@@ -358,17 +380,20 @@ def test_split_route_matches_jax_split_pipeline_and_oracle(blank, banded):
 
 
 def _counting(monkeypatch):
-    """Counts the calls of every kernel wrapper ops/cuda/fused.py makes."""
-    calls = {}
-    for name in ("softmax_stats", "fwdbwd_scan", "alpha_scan", "grad_pass",
-                 "stats_alpha_fused", "beta_grad_fused"):
-        fn = getattr(fused, name)
+    """Counts the calls of every ``torch.ops.mrnnt`` operator: the kernel
+    rows and the glue kernels, each running its plain version on the CPU."""
+    calls, real = {}, torch.ops.mrnnt
 
-        def shim(*a, _fn=fn, _name=name, **k):
-            calls[_name] = calls.get(_name, 0) + 1
-            return _fn(*a, **k)
+    class Counting:
+        def __getattr__(self, name):
+            op = getattr(real, name)
 
-        monkeypatch.setattr(fused, name, shim)
+            def call(*a, **k):
+                calls[name] = calls.get(name, 0) + 1
+                return op(*a, **k)
+            return call
+
+    monkeypatch.setattr(torch.ops, "mrnnt", Counting())
     return calls
 
 
@@ -386,76 +411,91 @@ def _jax_weighted(lg, lb, il, sl, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_eager_route_training_step_matches_jax(monkeypatch, dtype):
+def test_eager_route_training_step_matches_jax(dtype):
+    """A weighted training step (one negative cotangent) on the eager route,
+    the reference backend's (the oracle's forward makes the gradient, the
+    backward scales it), and on the 'cuda' route (the cotangent folded
+    into row 2) against the JAX package's split pipeline (Pallas,
+    interpret mode); their cost-only calls equal."""
     lg, lb, il, sl = _loss_case(seed=31)
     v_j, g_j = _jax_weighted(lg, lb, il, sl, dtype)
     lg_t, lb_t, il_t, sl_t = convert.loss_inputs_from_numpy(
         lg, lb, il, sl, device="cpu", dtype=getattr(torch, dtype))
     bands = mt.default_bands(il_t, sl_t, lg.shape[1])
-    calls = _counting(monkeypatch)
-    x = lg_t.clone().requires_grad_(True)
-    with mt.config_override(pipeline="split"):
-        costs = tloss._LossCore.apply(x, lb_t, il_t, sl_t, bands.min_s,
-                                      bands.max_s, 0, "cuda")
-        (costs * _t(WEIGHTS)).sum().backward()
-        assert calls == {"softmax_stats": 1, "fwdbwd_scan": 1, "grad_pass": 1}
-        calls.clear()
-        with torch.no_grad():
-            c_only = mt.monotonic_rnnt_loss(x, lb_t, il_t, sl_t,
-                                            backend="reference")
-            c_cuda = tloss._LossCore.apply(x.detach(), lb_t, il_t, sl_t,
-                                           bands.min_s, bands.max_s, 0,
-                                           "cuda")
-        assert calls == {"softmax_stats": 1, "alpha_scan": 1}
-    assert x.grad.dtype == getattr(torch, dtype)
-    np.testing.assert_allclose(c_cuda.numpy(), c_only.numpy(), rtol=1e-5)
-    np.testing.assert_allclose(float((costs.detach() * _t(WEIGHTS)).sum()),
-                               float(v_j), rtol=1e-5)
     bf16 = dtype == "bfloat16"
-    # bf16: both round an f32 gradient scaled by the same cotangent.
-    np.testing.assert_allclose(x.grad.float().numpy(),
-                               np.asarray(g_j.astype(jnp.float32)),
-                               rtol=8e-3 if bf16 else 1e-4, atol=1e-5)
+    c_only = {}
+    for route in ("reference", "cuda"):
+        x = lg_t.clone().requires_grad_(True)
+        costs = tloss._LossCore.apply(x, lb_t, il_t, sl_t, bands.min_s,
+                                      bands.max_s, 0, route)
+        (costs * _t(WEIGHTS)).sum().backward()
+        with torch.no_grad():
+            c_only[route] = tloss._LossCore.apply(
+                x.detach(), lb_t, il_t, sl_t, bands.min_s, bands.max_s, 0,
+                route)
+        assert x.grad.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(
+            float((costs.detach() * _t(WEIGHTS)).sum()), float(v_j),
+            rtol=1e-5)
+        # bf16: each side rounds its own f32 gradient, scaled by the same
+        # cotangent: one bf16 ulp apart at most.
+        np.testing.assert_allclose(x.grad.float().numpy(),
+                                   np.asarray(g_j.astype(jnp.float32)),
+                                   rtol=8e-3 if bf16 else 1e-4, atol=1e-5)
+    np.testing.assert_allclose(c_only["cuda"].numpy(),
+                               c_only["reference"].numpy(), rtol=1e-5)
 
 
 def test_fused_pipeline_takes_the_deferred_route(monkeypatch):
+    """A training step on the 'cuda' route runs row 1 (stats_alpha_fused)
+    and row 2 (beta_grad_fused) once each, with their glue, and none of
+    rows 3-6 (the split kernels); a cost-only call runs row 1 and its glue."""
     lg, lb, il, sl = convert.loss_inputs_from_numpy(*_loss_case(), device="cpu")
     bands = mt.default_bands(il, sl, lg.shape[1])
     calls = _counting(monkeypatch)
-    for pipeline in ("auto", "fused"):
-        calls.clear()
-        x = lg.clone().requires_grad_(True)
-        with mt.config_override(pipeline=pipeline):
-            tloss._LossCore.apply(x, lb, il, sl, bands.min_s, bands.max_s, 0,
-                                  "cuda").sum().backward()
-        assert calls == {"stats_alpha_fused": 1, "beta_grad_fused": 1}
-    with pytest.raises(ValueError, match="pipeline must be one of"):
-        with mt.config_override(pipeline="eager"):
-            pass
-    assert mt.get_config().pipeline == "auto"
+    x = lg.clone().requires_grad_(True)
+    tloss._LossCore.apply(x, lb, il, sl, bands.min_s, bands.max_s, 0,
+                          "cuda").sum().backward()
+    assert calls == {"loss_prologue": 1, "stats_alpha_fused": 1,
+                     "loss_costs": 1, "beta_operands": 1,
+                     "beta_grad_fused": 1}
+    calls.clear()
+    with torch.no_grad():
+        tloss._LossCore.apply(x, lb, il, sl, bands.min_s, bands.max_s, 0,
+                              "cuda")
+    assert calls == {"loss_prologue": 1, "stats_alpha_fused": 1,
+                     "loss_costs": 1}
 
 
 @pytest.mark.parametrize("backend", ["auto", "cuda", "reference"])
 def test_bad_pipeline_raises_where_it_is_set_on_every_backend(backend):
-    # A misspelt pipeline never reaches a loss call, whatever its backend.
-    with pytest.raises(ValueError, match="pipeline must be one of"):
-        mt.update_config(backend=backend, pipeline="splt")
+    # The padded loss has one CUDA route: the JAX package's pipeline flag
+    # is an unknown field here, whatever the backend, and sets nothing.
+    with pytest.raises(AttributeError, match="unknown config field: "
+                                             "pipeline"):
+        mt.update_config(backend=backend, pipeline="auto")
     assert mt.get_config().backend == "auto"
-    with pytest.raises(ValueError, match="pipeline must be one of"):
-        config.Config(backend=backend, pipeline="splt")
+    with pytest.raises(AttributeError, match="unknown config field: "
+                                             "pipeline"):
+        with mt.config_override(backend=backend, pipeline="auto"):
+            pass
+    assert mt.get_config().backend == "auto"
+    with pytest.raises(TypeError, match="pipeline"):
+        config.Config(backend=backend, pipeline="auto")
 
 
 def test_split_route_readme_golden():
+    # The padded loss's one CUDA route, the deferred one.
     lg, lb, il, sl = convert.loss_inputs_from_numpy(*golden.readme_batch(),
                                                     device="cpu")
-    with mt.config_override(pipeline="split"):
-        costs, grads = fused.rnnt_loss_cuda(lg, lb, il, sl)
+    costs, grads = _cuda_route(lg, lb, il, sl)
     np.testing.assert_allclose(costs.numpy(), [golden.README_LOSS], atol=1e-4)
     np.testing.assert_allclose(grads[0].numpy(), golden.README_GRADS,
                                atol=1e-2)
 
 
 def test_split_route_inf_padding_and_infeasible_sample():
+    # The padded loss's one CUDA route, the deferred one.
     lg, lb, il, sl = _loss_case(seed=4)
     lg_t, lb_t, il_t, sl_t = convert.loss_inputs_from_numpy(lg, lb, il, sl,
                                                             device="cpu")
@@ -469,11 +509,9 @@ def test_split_route_inf_padding_and_infeasible_sample():
     align[0, :int(sl[0])] = lb[0, :int(sl[0])]
     align[1, :int(sl[1])] = lb[1, :int(sl[1])]
     bands = mt.bands_from_alignment(_t(align), il_t, sl_t, 0, 0)
-    with mt.config_override(pipeline="split"):
-        c_fin, _ = fused.rnnt_loss_cuda(lg_t, lb_t, il_t, sl_t)
-        c_inf, g_inf = fused.rnnt_loss_cuda(padded, lb_t, il_t, sl_t)
-        c_bad, g_bad = fused.rnnt_loss_cuda(lg_t, lb_t, il_t, sl_t,
-                                            bands=bands)
+    c_fin, _ = _cuda_route(lg_t, lb_t, il_t, sl_t)
+    c_inf, g_inf = _cuda_route(padded, lb_t, il_t, sl_t)
+    c_bad, g_bad = _cuda_route(lg_t, lb_t, il_t, sl_t, bands=bands)
     assert torch.equal(c_fin, c_inf)
     t_idx = torch.arange(lg.shape[1])[None, :, None]
     s_idx = torch.arange(lg.shape[2])[None, None, :]
@@ -485,13 +523,12 @@ def test_split_route_inf_padding_and_infeasible_sample():
 
 
 def test_split_nan_cost_gradient_matches_jax_split():
-    """The NaN-cost case on the split route: like the JAX package's Pallas
-    split route (interpret mode), costs [8.5436, NaN] and an all-zero
-    gradient for sample 1, where the oracles and the deferred route put NaN
-    on lattice cells. JAX's occupancy coefficients are all 0 for a sample
-    whose ll is not finite (reference.py occupancy_coefficients), and its
-    grad_pass writes 0 where the coefficient is 0; the port's row 6 keeps
-    that contract (ROADMAP §3's recorded difference)."""
+    """The NaN-cost case on the 'cuda' (deferred) route against the JAX
+    package's Pallas split route (interpret mode): the same costs [8.5436,
+    NaN] and sample 0's gradient. Sample 1's gradient parts as ROADMAP §1
+    records: JAX's split route writes it all 0 (its occupancy coefficients
+    are 0 for a sample whose ll is not finite), the deferred route puts NaN
+    on the oracle's NaN cells, as the oracles do, and 0 on padding."""
     from monotonic_rnnt_tpu.utils.debug import interpret_mode
 
     case, _ = nan_cost_case()
@@ -503,18 +540,15 @@ def test_split_nan_cost_gradient_matches_jax_split():
     with jax_config(pipeline="split"), interpret_mode():
         want_c = mr.monotonic_rnnt_loss(*args, backend="pallas")
         want_g = np.asarray(jax.grad(total)(args[0]))
-    lg, lb, il, sl = convert.loss_inputs_from_numpy(*case, device="cpu")
-    bands = mt.default_bands(il, sl, lg.shape[1])
-    x = lg.clone().requires_grad_(True)
-    with mt.config_override(pipeline="split"):
-        costs = tloss._LossCore.apply(x, lb, il, sl, bands.min_s,
-                                      bands.max_s, 0, "cuda")
-        costs.sum().backward()
-    got_g = x.grad.numpy()
-    np.testing.assert_allclose(costs.detach().numpy(), np.asarray(want_c),
-                               rtol=1e-5)
+    _, oracle_g = rnnt_loss_reference(*args)
+    costs, grads = _cuda_route(*convert.loss_inputs_from_numpy(*case,
+                                                               device="cpu"))
+    got_g = grads.numpy()
+    np.testing.assert_allclose(costs.numpy(), np.asarray(want_c), rtol=1e-5)
     np.testing.assert_allclose(np.asarray(want_c)[0], 8.5436, rtol=1e-5)
-    assert np.isnan(costs.detach().numpy()[1])
+    assert np.isnan(costs.numpy()[1])
     assert not np.isnan(want_g).any() and (want_g[1] == 0).all()
-    assert not np.isnan(got_g).any() and (got_g[1] == 0).all()
-    np.testing.assert_allclose(got_g, want_g, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got_g[0], want_g[0], rtol=1e-4, atol=1e-6)
+    nan_cells = np.isnan(np.asarray(oracle_g))
+    assert nan_cells[1].any() and np.isnan(got_g)[nan_cells].all()
+    assert (got_g[1, int(case[2][1]):] == 0).all()

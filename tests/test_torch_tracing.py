@@ -187,12 +187,11 @@ def test_counters_copy_and_reset():
     assert tprof.ROWS["stats_alpha_fused.padded"] == 0
 
 
-@pytest.mark.parametrize("route, pipeline, traced, counted", [
-    ("cuda", "auto", False, True), ("cuda", "split", False, False),
-    ("reference", "auto", False, False), ("cuda", "auto", True, False)],
-    ids=["deferred", "split", "reference", "traced"])
-def test_rows_counter_counts_row_1s_live_lattice(monkeypatch, route, pipeline,
-                                                 traced, counted):
+@pytest.mark.parametrize("route, traced, counted", [
+    ("cuda", False, True), ("reference", False, False),
+    ("cuda", True, False)], ids=["deferred", "reference", "traced"])
+def test_rows_counter_counts_row_1s_live_lattice(monkeypatch, route, traced,
+                                                 counted):
     """A padded loss call on the route that runs row 1 adds the lattice rows
     row 1 reads, sum_b T'_b (S_b + 1), and those of the padded lattice,
     B T S1, to counters()["rows"], from validation's host copy of the
@@ -205,11 +204,10 @@ def test_rows_counter_counts_row_1s_live_lattice(monkeypatch, route, pipeline,
     monkeypatch.setattr(tloss, "_resolve_backend", lambda b, x: route)
     monkeypatch.setattr(status, "tracing", lambda: traced)
     tprof.reset_counters()
-    with mt.config_override(pipeline=pipeline):
-        xg = x.clone().requires_grad_(True)
-        mt.monotonic_rnnt_loss(xg, labels, il, sl).sum().backward()
-        with torch.no_grad():
-            mt.monotonic_rnnt_loss(x, labels, il, sl)
+    xg = x.clone().requires_grad_(True)
+    mt.monotonic_rnnt_loss(xg, labels, il, sl).sum().backward()
+    with torch.no_grad():
+        mt.monotonic_rnnt_loss(x, labels, il, sl)
     seen = tprof.counters()
     assert seen.get("rows") == ({"stats_alpha_fused.read": 2 * (6 * 5 + 5 * 3),
                                  "stats_alpha_fused.padded": 2 * 2 * 6 * 5}
