@@ -35,7 +35,10 @@ constexpr int kGlueThreads = 256;
 constexpr int kGlueWarps = kGlueThreads / kWarp;
 
 // int32 arithmetic that wraps on overflow, as torch's int32 tensors do (a
-// length an exported artifact never checked may be anything).
+// length an exported artifact never checked may be anything, and the padded
+// loss launches the prologue and the costs before it checks the lengths).
+// No length indexes memory unclamped: the prologue's only index is its
+// (b, t) or (b, s) slot, and the costs pick in range or write NaN.
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }

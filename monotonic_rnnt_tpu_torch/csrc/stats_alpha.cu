@@ -106,12 +106,14 @@ struct TileRows {
 };
 
 // The live slots of lattice row (b, t): min(S_b + 1, S1), none where
-// t >= T'_b.
+// t >= T'_b or S_b < 0. The loss launches this kernel before it has
+// checked the lengths, so any int32 S_b stays inside the row: S_b is
+// compared before the + 1, which would overflow at INT_MAX.
 __device__ __forceinline__ int live_slots(const StatsAlphaArgs& a, int b,
                                           int t) {
   if (t >= a.ilen[b]) return 0;
-  const int n = a.slen[b] + 1;
-  return n < 0 ? 0 : (n > a.s1 ? a.s1 : n);
+  const int sl = a.slen[b];
+  return sl < 0 ? 0 : (sl >= a.s1 ? a.s1 : sl + 1);
 }
 
 // Stats of the live rows of lattice row (b, t) = ticket k, warp w taking

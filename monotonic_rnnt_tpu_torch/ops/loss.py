@@ -13,6 +13,13 @@ PyTorch counterpart of ``monotonic_rnnt_tpu/ops/loss.py``:
     plain-torch oracle and the backward scales it by the cotangent;
   * the alignment-restricted variant is the same lattice with band masks
     (reference restrict_to_alignment, cpu_workspace_manager.h:207-224).
+
+A call on the ``cuda`` backend whose lengths are on the card queues its
+forward before it waits for the lengths' values (``loss_ahead``): one copy
+of both lengths to pinned host memory goes first, the forward's launches
+queue behind it, and only then does the host wait for that copy and check
+the values. So the host prepares the step while the card still runs the
+previous one.
 """
 
 from __future__ import annotations
@@ -24,8 +31,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils.config import get_config
-from ..utils.profiling import phase_timer, span, spanned
-from ..utils.status import tracing, validate_loss_inputs
+from ..utils.profiling import AHEAD, phase_timer, span, spanned
+from ..utils.status import (check_loss_shapes, checked_lengths, copy_lengths,
+                            tracing, validate_loss_inputs)
 from .bands import Bands, bands_from_alignment, default_bands
 from .cuda.fused import (count_live_rows, rnnt_loss_cuda_deferred_bwd,
                          rnnt_loss_cuda_deferred_fwd)
@@ -125,8 +133,15 @@ def monotonic_rnnt_loss(
       [B] float32 costs (negative log-likelihoods), differentiable w.r.t.
       logits; the gradient comes in the logits' dtype.
     """
-    host_lengths = validate_loss_inputs(logits, labels, input_lengths,
-                                        label_lengths)
+    ahead = _queues_ahead(logits, input_lengths, label_lengths, alignment,
+                          backend)
+    if ahead:
+        with span("mrnnt.validate"):
+            check_loss_shapes(logits, labels, input_lengths, label_lengths)
+            lengths = copy_lengths(input_lengths, label_lengths)
+    else:
+        host_lengths = validate_loss_inputs(logits, labels, input_lengths,
+                                            label_lengths)
     dev = logits.device
     labels = labels.to(dev)
     input_lengths = input_lengths.to(device=dev, dtype=torch.int32)
@@ -143,11 +158,53 @@ def monotonic_rnnt_loss(
             else:
                 bands = default_bands(input_lengths, label_lengths, t_max)
     route = _resolve_backend(backend, logits)
+    if ahead:
+        return loss_ahead(logits, labels, input_lengths, label_lengths, bands,
+                          blank_id, lengths)
     if host_lengths is not None and route == "cuda":
         # This call runs row 1 once.
         count_live_rows(*host_lengths, t_max, logits.shape[2])
     return loss_on_route(logits, labels, input_lengths, label_lengths, bands,
                          blank_id, route)
+
+
+def _queues_ahead(logits, input_lengths, label_lengths, alignment,
+                  backend) -> bool:
+    """Whether a call queues its forward before it waits for its lengths:
+    on the 'cuda' route, with both lengths on the card, and not while a
+    graph is traced (no value checks then). The alignment form checks
+    first, as bands_from_alignment gathers at indices the lengths bound;
+    the reference route indexes by them too."""
+    return (alignment is None and logits.is_cuda and input_lengths.is_cuda
+            and label_lengths.is_cuda
+            and (backend or get_config().backend) in ("auto", "cuda")
+            and not tracing())
+
+
+def loss_ahead(logits, labels, input_lengths, label_lengths, bands: Bands,
+               blank_id: int, lengths) -> torch.Tensor:
+    """loss_on_route's 'cuda' route, then the lengths' value checks:
+    `lengths` is copy_lengths' copy of the caller's lengths, started before
+    this call, and the host waits for it only once the forward's launches
+    (loss_prologue, row 1, loss_costs) are queued behind it. The kernels
+    keep inside their tensors whatever the lengths hold, so an invalid
+    batch raises RnntError here, before its costs reach the caller; they go
+    with their autograd node, and no backward runs on them. Then row 1's
+    rows are counted from the checked host lengths."""
+    _, t_max, s1, _ = logits.shape
+    try:
+        costs = loss_on_route(logits, labels, input_lengths, label_lengths,
+                              bands, blank_id, "cuda")
+    except ValueError:
+        # Invalid lengths raise first, as where the checks come first.
+        with span("mrnnt.validate"):
+            checked_lengths(lengths, t_max, s1)
+        raise
+    AHEAD["validate"] += 1
+    with span("mrnnt.validate"):
+        ilen, slen = checked_lengths(lengths, t_max, s1)
+    count_live_rows(ilen, slen, t_max, s1)
+    return costs
 
 
 def loss_on_route(logits, labels, input_lengths, label_lengths, bands: Bands,

@@ -38,8 +38,10 @@ lattice rows (a row: one cell's V logits) by what a kernel did with them:
 ``stats_alpha_fused.read``, the live rows row 1 reads, and
 ``stats_alpha_fused.padded``, the rows of the padded lattice it was given,
 counted by the padded loss from the host copy of the lengths that its
-validation makes (none where it makes none). ``counters()`` returns a
-copy of them, ``reset_counters()`` zeroes them.
+validation makes (none where it makes none), and ``AHEAD["validate"]``, one
+per padded loss call that queued its forward's launches before it waited
+for that copy. ``counters()`` returns a copy of them, ``reset_counters()``
+zeroes them.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from __future__ import annotations
 import functools
 import time
 from contextlib import contextmanager, nullcontext
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +59,7 @@ _NULL = nullcontext()
 LAUNCHES: Dict[str, int] = {}
 _SYNCS: Dict[str, int] = {}
 ROWS: Dict[str, int] = {}
+AHEAD: Dict[str, int] = {"validate": 0}
 
 
 def tracing() -> bool:
@@ -99,23 +102,50 @@ def to_host(t: torch.Tensor, site: str) -> torch.Tensor:
         return t.cpu()
 
 
+def to_host_ahead(t: torch.Tensor) -> Tuple[torch.Tensor, "torch.cuda.Event"]:
+    """Starts a copy of CUDA tensor `t` into pinned host memory and returns
+    the host tensor with the CUDA event that marks the copy's end, without
+    waiting: the copy runs after the work queued on the current stream, and
+    the host tensor holds `t` only once ``wait_host`` has returned."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    return host, done
+
+
+def wait_host(done: Optional["torch.cuda.Event"], site: str) -> None:
+    """Waits for a copy that ``to_host_ahead`` started, as ``to_host`` waits
+    for its own: a sync, counted as ``syncs[site]`` and spanned as
+    ``mrnnt.sync.<site>``. Nothing where there is no event (no copy)."""
+    if done is None:
+        return
+    _SYNCS[site] = _SYNCS.get(site, 0) + 1
+    with span("mrnnt.sync." + site):
+        done.synchronize()
+
+
 def counters() -> Dict[str, Dict[str, int]]:
     """A copy of the counters that are not zero: {"launches": {row: n},
-    "syncs": {site: n}}, and "rows": {name: n} once a kernel has counted
-    rows (so a process that runs no row 1 reads the same two kinds)."""
+    "syncs": {site: n}}, "rows": {name: n} once a kernel has counted rows
+    and "ahead": {"validate": n} once a loss call has queued its forward
+    before its sync (so a process that runs no row 1 reads the same two
+    kinds)."""
     out = {"launches": {k: n for k, n in LAUNCHES.items() if n},
            "syncs": dict(_SYNCS)}
-    rows = {k: n for k, n in ROWS.items() if n}
-    if rows:
-        out["rows"] = rows
+    for kind, counts in (("rows", ROWS), ("ahead", AHEAD)):
+        seen = {k: n for k, n in counts.items() if n}
+        if seen:
+            out[kind] = seen
     return out
 
 
 def reset_counters() -> None:
     for row in LAUNCHES:
         LAUNCHES[row] = 0
-    for name in ROWS:
-        ROWS[name] = 0
+    for counts in (ROWS, AHEAD):
+        for name in counts:
+            counts[name] = 0
     _SYNCS.clear()
 
 

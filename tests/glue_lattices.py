@@ -1,7 +1,9 @@
 """The lattices of the glue kernels around rows 1-2 (csrc/loss_glue.cu),
 shared by the CPU tests (tests/test_torch_kernels.py holds their plain
 versions against the JAX package's glue) and the card's
-(tests/test_torch_cuda.py holds the kernels against the plain versions).
+(tests/test_torch_cuda.py holds the kernels against the plain versions),
+and the invalid lengths that validation refuses after the padded loss has
+queued them (tests/test_torch_helpers_bands.py, tests/test_torch_cuda.py).
 It imports no JAX."""
 
 import numpy as np
@@ -27,6 +29,25 @@ GLUE_LATTICES = [
     ("bucket-36x390x70-i64", 42, 36, 390, 69, 8, 0, None, None, 2),
     ("bucket-30x452x81", 43, 30, 452, 80, 8, 0, None, None, None),
     ("bucket-26x500x89", 44, 26, 500, 88, 8, 0, None, None, None),
+]
+
+
+# (name, T_b, S_b) of a batch of 2 on the padded [2, 5, 3, V] lattice (T_max
+# 5, S_max 2; (5, 3), (2, 1) is valid) that validation refuses: each
+# value check once, then int32's extremes +-(2^31 - 1) in each length. The
+# padded loss launches its forward kernels before it checks the lengths,
+# so they take these too.
+INT32_MAX = 2**31 - 1
+BAD_LENGTHS = [
+    ("ilen_zero", (0, 3), (2, 1)),
+    ("slen_negative", (5, 3), (-1, 1)),
+    ("ilen_below_slen", (5, 1), (2, 2)),
+    ("ilen_above_tmax", (6, 3), (2, 1)),
+    ("slen_above_smax", (5, 3), (3, 1)),
+    ("ilen_int32_max", (INT32_MAX, 3), (2, 1)),
+    ("ilen_int32_neg", (-INT32_MAX, 3), (2, 1)),
+    ("slen_int32_max", (5, 3), (INT32_MAX, 1)),
+    ("slen_int32_neg", (5, 3), (-INT32_MAX, 1)),
 ]
 
 

@@ -19,7 +19,7 @@ import torch
 
 import golden
 import monotonic_rnnt_tpu_torch as mt
-from glue_lattices import GLUE_LATTICES, glue_case
+from glue_lattices import BAD_LENGTHS, GLUE_LATTICES, glue_case
 import torch.distributed as dist
 from monotonic_rnnt_tpu_torch import convert
 from monotonic_rnnt_tpu_torch.ops import banded as tbanded
@@ -32,6 +32,8 @@ from torch_stats_model import NEG_INF, special_rows, stats_model
 from monotonic_rnnt_tpu_torch.ops.cuda import stream as ST
 from monotonic_rnnt_tpu_torch.interop import torch_binding as binding
 from monotonic_rnnt_tpu_torch.parallel import sharding
+from monotonic_rnnt_tpu_torch.utils import profiling as tprof
+from monotonic_rnnt_tpu_torch.utils import status as tstatus
 
 pytestmark = pytest.mark.cuda
 
@@ -461,6 +463,77 @@ def test_loss_through_glue_kernels_equals_plain_glue(device, monkeypatch,
         assert _launched() == {"stats_alpha_fused": 1, "beta_grad_fused": 1}
     for g, r in zip((*got, cost_only), (*want, want[0])):
         _same_bits(g, r)
+
+
+# --- the launch-first order: the forward queued before the lengths' checks -----
+
+def _lattice_2x5x3(device, v=37):
+    """The [2, 5, 3, V] lattice of BAD_LENGTHS, its valid lengths and a loss
+    step on it: (costs, gradient) of given lengths."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((2, 5, 3, v), generator=gen, device=device) * 2
+    labels = torch.randint(1, v, (2, 2), generator=gen, device=device,
+                           dtype=torch.int32)
+    good = (torch.tensor([5, 3], dtype=torch.int32, device=device),
+            torch.tensor([2, 1], dtype=torch.int32, device=device))
+
+    def step(il, sl):
+        xg = x.clone().requires_grad_(True)
+        costs = mt.monotonic_rnnt_loss(xg, labels, il, sl)
+        grads, = torch.autograd.grad(costs.sum(), xg)
+        torch.cuda.synchronize()
+        return costs.detach(), grads
+
+    return x, labels, good, step
+
+
+@pytest.mark.parametrize("case", BAD_LENGTHS, ids=lambda c: c[0])
+def test_invalid_lengths_raise_with_the_forward_queued(device, case):
+    """Each invalid case, int32's extremes in each length among them,
+    raises validation's RnntError after row 1 and its glue have run on
+    those lengths; the context is unharmed: a valid step afterwards gives
+    the costs and gradient of the same step before, bit for bit."""
+    _, ilen, slen = case
+    x, labels, good, step = _lattice_2x5x3(device)
+    before = step(*good)
+    bad = tuple(torch.tensor(v, dtype=torch.int32, device=device)
+                for v in (ilen, slen))
+    with pytest.raises(tstatus.RnntError) as want:
+        tstatus.validate_loss_inputs(x.cpu(), labels.cpu(),
+                                     *(t.cpu() for t in bad))
+    launched, ahead = K.LAUNCHES["stats_alpha_fused"], tprof.AHEAD["validate"]
+    with pytest.raises(tstatus.RnntError) as got:
+        mt.monotonic_rnnt_loss(x.clone().requires_grad_(True), labels, *bad)
+    assert (got.value.status, str(got.value)) == (want.value.status,
+                                                  str(want.value))
+    assert K.LAUNCHES["stats_alpha_fused"] == launched + 1
+    assert tprof.AHEAD["validate"] == ahead + 1
+    torch.cuda.synchronize()
+    for g, r in zip(step(*good), before):
+        _same_bits(g, r)
+
+
+def test_a_loss_call_waits_once_after_row_1(device):
+    """A loss step copies both lengths to pinned host memory in one copy
+    and waits for it once, in mrnnt.sync.validate.lengths, which opens
+    after row 1's launch span has closed."""
+    x, labels, good, step = _lattice_2x5x3(device)
+    (ilen, slen), done = tstatus.copy_lengths(*good)
+    done.synchronize()
+    assert ilen.is_pinned() and ilen.tolist() == [5, 3]
+    assert slen.tolist() == [2, 1]
+    step(*good)
+    tprof.reset_counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(*good)
+    seen = tprof.counters()
+    assert seen["syncs"] == {"validate.lengths": 1}
+    assert seen["ahead"] == {"validate": 1}
+    (row_1,), (wait,) = ([e for e in prof.events() if e.name == name]
+                         for name in ("mrnnt.launch.mrnnt_stats_alpha",
+                                      "mrnnt.sync.validate.lengths"))
+    assert row_1.time_range.end <= wait.time_range.start
 
 
 # --- the banded path -------------------------------------------------------------

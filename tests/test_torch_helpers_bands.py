@@ -1,6 +1,9 @@
-"""The PyTorch port's helpers, bands and input validation against the JAX package."""
+"""The PyTorch port's helpers, bands and input validation against the JAX
+package, and the padded loss's launch-first order: on the card it queues
+its forward before it waits for the lengths and checks them."""
 
 import itertools
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,9 +13,14 @@ import torch
 from monotonic_rnnt_tpu.ops import bands as jbands
 from monotonic_rnnt_tpu.ops import helpers as jhelpers
 from monotonic_rnnt_tpu.utils import status as jstatus
+import monotonic_rnnt_tpu_torch as mt
 from monotonic_rnnt_tpu_torch.ops import bands as tbands
 from monotonic_rnnt_tpu_torch.ops import helpers as thelpers
+from monotonic_rnnt_tpu_torch.ops import loss as tloss
+from monotonic_rnnt_tpu_torch.ops.cuda import fused
+from monotonic_rnnt_tpu_torch.utils import profiling as tprof
 from monotonic_rnnt_tpu_torch.utils import status as tstatus
+from glue_lattices import BAD_LENGTHS
 
 SPECIALS = [-np.inf, np.inf, 0.0, -1.0, 3.5, -1e30, 88.0]
 
@@ -114,13 +122,9 @@ def _bad_inputs():
     yield "labels_narrow", (lg, lb[:, :1], il, sl)
     yield "ilen_shape", (lg, lb, il[:1], sl)
     yield "slen_float", (lg, lb, il, sl.astype(np.float32))
-    yield "ilen_zero", (lg, lb, np.array([0, 3], np.int32), sl)
-    yield "slen_negative", (lg, lb, il, np.array([-1, 1], np.int32))
-    yield "ilen_below_slen", (lg, lb, np.array([5, 1], np.int32),
-                              np.array([2, 2], np.int32))
-    yield "ilen_above_tmax", (lg, lb, np.array([6, 3], np.int32), sl)
-    yield "slen_above_smax", (lg, lb, np.array([5, 3], np.int32),
-                              np.array([3, 1], np.int32))
+    for name, ilen, slen in BAD_LENGTHS:
+        yield name, (lg, lb, np.array(ilen, np.int32),
+                     np.array(slen, np.int32))
 
 
 @pytest.mark.parametrize("name,args", list(_bad_inputs()),
@@ -139,3 +143,163 @@ def test_validate_loss_inputs_raises_like_jax(name, args):
 def test_validate_loss_inputs_accepts_valid():
     _, targs = _both(*_valid())
     tstatus.validate_loss_inputs(*targs)
+
+
+# --- the launch-first order (ops/loss.py loss_ahead) ---------------------------
+#
+# On the card, a padded loss call with its lengths there copies them to the
+# host without waiting, queues its forward and only then waits and checks.
+# Here the seam is the 'cuda' route on CPU tensors (the operators' plain
+# versions) with a recorder standing in for the copy's CUDA event.
+
+class _Copy:
+    """copy_lengths as on the card: the host lengths with an event, whose
+    synchronize() (the wait) records what the forward had called by then."""
+
+    def __init__(self, log):
+        self.log, self.seen_at_wait = log, None
+
+    def __call__(self, input_lengths, label_lengths):
+        (ilen, slen), done = tstatus.copy_lengths(input_lengths,
+                                                  label_lengths)
+        assert done is None                     # host lengths: no copy
+        return (ilen, slen), types.SimpleNamespace(synchronize=self.wait)
+
+    def wait(self):
+        self.seen_at_wait = list(self.log)
+
+
+def _launch_first(monkeypatch, forward=None):
+    """Routes monotonic_rnnt_loss through loss_ahead on CPU tensors; logs the
+    calls of row 1's and loss_costs' operators, or stands `forward` in for
+    the forward's launches. Returns (the copy, the call log)."""
+    log = []
+    monkeypatch.setattr(tloss, "_queues_ahead", lambda *a: True)
+    monkeypatch.setattr(tloss, "_resolve_backend", lambda b, x: "cuda")
+    for name in ("stats_alpha_fused", "loss_costs"):
+        def logged(*args, _fn=getattr(fused, name), _name=name):
+            log.append(_name)
+            return _fn(*args)
+        monkeypatch.setattr(fused, name, logged)
+    if forward is not None:
+        def recorder(logits, *args):
+            log.append("forward")
+            return forward(logits)
+        monkeypatch.setattr(tloss, "loss_on_route", recorder)
+    copy = _Copy(log)
+    monkeypatch.setattr(tloss, "copy_lengths", copy)
+    return copy, log
+
+
+@pytest.mark.parametrize("name,ilen,slen", BAD_LENGTHS,
+                         ids=[c[0] for c in BAD_LENGTHS])
+def test_launch_first_raises_as_validation_does(monkeypatch, name, ilen,
+                                                slen):
+    """Every invalid length case raises, after the forward's launches, the
+    RnntError that validate_loss_inputs raises, with its status and
+    message; its costs never reach the caller."""
+    lg, lb, _, _ = (torch.from_numpy(a) for a in _valid())
+    il, sl = (torch.tensor(v, dtype=torch.int32) for v in (ilen, slen))
+    with pytest.raises(tstatus.RnntError) as want:
+        tstatus.validate_loss_inputs(lg, lb, il, sl)
+    copy, log = _launch_first(monkeypatch,
+                              forward=lambda x: x.new_zeros(x.shape[0]))
+    tprof.reset_counters()
+    with pytest.raises(tstatus.RnntError) as got:
+        mt.monotonic_rnnt_loss(lg, lb, il, sl)
+    assert got.value.status is want.value.status
+    assert str(got.value) == str(want.value)
+    assert copy.seen_at_wait == ["forward"]
+    seen = tprof.counters()
+    assert seen["syncs"] == {"validate.lengths": 1}
+    assert seen["ahead"] == {"validate": 1}
+    assert "rows" not in seen               # no rows from invalid lengths
+
+
+@pytest.mark.parametrize("valid", [True, False], ids=["valid", "invalid"])
+def test_launch_first_keeps_the_checks_precedence(monkeypatch, valid):
+    """Where a launch refuses its operands, invalid lengths still raise
+    their RnntError first, as where the checks come first; valid ones let
+    the launch's error through."""
+    lg, lb, il, sl = (torch.from_numpy(a) for a in _valid())
+    if not valid:
+        il = torch.tensor([0, 3], dtype=torch.int32)
+
+    def refused(x):
+        raise ValueError("logits must be float32 or bfloat16")
+
+    _launch_first(monkeypatch, forward=refused)
+    with pytest.raises(ValueError) as got:
+        mt.monotonic_rnnt_loss(lg, lb, il, sl)
+    assert isinstance(got.value, tstatus.RnntError) is not valid
+
+
+def test_launch_first_equals_checks_first(monkeypatch):
+    """On valid lengths the launch-first order gives the costs and the
+    gradient of the checks-first order bit for bit, waits once, after row 1
+    and loss_costs were called, and counts one call queued ahead and row
+    1's rows."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy((rng.randn(3, 9, 5, 11) * 2).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(1, 11, (3, 4)).astype(np.int32))
+    il = torch.tensor([9, 7, 4], dtype=torch.int32)
+    sl = torch.tensor([4, 2, 0], dtype=torch.int32)
+    w = torch.tensor([1.0, -0.5, 2.0])
+
+    def run():
+        xg = x.clone().requires_grad_(True)
+        costs = mt.monotonic_rnnt_loss(xg, labels, il, sl)
+        (grad,) = torch.autograd.grad((costs * w).sum(), xg)
+        return costs.detach(), grad
+
+    with monkeypatch.context() as m:
+        m.setattr(tloss, "_resolve_backend", lambda b, x: "cuda")
+        first = run()
+    copy, _ = _launch_first(monkeypatch)
+    tprof.reset_counters()
+    ahead = run()
+    assert torch.equal(ahead[0], first[0]) and torch.equal(ahead[1], first[1])
+    assert copy.seen_at_wait == ["stats_alpha_fused", "loss_costs"]
+    seen = tprof.counters()
+    assert seen["syncs"] == {"validate.lengths": 1}
+    assert seen["ahead"] == {"validate": 1}
+    assert seen["rows"] == {"stats_alpha_fused.read": 9 * 5 + 7 * 3 + 4,
+                            "stats_alpha_fused.padded": 3 * 9 * 5}
+
+
+def test_reference_route_checks_first():
+    """CPU tensors take the reference route, which checks first: nothing is
+    queued ahead and host lengths need no sync."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(2, 5, 3, 7).astype(np.float32))
+    labels = torch.ones((2, 2), dtype=torch.int32)
+    tprof.reset_counters()
+    mt.monotonic_rnnt_loss(x, labels, torch.tensor([5, 3]),
+                           torch.tensor([2, 1])).sum()
+    assert tprof.counters() == {"launches": {}, "syncs": {}}
+    with pytest.raises(tstatus.RnntError, match="input_lengths must be"):
+        mt.monotonic_rnnt_loss(x, labels, torch.tensor([0, 3]),
+                               torch.tensor([2, 1]))
+
+
+_CARD = types.SimpleNamespace(is_cuda=True)
+_HOST = types.SimpleNamespace(is_cuda=False)
+
+
+@pytest.mark.parametrize("logits,lengths,alignment,backend,traced,ahead", [
+    (_CARD, _CARD, None, None, False, True),
+    (_CARD, _CARD, None, "cuda", False, True),
+    (_CARD, _CARD, None, "reference", False, False),
+    (_CARD, _HOST, None, None, False, False),
+    (_HOST, _HOST, None, None, False, False),
+    (_CARD, _CARD, _CARD, None, False, False),
+    (_CARD, _CARD, None, None, True, False),
+], ids=["auto", "cuda", "reference", "host-lengths", "host", "alignment",
+        "traced"])
+def test_which_calls_queue_ahead(monkeypatch, logits, lengths, alignment,
+                                 backend, traced, ahead):
+    """Only the 'cuda' route with both lengths on the card, no alignment
+    and no graph being traced queues its forward before its checks."""
+    monkeypatch.setattr(tloss, "tracing", lambda: traced)
+    assert tloss._queues_ahead(logits, _CARD, lengths, alignment,
+                               backend) is ahead

@@ -174,9 +174,11 @@ def test_counters_copy_and_reset():
     assert tprof.to_host(host, "unit.host") is host     # no copy, no sync
     tk.LAUNCHES["grad_pass"] += 2
     tprof.ROWS["stats_alpha_fused.read"] += 7
+    tprof.AHEAD["validate"] += 1
     seen = tprof.counters()
     assert seen == {"launches": {"grad_pass": 2}, "syncs": {"unit.site": 3},
-                    "rows": {"stats_alpha_fused.read": 7}}
+                    "rows": {"stats_alpha_fused.read": 7},
+                    "ahead": {"validate": 1}}
     seen["syncs"]["unit.site"] = 99                      # a copy
     seen["rows"]["stats_alpha_fused.read"] = 99
     assert tprof.counters()["syncs"]["unit.site"] == 3
@@ -185,6 +187,7 @@ def test_counters_copy_and_reset():
     assert tprof.counters() == {"launches": {}, "syncs": {}}
     assert tk.LAUNCHES["grad_pass"] == 0                 # the rows stay
     assert tprof.ROWS["stats_alpha_fused.padded"] == 0
+    assert tprof.AHEAD == {"validate": 0}
 
 
 @pytest.mark.parametrize("route, traced, counted", [
