@@ -55,7 +55,8 @@ def init_like_flax(module: nn.Module,
             lecun_normal_(m.weight_ih, m.input_size, generator)
             for gate in m.weight_hh.split(m.hidden_size):  # i, f, g, o
                 nn.init.orthogonal_(gate, generator=generator)
-            nn.init.zeros_(m.bias_hh)
+            if m.bias_hh is not None:
+                nn.init.zeros_(m.bias_hh)
         else:
             continue
         if isinstance(getattr(m, "bias", None), torch.Tensor):

@@ -1,9 +1,13 @@
 """Conformer-transducer: encoder + predictor + joint -> monotonic RNN-T loss.
 
 PyTorch counterpart of ``monotonic_rnnt_tpu/models/transducer.py``. The
-encoder is the Conformer, or the Zipformer (``models/zipformer.py``, which
-the JAX package lacks) where ``TransducerConfig.encoder`` is a
-``ZipformerConfig``; the joint takes the encoder's output width. The
+encoder is the Conformer, the Zipformer (``models/zipformer.py``) where
+``TransducerConfig.encoder`` is a ``ZipformerConfig``, or the Emformer
+(``models/emformer.py``) where it is an ``EmformerConfig``; the JAX
+package has neither of the last two. The joint takes the encoder's output
+width; with ``joint_activation="relu"`` it is torchaudio's joiner,
+W ReLU(enc + pred) + b, with no projections of its own (the encoder's and
+the predictor's outputs are then both ``joint_dim`` wide). The
 joint network produces the per-(t, s) logits the loss consumes
 ([B, T', S+1, V], float32 whatever the compute dtype), so the loss runs the
 port's float32 kernels: on the card ``stats_alpha_fused`` in the forward
@@ -39,6 +43,7 @@ from ..ops.helpers import NEG_INF
 from ..ops.loss import monotonic_rnnt_loss
 from ..utils.profiling import span
 from .conformer import ConformerConfig, ConformerEncoder, subsampled_length
+from .emformer import EmformerConfig, EmformerEncoder
 from .init import finish_init
 from .predictor import ConvPredictor, LstmPredictor, PredictorConfig
 from .zipformer import ZipformerConfig, ZipformerEncoder
@@ -46,24 +51,41 @@ from .zipformer import ZipformerConfig, ZipformerEncoder
 
 @dataclasses.dataclass(frozen=True)
 class TransducerConfig:
-    encoder: Union[ConformerConfig, ZipformerConfig] = ConformerConfig()
+    encoder: Union[ConformerConfig, ZipformerConfig,
+                   EmformerConfig] = ConformerConfig()
     predictor: PredictorConfig = PredictorConfig()
     joint_dim: int = 256
     vocab_size: int = 1024           # includes blank at index blank_id
     blank_id: int = 0
     predictor_kind: str = "lstm"     # 'lstm' | 'conv'
     dtype: torch.dtype = torch.bfloat16
+    joint_activation: str = "tanh"   # 'tanh' (projected) | 'relu' (summed)
 
 
 class Joint(nn.Module):
-    """Additive joint: tanh(W_e enc[t] + W_p pred[s]) -> vocab logits."""
+    """Additive joint: tanh(W_e enc[t] + W_p pred[s]) -> vocab logits; or,
+    with ``joint_activation="relu"``, W ReLU(enc[t] + pred[s]) + b (only
+    ``vocab_proj``)."""
 
     def __init__(self, cfg: TransducerConfig, *,
                  generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
         self.cfg = cfg
-        self.enc_proj = nn.Linear(cfg.encoder.dim, cfg.joint_dim)
-        self.pred_proj = nn.Linear(cfg.predictor.dim, cfg.joint_dim)
+        self.summed = cfg.joint_activation == "relu"
+        if self.summed:
+            widths = {cfg.encoder.dim, cfg.predictor.output_dim, cfg.joint_dim}
+            if len(widths) != 1:
+                raise ValueError(
+                    "the relu joint adds the encoder's and the predictor's "
+                    f"outputs: their widths {cfg.encoder.dim} and "
+                    f"{cfg.predictor.output_dim} must equal joint_dim "
+                    f"{cfg.joint_dim}")
+        elif cfg.joint_activation == "tanh":
+            self.enc_proj = nn.Linear(cfg.encoder.dim, cfg.joint_dim)
+            self.pred_proj = nn.Linear(cfg.predictor.dim, cfg.joint_dim)
+        else:
+            raise ValueError("joint_activation must be 'tanh' or 'relu', got "
+                             f"{cfg.joint_activation!r}")
         self.vocab_proj = nn.Linear(cfg.joint_dim, cfg.vocab_size)
         finish_init(self, generator, device)
 
@@ -79,22 +101,28 @@ class Joint(nn.Module):
 
     def _head(self, params, enc, p):
         """enc [B, Tc, De], projected pred p [B, 1 or Tc, W, J]."""
-        e = self._project(params, "enc_proj", enc)
-        h = torch.tanh(e[:, :, None, :] + p)
+        if self.summed:
+            h = torch.relu(enc.to(self.cfg.dtype)[:, :, None, :] + p)
+        else:
+            e = self._project(params, "enc_proj", enc)
+            h = torch.tanh(e[:, :, None, :] + p)
         return self._project(params, "vocab_proj", h).float()
+
+    def _pred(self, params, pred):
+        if self.summed:
+            return pred.to(self.cfg.dtype)
+        return self._project(params, "pred_proj", pred)
 
     def joint_fn(self, params, enc, pred):
         """enc [B, Tc, De], pred [B, S+1, Dp] -> [B, Tc, S+1, V] f32 logits:
         the full-lattice joint_fn of ``rnnt_loss_fused_joint``."""
-        return self._head(params, enc,
-                          self._project(params, "pred_proj", pred)[:, None])
+        return self._head(params, enc, self._pred(params, pred)[:, None])
 
     def banded_fn(self, params, enc, pred_band):
         """enc [B, Tc, De], pred rows gathered per band cell [B, Tc, W, Dp]
         -> [B, Tc, W, V]: the joint_fn of ``rnnt_loss_fused_joint_banded``
         (enc is projected once per (b, t) and broadcast over the band)."""
-        return self._head(params, enc,
-                          self._project(params, "pred_proj", pred_band))
+        return self._head(params, enc, self._pred(params, pred_band))
 
     def forward(self, enc, pred):
         return self.joint_fn(self.joint_params(), enc, pred)
@@ -117,6 +145,8 @@ class MonotonicTransducer(nn.Module):
         self.cfg = cfg
         kw = {"generator": generator, "device": "cpu"}
         encoder = (ZipformerEncoder if isinstance(cfg.encoder, ZipformerConfig)
+                   else EmformerEncoder
+                   if isinstance(cfg.encoder, EmformerConfig)
                    else ConformerEncoder)
         self.encoder = encoder(cfg.encoder, feat_dim, **kw)
         predictor = (LstmPredictor if cfg.predictor_kind == "lstm"
@@ -190,11 +220,13 @@ class MonotonicTransducer(nn.Module):
         return (hyp, n_hyp, pstate, ctx), tok, emit
 
     def _bos_context(self, n: int):
-        """(predictor state, ctx) of n fresh hypotheses after BOS."""
+        """(predictor state, ctx) of n fresh hypotheses after BOS (the
+        predictor's bos_id)."""
         dev = self.joint.vocab_proj.weight.device
         return self.predictor.step(
             self.predictor.init_state(n),
-            torch.zeros((n,), dtype=torch.int32, device=dev))
+            torch.full((n,), self.cfg.predictor.bos_id, dtype=torch.int32,
+                       device=dev))
 
     @torch.no_grad()
     def greedy_decode(self, feats, feat_lengths, max_labels: int,
@@ -236,6 +268,10 @@ class MonotonicTransducer(nn.Module):
         if isinstance(self.cfg.encoder, ZipformerConfig):
             raise ValueError("chunked streaming needs a causal encoder; the "
                              "Zipformer is not causal")
+        if isinstance(self.cfg.encoder, EmformerConfig):
+            raise ValueError("chunked streaming recomputes a causal Conformer "
+                             "over a window; the Emformer's own streaming "
+                             "(cached left-context keys) is not implemented")
         sub = self.cfg.encoder.subsample_factor
         if lookback % sub:
             raise ValueError(f"lookback {lookback} not a multiple of the "

@@ -19,7 +19,11 @@ function call. The port's spans, all named ``mrnnt.<...>``:
   a Zipformer encoder opens ``mrnnt.zipformer.embed``,
   ``mrnnt.zipformer.stack<i>``, ``mrnnt.zipformer.attn_weights`` (each
   layer's shared softmax) and ``mrnnt.zipformer.attend`` (each module that
-  reads it) inside ``mrnnt.encode``;
+  reads it) inside ``mrnnt.encode``, an Emformer encoder
+  ``mrnnt.emformer.embed`` (input linear and time reduction),
+  ``mrnnt.emformer.rc_blocks`` (the right-context copies),
+  ``mrnnt.emformer.layer<i>`` (i = 0..) and ``mrnnt.emformer.attend`` (each
+  layer's masked attention);
 * loss entry points: ``mrnnt.loss`` around the public padded and banded
   losses, holding ``mrnnt.validate`` (the input checks) and ``mrnnt.bands``
   (the default or alignment bands);
@@ -38,10 +42,14 @@ lattice rows (a row: one cell's V logits) by what a kernel did with them:
 ``stats_alpha_fused.read``, the live rows row 1 reads, and
 ``stats_alpha_fused.padded``, the rows of the padded lattice it was given,
 counted by the padded loss from the host copy of the lengths that its
-validation makes (none where it makes none), and ``AHEAD["validate"]``, one
+validation makes (none where it makes none), ``AHEAD["validate"]``, one
 per padded loss call that queued its forward's launches before it waited
-for that copy. ``counters()`` returns a copy of them, ``reset_counters()``
-zeroes them.
+for that copy, and ``EMFORMER[name]``, what an Emformer encoder's forward
+did, counted from padded shapes on the host: ``attn_cells``, the attention
+score cells computed (batch x heads x layers x rows x keys), ``attn_kept``,
+those the block mask keeps at the padded length before key padding, and
+``rc_rows``, the right-context rows carried (batch x blocks x R).
+``counters()`` returns a copy of them, ``reset_counters()`` zeroes them.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ LAUNCHES: Dict[str, int] = {}
 _SYNCS: Dict[str, int] = {}
 ROWS: Dict[str, int] = {}
 AHEAD: Dict[str, int] = {"validate": 0}
+EMFORMER: Dict[str, int] = {"attn_cells": 0, "attn_kept": 0, "rc_rows": 0}
 
 
 def tracing() -> bool:
@@ -127,13 +136,14 @@ def wait_host(done: Optional["torch.cuda.Event"], site: str) -> None:
 
 def counters() -> Dict[str, Dict[str, int]]:
     """A copy of the counters that are not zero: {"launches": {row: n},
-    "syncs": {site: n}}, "rows": {name: n} once a kernel has counted rows
-    and "ahead": {"validate": n} once a loss call has queued its forward
-    before its sync (so a process that runs no row 1 reads the same two
-    kinds)."""
+    "syncs": {site: n}}, "rows": {name: n} once a kernel has counted rows,
+    "ahead": {"validate": n} once a loss call has queued its forward
+    before its sync, and "emformer": {name: n} once an Emformer encoder has
+    run (so a process that runs neither reads the same two kinds)."""
     out = {"launches": {k: n for k, n in LAUNCHES.items() if n},
            "syncs": dict(_SYNCS)}
-    for kind, counts in (("rows", ROWS), ("ahead", AHEAD)):
+    for kind, counts in (("rows", ROWS), ("ahead", AHEAD),
+                         ("emformer", EMFORMER)):
         seen = {k: n for k, n in counts.items() if n}
         if seen:
             out[kind] = seen
@@ -143,7 +153,7 @@ def counters() -> Dict[str, Dict[str, int]]:
 def reset_counters() -> None:
     for row in LAUNCHES:
         LAUNCHES[row] = 0
-    for counts in (ROWS, AHEAD):
+    for counts in (ROWS, AHEAD, EMFORMER):
         for name in counts:
             counts[name] = 0
     _SYNCS.clear()

@@ -247,6 +247,50 @@ def test_loss_through_kernels_matches_oracle(device, dtype):
     assert torch.equal(costs, out["cuda"][0])
 
 
+# The Emformer RNN-T's vocabulary: V = 4097 with blank 4096, the last id. An
+# f32 row is 16,388 bytes (a bf16 row 8,194), not a multiple of 16, so rows
+# 1-2 take their narrow loads (row 1's walk_rows, row 2's kVec = false), and
+# the blank is the row's last element.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["cpu", "cuda"])
+def test_loss_at_v4097_with_the_last_id_blank(where, dtype):
+    """The padded loss on the `cuda` route (on the card its kernels, on CPU
+    tensors their plain versions) against the oracle: costs to 1e-4, the
+    gradient to the card's tolerances above."""
+    if where == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from monotonic_rnnt_tpu_torch.ops import loss as tloss
+    v = blank = 4096
+    v += 1
+    logits, labels, ilen, slen = golden.repeat_label_case(11, 3, 14, 5, v,
+                                                          blank_id=blank)
+    lg, lb, il, sl = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,
+                                                    device=where, dtype=dtype)
+    assert int(lb.max()) < blank
+    w = torch.tensor([1.0, -0.5, 2.0], device=where)
+    out = {}
+    for route in ("cuda", "reference"):
+        K.reset_launch_counts()
+        x = lg.clone().requires_grad_(True)
+        if where == "cuda" or route == "reference":
+            costs = mt.monotonic_rnnt_loss(x, lb, il, sl, blank_id=blank,
+                                           backend=route)
+        else:
+            costs = tloss.loss_on_route(
+                x, lb, il.to(torch.int32), sl.to(torch.int32),
+                tbands.default_bands(il, sl, x.shape[1]), blank, route)
+        (costs * w).sum().backward()
+        out[route] = (costs.detach(), x.grad, _launched())
+    if where == "cuda":
+        torch.cuda.synchronize()
+        assert out["cuda"][2] == LOSS_STEP
+    assert out["cuda"][1].dtype == dtype
+    assert bool(torch.isfinite(out["cuda"][0]).all())
+    _close(out["cuda"][0], out["reference"][0], 1e-4, 1e-5)
+    _close(out["cuda"][1], out["reference"][1], 1e-6,
+           1.6e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
 def test_strided_logits_reach_the_kernels_contiguous(device):
     logits, labels, ilen, slen = golden.repeat_label_case(8, 3, 12, 4, 50)
     lg, lb, il, sl = convert.loss_inputs_from_numpy(logits, labels, ilen, slen,

@@ -160,6 +160,50 @@ def test_no_span_in_an_exported_or_compiled_graph(monkeypatch):
     assert exported.item() == 1.0 and compiled_probe.item() == 1.0
 
 
+def test_an_emformer_step_spans_its_layers_and_counts_its_attention():
+    """One Emformer train step: the embed, the right-context copies and
+    each layer with its masked attention open their spans inside
+    mrnnt.encode; counters()["emformer"] holds the score cells of the
+    [B, 1, nR + T, nR + T] mask over heads and layers, the cells its block
+    mask keeps (before key padding) and the right-context rows."""
+    from monotonic_rnnt_tpu_torch.models import emformer as te
+    enc = te.EmformerConfig(num_layers=2, reduction_dim=4, num_heads=2,
+                            ffn_dim=16, left_context=3, output_dim=16,
+                            dtype=torch.float32)
+    pred = tp.PredictorConfig(vocab_size=V, dim=8, embed_dim=8,
+                              dtype=torch.float32, bos_id=V - 1,
+                              num_layers=2, layer_norm=True, out_dim=16)
+    cfg = tt.TransducerConfig(enc, pred, joint_dim=16, vocab_size=V,
+                              blank_id=V - 1, dtype=torch.float32,
+                              joint_activation="relu")
+    gen = torch.Generator().manual_seed(1)
+    batch = (torch.randn(B, 70, F, generator=gen),
+             torch.tensor([70, 41], dtype=torch.int32),
+             torch.randint(0, V - 1, (B, S), generator=gen, dtype=torch.int32),
+             torch.tensor([S, S - 1], dtype=torch.int32))
+    state = ttrain.create_train_state(cfg, 0, batch, device="cpu")
+    tprof.reset_counters()
+    events = _profiled(lambda: ttrain.train_step(state, batch))
+    encode = _only(events, "mrnnt.encode")
+    names = [e.name for e in events if e.name.startswith("mrnnt.emformer.")]
+    assert sorted(set(names)) == [
+        "mrnnt.emformer.attend", "mrnnt.emformer.embed",
+        "mrnnt.emformer.layer0", "mrnnt.emformer.layer1",
+        "mrnnt.emformer.rc_blocks"]
+    assert names.count("mrnnt.emformer.attend") == 2
+    assert all(_inside(e, encode) for e in events
+               if e.name.startswith("mrnnt.emformer."))
+    t = 70 // 4
+    dropped = te.dropped_scores(t, torch.tensor([t, 41 // 4]), enc)
+    layers_heads = enc.num_layers * enc.num_heads
+    assert tprof.counters()["emformer"] == {
+        "attn_cells": layers_heads * dropped.numel(),
+        "attn_kept": layers_heads * B * int(te.attention_mask(t, enc).sum()),
+        "rc_rows": B * -(-t // 4)}
+    tprof.reset_counters()
+    assert "emformer" not in tprof.counters()
+
+
 def test_counters_copy_and_reset():
     """The launch counters are the kernel wrappers' LAUNCHES, by row."""
     assert tk.LAUNCHES is tprof.LAUNCHES

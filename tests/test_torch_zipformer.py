@@ -18,6 +18,7 @@ encodings 1e-5 absolute (the same: other shapes, other orders).
 
 import dataclasses
 import math
+from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
@@ -361,3 +362,15 @@ def test_train_step_spans_the_zipformer_under_encode():
     assert all(encode.time_range.start <= e.time_range.start
                and e.time_range.end <= encode.time_range.end
                for e in events if e.name.startswith("mrnnt.zipformer."))
+
+
+def test_the_reference_is_the_benchmarks_copy():
+    """tests/zipformer_reference.py and h100_bench/reference/zipformer.py are one
+    reference: below the first paragraph of their docstrings, which says
+    whose copy each is, they are the same bytes."""
+    def body(path):
+        return path.read_bytes().split(b"\n\n", 1)[1]
+
+    tests = Path(__file__).parent
+    assert body(tests / "zipformer_reference.py") == body(
+        tests.parent / "h100_bench" / "reference" / "zipformer.py")
